@@ -1,0 +1,400 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch / CUDA port starts on the card.
+
+    python3 chip_smoke.py        # from the repository root, one NVIDIA card
+
+It drives the port only (``vltk_tpu_torch``; nothing of JAX or of the JAX
+package):
+
+1. prints the card's name and power limit (nvidia-smi);
+2. builds every CUDA kernel of the extraction path from ``csrc/`` (one
+   nvcc per source, started together) and prints the build time;
+3. holds the RoIPool kernel against its plain PyTorch version, bitwise, in
+   float32 and bf16, at the extraction shapes of B=8 and B=16, and times
+   both;
+4. holds the greedy-NMS kernel against its plain version, exact keep
+   indices, at the RPN shape (B, 6000) -> 300 and the detection shape
+   (B*3, 300) -> 36 for B=8 and B=16, and times both;
+5. runs the 36-box extraction (``adapters.frcnn.setup(preset="parity_300")``:
+   R-101-C4, 1600 classes, 400 attributes, bf16) at full width on the
+   832x1344 canvas with seeded random weights, tamed so activations stay
+   finite; checks the packed output and that both kernels were launched on
+   that run, and prints images/s at B=8 and B=16;
+6. runs a small f32 FRCNN on the card and on the CPU with the same weights
+   and compares them key by key (the CPU path is the one the test suite
+   holds against the JAX package);
+7. prints the ``kernels`` JSON line, then the device line last.
+
+Any failed check raises: the script exits non-zero and prints no result.
+It also fails without a CUDA device and outside a checkout of the repo.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the tensor
+# cores (the kernels' max / IoU arithmetic)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+RAW_CANVAS = (512, 672)  # bench.py GEOM["full"]: raw canvas, content, canvas
+RAW_HW = (480, 640)
+CANVAS = (832, 1344)
+FEAT_HW = (CANVAS[0] // 16, CANVAS[1] // 16)  # the res4 map: 52 x 84
+N_ROI = 300
+C_RES4 = 1024  # res4 channels of R-101-C4
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` in ms, by CUDA events over ``reps``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, nops: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+# --------------------------------------------------------------------- K1
+
+
+def roi_boxes(gen: torch.Generator, b: int, p: int, dev) -> torch.Tensor:
+    """Proposal-like boxes inside the resized content (800 x 1067 of the
+    canvas), plus the edge cases: zero size, the full canvas, negative and
+    off-map corners, corners on the rounding half."""
+    h, w = 800.0, 1067.0
+    xy = torch.rand(b, p, 2, generator=gen) * torch.tensor([w, h])
+    wh = torch.rand(b, p, 2, generator=gen) ** 2 * torch.tensor([w, h])
+    boxes = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([w, h]))], dim=-1)
+    boxes[0, 0] = torch.tensor([40.0, 40.0, 40.0, 40.0])
+    boxes[0, 1] = torch.tensor([0.0, 0.0, CANVAS[1] - 1.0, CANVAS[0] - 1.0])
+    boxes[0, 2] = torch.tensor([-40.0, -24.0, 30.0, 50.0])
+    boxes[0, 3] = torch.tensor([CANVAS[1] + 100.0, 10.0, CANVAS[1] + 300.0, 60.0])
+    boxes[0, 4] = torch.tensor([-90.0, -90.0, -20.0, -20.0])
+    boxes[0, 5] = torch.tensor([7.5, 8.0, 23.5, 24.0])
+    return boxes.to(dev)
+
+
+def roi_pool_ops(boxes: torch.Tensor, c: int) -> float:
+    """Max comparisons this data needs: cells of every bin times C."""
+    from vltk_tpu_torch.ops.roi_pool import roi_bin_edges
+
+    hs, he, ws, we = roi_bin_edges(boxes, 1.0 / 16, FEAT_HW[0], FEAT_HW[1], 14)
+    cells = (he - hs).clamp(min=0)[..., :, None] * (we - ws).clamp(min=0)[..., None, :]
+    return float(cells.sum()) * c
+
+
+def phase_roi_pool(dev) -> dict:
+    from vltk_tpu_torch.ops.roi_pool import roi_pool
+    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
+
+    gen = torch.Generator().manual_seed(1)
+    c = C_RES4
+    # the last two cases are the shapes of the extraction step: one launch
+    # over 300 RoIs at B=8, two over 150 RoIs each at B=16 (roi_chunk 2400)
+    timed, worst = [], 0.0
+    for b, p, dtype in ((2, N_ROI, torch.float32), (2, N_ROI, torch.bfloat16),
+                        (8, N_ROI, torch.bfloat16), (16, N_ROI // 2, torch.bfloat16)):
+        feat = torch.relu(torch.randn(b, *FEAT_HW, c, generator=gen)).to(dev, dtype)
+        # ties and negatives: every map has a block of exact zeros and one
+        # of negative values
+        feat[:, :4, :4] = -torch.rand(b, 4, 4, c, generator=gen).to(dev, dtype)
+        boxes = roi_boxes(gen, b, p, dev)
+        got = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+        torch.cuda.synchronize()
+        want = roi_pool(feat, boxes, 14, 1 / 16)
+        eq = bitwise_equal(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        print(f"roi_pool {tuple(feat.shape)} {dtype} x {p} boxes: bitwise_equal={eq} max_abs_err={err}")
+        check(eq, f"roi_pool kernel != plain at {tuple(feat.shape)} {dtype}")
+        if b < 8:
+            continue
+        ms = cuda_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16), reps=20)
+        plain_ms = cuda_ms(lambda: roi_pool(feat, boxes, 14, 1 / 16), reps=2, warmup=1)
+        nbytes = feat.numel() * 2 + boxes.numel() * 4 + got.numel() * 2
+        bound_ms, bound_by = bound(nbytes, roi_pool_ops(boxes, c))
+        print(
+            f"roi_pool timing {tuple(feat.shape)} bf16 x {p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes RoIPool"
+        )
+        timed.append((ms, plain_ms, bound_ms, bound_by))
+    # the kernels line reports the B=8 step's shape
+    ms, plain_ms, bound_ms, bound_by = timed[0]
+    return {
+        "name": "roi_pool",
+        "route": "cuda",
+        "source": "vltk_tpu_torch/csrc/roi_pool.cu",
+        "replaces": "vltk_tpu/ops/pallas_kernels.py:187",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+# --------------------------------------------------------------------- K2
+
+
+def nms_case(gen: torch.Generator, rows: int, k: int, dev):
+    """Clustered, heavily overlapping boxes (as proposals are), with score
+    ties, zero-area boxes, invalid entries and one row with no candidate."""
+    centers = torch.rand(rows, max(k // 40, 1), 2, generator=gen) * torch.tensor([1000.0, 760.0])
+    pick = torch.randint(0, centers.shape[1], (rows, k), generator=gen)
+    ctr = torch.gather(centers, 1, pick[..., None].expand(rows, k, 2))
+    ctr = ctr + torch.randn(rows, k, 2, generator=gen) * 12
+    wh = 20 + torch.rand(rows, k, 2, generator=gen) * 200
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    scores = torch.randn(rows, k, generator=gen)
+    scores[:, : k // 10] = torch.round(scores[:, : k // 10] * 4) / 4  # ties
+    boxes[:, 5, 2] = boxes[:, 5, 0]  # zero area
+    boxes[:, 6] = boxes[:, 5]
+    valid = torch.rand(rows, k, generator=gen) > 0.05
+    valid[-1] = False
+    return boxes.to(dev), scores.to(dev), valid.to(dev)
+
+
+def nms_pairs(keep: torch.Tensor, boxes, scores, valid) -> float:
+    """IoU pairs greedy NMS needs on this data: each kept box against the
+    candidates that come after it in score order."""
+    from vltk_tpu_torch.ops.nms import NEG_INF
+
+    live = torch.where(valid, scores.float(), torch.full_like(scores.float(), NEG_INF))
+    s, order = torch.sort(live, dim=1, descending=True, stable=True)
+    n_cand = (s > NEG_INF / 2).sum(1)
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+    k = keep.clamp(min=0).long()
+    kept_rank = torch.gather(rank, 1, k)
+    later = (n_cand[:, None] - kept_rank - 1).clamp(min=0) * (keep >= 0)
+    return float(later.sum())
+
+
+def phase_nms(dev, batch: int) -> dict:
+    from vltk_tpu_torch.ops.nms import nms_fixed
+    from vltk_tpu_torch.ops.nms_kernel import nms_fixed_cuda
+
+    gen = torch.Generator().manual_seed(2)
+    ms = plain_ms = nbytes = nops = 0.0
+    err = 0.0
+    shapes = (
+        ("rpn", batch, 6000, 300, 0.7),
+        ("detections", batch * 3, 300, 36, torch.tensor([0.5, 1.0, 0.1]).repeat(batch)),
+    )
+    for name, rows, k, max_out, thr in shapes:
+        boxes, scores, valid = nms_case(gen, rows, k, dev)
+        thr_d = thr.to(dev) if torch.is_tensor(thr) else thr
+        got, got_v = nms_fixed_cuda(boxes, scores, thr_d, max_out, valid)
+        torch.cuda.synchronize()
+        want, want_v = nms_fixed(boxes, scores, thr_d, max_out, valid)
+        eq = torch.equal(got, want) and torch.equal(got_v, want_v)
+        kept = int(got_v.sum())
+        print(f"nms {name} ({rows}, {k}) -> {max_out}: exact_keep={eq} kept={kept}")
+        check(eq, f"nms kernel != plain on the {name} shape")
+        check(kept > 0, f"nms {name}: nothing kept")
+        err = max(err, float((got.long() - want.long()).abs().max()))
+        t_k = cuda_ms(lambda: nms_fixed_cuda(boxes, scores, thr_d, max_out, valid), reps=20)
+        t_p = cuda_ms(lambda: nms_fixed(boxes, scores, thr_d, max_out, valid), reps=2, warmup=1)
+        call_bytes = boxes.numel() * 4 + scores.numel() * 4 + valid.numel() + got.numel() * 4
+        # ~15 float32 operations and one compare per IoU
+        call_ops = nms_pairs(got, boxes, scores, valid) * 16
+        b_ms, _ = bound(call_bytes, call_ops)
+        print(f"nms timing {name} ({rows}, {k}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.6f} ms")
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        nbytes, nops = nbytes + call_bytes, nops + call_ops
+    bound_ms, bound_by = bound(nbytes, nops)
+    return {
+        "name": "nms_fixed",
+        "route": "cuda",
+        "source": "vltk_tpu_torch/csrc/nms.cu",
+        "replaces": "vltk_tpu/ops/nms.py:50",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+# ----------------------------------------------------------- the main path
+
+
+def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
+    step = bundle["step"]
+    dev = bundle["device"]
+    rng = np.random.default_rng(0)
+    raw = torch.from_numpy(rng.integers(0, 256, (batch, *RAW_CANVAS, 3), dtype=np.uint8)).to(dev)
+    sizes = torch.tensor([RAW_HW] * batch, dtype=torch.int32, device=dev)
+    for w in wrappers.values():
+        w.launches = 0
+    packed = step(raw, sizes)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        packed = step(raw, sizes)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    runs = steps + 1
+    check(tuple(packed.shape) == (batch, 36, 2048 + 6), f"packed shape {tuple(packed.shape)}")
+    check(bool(torch.isfinite(packed).all()), "packed output is not finite")
+    preds = (packed[..., -2] >= 0).sum(dim=1)
+    check(bool((preds > 0).all()), f"an image has no detection: {preds.tolist()}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    return {
+        "batch": batch,
+        "images_per_s": batch * steps / dt,
+        "step_ms": dt / steps * 1e3,
+        "launches": launches,
+        "launches_per_step": {k: v / runs for k, v in launches.items()},
+        "preds_per_image": preds.tolist(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def phase_small_reference(dev) -> None:
+    """A small f32 FRCNN on the card against the same model on the CPU."""
+    from vltk_tpu_torch.models import FRCNN, FRCNNConfig, init_weights
+
+    cfg = FRCNNConfig(
+        depth=50, stem_out_channels=8, res2_out_channels=16, width_per_group=4,
+        rpn_hidden_channels=16, anchor_sizes=(16, 32), pre_nms_topk=64,
+        post_nms_topk=16, num_classes=7, num_attrs=5, pooler_resolution=7,
+        min_detections=4, max_detections=4,
+    )
+    cpu = init_weights(FRCNN(cfg).eval(), seed=3)
+    gpu = FRCNN(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    gen = torch.Generator().manual_seed(3)
+    images = torch.rand(2, 64, 64, 3, generator=gen) * 100 - 50
+    sizes = torch.tensor([[64.0, 64.0], [48.0, 56.0]])
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = cpu(images, sizes)
+            got = gpu(images.to(dev), sizes.to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key].cpu()
+        if w.dtype.is_floating_point:
+            check(torch.allclose(g, w, rtol=1e-3, atol=1e-3), f"small FRCNN {key}: card != CPU")
+            worst = max(worst, float((g - w).abs().max()))
+        else:
+            check(torch.equal(g, w), f"small FRCNN {key}: card != CPU")
+    print(f"small f32 FRCNN card vs CPU: ids/masks exact, max_abs_err={worst} (rtol/atol 1e-3)")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import vltk_tpu_torch
+
+    pkg = os.path.dirname(os.path.abspath(vltk_tpu_torch.__file__))
+    check(os.path.dirname(pkg) == HERE, f"vltk_tpu_torch is not this checkout's ({pkg})")
+    from vltk_tpu_torch.adapters.frcnn import setup, tame_random_weights
+    from vltk_tpu_torch.ops import KERNEL_WRAPPERS, _build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+
+    t0 = time.perf_counter()
+    outputs = _build.build(["roi_pool", "nms"])
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(outputs) or 'cached'})")
+    for name, out in outputs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.replace('ptxas info    :', '').strip()}")
+
+    entries = [phase_roi_pool(dev), phase_nms(dev, batch=8)]
+    phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
+
+    bundle, info = setup(
+        preset="parity_300", batch_size=8, device=dev,
+        resized_canvas=CANVAS, short=800.0, maximum=1333.0,
+    )
+    cfg = bundle["cfg"]
+    check(
+        (cfg.depth, cfg.num_classes, cfg.num_attrs, cfg.pre_nms_topk, cfg.post_nms_topk,
+         cfg.dtype) == (101, 1600, 400, 6000, 300, "bfloat16"),
+        f"parity_300 config {cfg}",
+    )
+    tame_random_weights(bundle["model"])
+    runs = {}
+    for batch, steps in ((8, 5), (16, 3)):
+        torch.cuda.reset_peak_memory_stats()
+        runs[batch] = r = run_extraction(bundle, batch, steps, KERNEL_WRAPPERS)
+        print(
+            f"extraction parity_300 B={batch} canvas {CANVAS[0]}x{CANVAS[1]} bf16: "
+            f"{r['images_per_s']:.2f} images/s ({r['step_ms']:.2f} ms/step) on {smi}; "
+            f"launches {r['launches']} over {steps + 1} steps; peak {r['peak_mem_gb']:.2f} GB; "
+            f"preds/image {r['preds_per_image']}"
+        )
+    print("extraction_runs " + json.dumps(runs))
+
+    phase_small_reference(dev)
+
+    by_name = {"roi_pool": "roi_pool", "nms_fixed": "nms"}
+    for e in entries:
+        e["launches"] = runs[8]["launches"][by_name[e["name"]]]
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""FRCNN feature-extraction adapter: the 36-box / 2048-d extraction step.
+
+Port of ``vltk_tpu/adapters/frcnn.py:FRCNN.setup``. ``setup`` builds the
+model on the chosen device and returns a step that runs preprocess ->
+FRCNN -> the packed (B, D, 2048+4+1+1) float32 output the reference step
+returns (features, raw-coordinate boxes, object ids, attribute ids).
+
+Weights come from a local reference-named torch state dict
+(``checkpoint=``), or are seeded random without one. The arrow writer and
+the host data plane of the reference adapter are a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from vltk_tpu_torch import DeviceLike, resolve_device
+from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
+from vltk_tpu_torch.ops.image_ops import preprocess_batch
+
+#: presets whose recipe this slice has (the int8 ones come later)
+SUPPORTED_PRESETS = ("parity_300", "props_200", "props_150", "props_100", "fast")
+
+# static canvases and the shortest-edge targets of the reference adapter
+RAW_CANVAS: Tuple[int, int] = (1344, 1344)
+RESIZED_CANVAS: Tuple[int, int] = (1344, 1344)
+SHORT = 800.0
+MAXIMUM = 1333.0
+
+
+def _resolve_config(preset, dtype, config_overrides) -> FRCNNConfig:
+    """Preset -> FRCNNConfig: the preset supplies the base fields, an
+    explicit ``dtype`` wins over it, explicit overrides win over both.
+    Keys that are no config field are left to the caller."""
+    fields = {f.name for f in dataclasses.fields(FRCNNConfig)}
+    if preset is not None and preset not in SUPPORTED_PRESETS:
+        raise NotImplementedError(
+            f"preset {preset!r} is not ported yet; supported: {SUPPORTED_PRESETS}"
+        )
+    base = dataclasses.asdict(FRCNNConfig.named_preset(preset)) if preset else {}
+    if dtype is not None:
+        base["dtype"] = dtype
+    base.update({k: v for k, v in config_overrides.items() if k in fields})
+    return FRCNNConfig(**{k: v for k, v in base.items() if k in fields})
+
+
+def tame_random_weights(model: FRCNN) -> FRCNN:
+    """Scale seeded random weights so a full-depth forward stays finite:
+    random R-101 explodes to NaN and NaN boxes mask every detection out.
+    Conv kernels are halved and the box-delta heads scaled by 1e-3 (the
+    JAX package's bench.py ``_tame_params``, on the torch names). For
+    benchmarks and smoke runs without a checkpoint."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("anchor_deltas.weight", "bbox_pred.weight")):
+                p.mul_(1e-3)
+            elif name.endswith("weight") and p.dim() == 4:
+                p.mul_(0.5)
+    return model
+
+
+def load_checkpoint(model: FRCNN, path: str) -> None:
+    """Load a reference-named torch state dict (anchor buffers and
+    ``num_batches_tracked`` are skipped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd and not hasattr(sd["model"], "shape"):
+        sd = sd["model"]
+    sd = {
+        k: v for k, v in sd.items()
+        if "anchor_generator" not in k and "num_batches_tracked" not in k
+    }
+    model.load_state_dict(sd, strict=True)
+
+
+def setup(
+    checkpoint: Optional[str] = None,
+    batch_size: Optional[int] = None,
+    dtype: Optional[str] = None,
+    preset: Optional[str] = None,
+    device: DeviceLike = None,
+    **overrides,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Build the extraction step on ``device`` (CUDA unless "cpu" is asked
+    for; raises without a card).
+
+    ``overrides`` may hold FRCNNConfig fields and the adapter geometry
+    (``resized_canvas``, ``short``, ``maximum``, ``seed`` of the random
+    weights). Returns (bundle, model_config); ``bundle["step"](raw_uint8,
+    raw_sizes)`` maps (B, Hr, Wr, 3) raw pixels and (B, 2) raw sizes to the
+    packed (B, D, 2048+4+1+1) float32 output.
+    """
+    dev = resolve_device(device)
+    cfg = _resolve_config(preset, dtype, overrides)
+    canvas = tuple(overrides.get("resized_canvas", RESIZED_CANVAS))
+    short = float(overrides.get("short", SHORT))
+    maximum = float(overrides.get("maximum", MAXIMUM))
+
+    model = FRCNN(cfg).eval()
+    if checkpoint is not None:
+        load_checkpoint(model, checkpoint)
+    else:
+        init_weights(model, seed=int(overrides.get("seed", 0)))
+    model.to(dev)
+
+    def pre_fn(raw_images: torch.Tensor, raw_sizes: torch.Tensor):
+        return preprocess_batch(
+            raw_images.to(dev), raw_sizes.to(dev), canvas_hw=canvas,
+            short=short, maximum=maximum,
+        )
+
+    @torch.inference_mode()
+    def forward(raw_images: torch.Tensor, raw_sizes: torch.Tensor):
+        pre = pre_fn(raw_images, raw_sizes)
+        return model(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+
+    @torch.inference_mode()
+    def step(raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> torch.Tensor:
+        out = forward(raw_images, raw_sizes)
+        return torch.cat(
+            [
+                out["roi_features"].to(torch.float32),
+                out["boxes"].to(torch.float32),
+                out["obj_ids"].to(torch.float32)[..., None],
+                out["attr_ids"].to(torch.float32)[..., None],
+            ],
+            dim=-1,
+        )
+
+    bundle = {
+        "step": step,
+        "forward": forward,
+        "pre_fn": pre_fn,
+        "model": model,
+        "cfg": cfg,
+        "device": dev,
+        "batch_size": batch_size,
+    }
+    model_config = {
+        "model": "frcnn-resnet101-c4-vg",
+        "checkpoint": checkpoint,
+        "max_detections": cfg.max_detections,
+        "visual_dim": cfg.res2_out_channels * 8,
+        "dtype": cfg.dtype or "float32",
+        "preset": preset,
+    }
+    return bundle, model_config

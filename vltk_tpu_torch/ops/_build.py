@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` into a
+shared library with a plain C interface, cached under
+``vltk_tpu_torch/_build/`` by the hash of its source and flags, and loaded
+with ``ctypes``. Nothing is compiled when a module is imported; a build
+error raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict, Iterable, List, Tuple
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -Xptxas -v: registers, shared memory and spills of each kernel, which
+# build() hands back to the caller
+BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# per-source extra flags: the NMS IoU must round like the reference's
+# float32 expression, so no multiply-add contraction there
+EXTRA_FLAGS: Dict[str, List[str]] = {"nms": ["--fmad=false"]}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """``nvcc`` on the PATH, else under ``$CUDA_HOME`` (default
+    /usr/local/cuda, the toolkit's standard install)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _flags(name: str) -> List[str]:
+    return ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def _so_path(name: str) -> str:
+    digest = hashlib.sha256()
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest.update(f.read())
+    digest.update(" ".join(_flags(name)).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def _start(name: str) -> Tuple[subprocess.Popen, str, str]:
+    so = _so_path(name)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *_flags(name), "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, so
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: str, so: str) -> str:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
+    os.replace(tmp, so)  # atomic: a concurrent build sees old or new
+    return out
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every named kernel whose library is not cached yet, one
+    ``nvcc`` per source, all started together. Returns the compiler output
+    of each source it compiled."""
+    pending = [n for n in names if not os.path.exists(_so_path(n))]
+    procs = [(n, *_start(n)) for n in pending]
+    outputs, errors = {}, []
+    for name, proc, tmp, so in procs:
+        try:
+            outputs[name] = _finish(name, proc, tmp, so)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outputs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(_so_path(name))
+            _loaded[name] = lib
+        return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

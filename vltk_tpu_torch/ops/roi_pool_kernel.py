@@ -1,0 +1,84 @@
+"""RoIPool dispatcher: the CUDA kernel ``csrc/roi_pool.cu`` for tensors on
+the card, the plain version (``ops/roi_pool.py``) for tensors on the CPU.
+
+Counterpart of ``vltk_tpu/ops/pallas_kernels.py:roi_pool_auto``, which
+dispatches to the Pallas kernel ``roi_pool_pallas`` on the TPU.
+``roi_pool_auto.launches`` counts kernel launches (CPU calls do not count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vltk_tpu_torch.ops import _build
+from vltk_tpu_torch.ops.roi_pool import roi_pool
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("roi_pool")
+    fn = lib.roi_pool_forward
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def roi_pool_cuda(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16,
+) -> torch.Tensor:
+    """Launch the kernel: features (B, H, W, C) float32/bfloat16 and boxes
+    (B, P, 4) float32, both on one CUDA device."""
+    if features.dim() != 4 or boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(
+            f"roi_pool: want features (B,H,W,C) and boxes (B,P,4), got "
+            f"{tuple(features.shape)} and {tuple(boxes.shape)}"
+        )
+    if features.dtype not in _DTYPE_CODE:
+        raise TypeError(f"roi_pool kernel: unsupported dtype {features.dtype}")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"roi_pool kernel: boxes must be float32, got {boxes.dtype}")
+    if features.device != boxes.device or features.device.type != "cuda":
+        raise ValueError("roi_pool kernel: features and boxes must share a CUDA device")
+    if boxes.shape[0] != features.shape[0]:
+        raise ValueError("roi_pool: features and boxes disagree on the batch")
+    features = features.contiguous()
+    boxes = boxes.contiguous()
+    b, h, w, c = features.shape
+    p = boxes.shape[1]
+    out = torch.empty(
+        (b, p, output_size, output_size, c), dtype=features.dtype, device=features.device
+    )
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream(features.device).cuda_stream
+        err = _lib().roi_pool_forward(
+            features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
+            b, h, w, c, p, output_size, float(spatial_scale),
+            _DTYPE_CODE[features.dtype], stream,
+        )
+    _build.check(err, "roi_pool_forward launch")
+    roi_pool_auto.launches += 1
+    return out
+
+
+def roi_pool_auto(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16,
+) -> torch.Tensor:
+    """Batched RoIPool: (B, H, W, C), (B, P, 4) -> (B, P, S, S, C). The
+    kernel on CUDA tensors (or an error), the plain version on CPU ones."""
+    if features.device.type == "cpu":
+        return roi_pool(features, boxes, output_size, spatial_scale)
+    return roi_pool_cuda(features, boxes, output_size, spatial_scale)
+
+
+roi_pool_auto.launches = 0

@@ -1,0 +1,213 @@
+"""Where the device time of the extraction step goes, on the card.
+
+    python -m vltk_tpu_torch.trace [--batch 8] [--steps 3] [--repeats 3]
+
+Builds the ``parity_300`` extraction (R-101-C4, 1600 classes, 400
+attributes, bf16) on the 832x1344 canvas with seeded random tamed weights,
+as ``chip_smoke.py`` does, and prints:
+
+* the step time over ``--repeats`` windows of ``--steps`` steps (host
+  clock, synchronised), to show the spread;
+* the device time of each stage of one step (CUDA events between the
+  stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess);
+* from a ``torch.profiler`` trace of ``--steps`` steps: device time by
+  kernel class and the top kernels, and the device's busy share of the
+  traced span (union of kernel intervals over first-start..last-end).
+
+The last line is one JSON object with all of it. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+RAW_CANVAS = (512, 672)
+RAW_HW = (480, 640)
+CANVAS = (832, 1344)
+
+# kernel-name fragments -> class, first match wins
+_CLASSES = (
+    ("roi_pool_kernel", "roi_pool kernel"),
+    ("nms_", "nms kernels"),
+    ("sort", "sort"),
+    ("radix", "sort"),
+    ("conv", "conv / gemm"),
+    ("gemm", "conv / gemm"),
+    ("nvjet", "conv / gemm"),  # cuBLASLt / cuDNN matrix-product kernels
+    ("xmma", "conv / gemm"),
+    ("cutlass", "conv / gemm"),
+    ("cudnn", "conv / gemm"),
+    ("sm90", "conv / gemm"),
+    ("nchwToNhwc", "layout"),
+    ("nhwcToNchw", "layout"),
+    ("elementwise", "elementwise"),
+    ("reduce", "reduction"),
+    ("index", "gather / index"),
+    ("gather", "gather / index"),
+    ("scatter", "gather / index"),
+    ("cat", "copy / cat"),
+    ("copy", "copy / cat"),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for frag, cls in _CLASSES:
+        if frag.lower() in low:
+            return cls
+    return "other"
+
+
+def build(batch: int):
+    from vltk_tpu_torch.adapters.frcnn import setup, tame_random_weights
+
+    bundle, _ = setup(
+        preset="parity_300", batch_size=batch, device="cuda",
+        resized_canvas=CANVAS, short=800.0, maximum=1333.0,
+    )
+    tame_random_weights(bundle["model"])
+    rng = np.random.default_rng(0)
+    raw = torch.from_numpy(
+        rng.integers(0, 256, (batch, *RAW_CANVAS, 3), dtype=np.uint8)
+    ).cuda()
+    sizes = torch.tensor([RAW_HW] * batch, dtype=torch.int32, device="cuda")
+    return bundle, raw, sizes
+
+
+@torch.inference_mode()
+def stage_times(bundle, raw, sizes, steps: int):
+    """Mean device ms of each stage over ``steps`` steps."""
+    from vltk_tpu_torch.models.frcnn import _postprocess
+    from vltk_tpu_torch.models.rpn import propose
+
+    model, cfg = bundle["model"], bundle["cfg"]
+    rpn = model.proposal_generator
+    names = ("preprocess", "backbone", "rpn_head", "propose", "roi_heads", "postprocess")
+    totals = defaultdict(float)
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        pre = bundle["pre_fn"](raw, sizes)
+        ev[1].record()
+        feats = model.backbone(pre["img"])
+        ev[2].record()
+        logits, deltas = rpn.rpn_head(feats)
+        ev[3].record()
+        anchors = rpn.anchors((feats.shape[1], feats.shape[2]), feats.device)
+        boxes, _, valid = propose(
+            logits, deltas, anchors, pre["sizes"], nms_thresh=cfg.rpn_nms_thresh,
+            pre_nms_topk=cfg.pre_nms_topk, post_nms_topk=cfg.post_nms_topk,
+            min_box_side_len=cfg.min_box_side_len,
+            bbox_reg_weights=cfg.rpn_bbox_reg_weights,
+        )
+        ev[4].record()
+        obj, attr, deltas_b, pooled = model.roi_heads(feats, boxes)
+        ev[5].record()
+        _postprocess(
+            cfg, boxes, valid, obj.float(), attr.float(), deltas_b.float(),
+            pooled.float(), pre["sizes"], pre["scales_yx"],
+        )
+        ev[6].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1])
+    return {k: v / steps for k, v in totals.items()}
+
+
+def busy_share(intervals):
+    """Union of [start, end) intervals over the span they cover."""
+    if not intervals:
+        return None, 0.0
+    intervals.sort()
+    busy, cur_s, cur_e = 0.0, *intervals[0]
+    for s, e in intervals[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e in intervals) - intervals[0][0]
+    return busy / span if span > 0 else None, span
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--repeats", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("trace: needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+
+    bundle, raw, sizes = build(args.batch)
+    step = bundle["step"]
+    step(raw, sizes)  # warm-up
+    torch.cuda.synchronize()
+    windows = []
+    for _ in range(args.repeats):
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(raw, sizes)
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / args.steps * 1e3)
+    print(f"step ms over {args.repeats} windows of {args.steps}: {windows}")
+
+    stages = stage_times(bundle, raw, sizes, args.steps)
+    total = sum(stages.values())
+    for name, ms in stages.items():
+        print(f"stage {name:12s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            step(raw, sizes)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_class = defaultdict(float)
+    by_name = defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for e in kernels:
+        dur = e.time_range.end - e.time_range.start  # us
+        by_class[kernel_class(e.name)] += dur
+        by_name[e.name][0] += dur
+        by_name[e.name][1] += 1
+        intervals.append((e.time_range.start, e.time_range.end))
+    share, span = busy_share(intervals)
+    kernel_ms = sum(by_class.values()) / 1e3 / args.steps
+    print(f"profiler: {len(kernels)} kernels, {kernel_ms:.3f} device ms/step, busy share {share}")
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        print(f"class {cls:16s} {us / 1e3 / args.steps:9.3f} ms/step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (us, n) in top:
+        print(f"kernel {us / 1e3 / args.steps:8.3f} ms/step x{n // args.steps:4d}  {name[:110]}")
+    print(json.dumps({
+        "card": smi,
+        "batch": args.batch,
+        "step_ms_windows": windows,
+        "images_per_s": [args.batch * 1e3 / w for w in windows],
+        "stage_ms": stages,
+        "kernel_ms_per_step": kernel_ms,
+        "kernel_class_ms_per_step": {k: v / 1e3 / args.steps for k, v in by_class.items()},
+        "busy_share": share,
+        "traced_span_ms_per_step": span / 1e3 / args.steps,
+        "top_kernels": [[name, us / 1e3 / args.steps, n // args.steps] for name, (us, n) in top],
+    }))
+
+
+if __name__ == "__main__":
+    main()
