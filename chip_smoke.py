@@ -7,23 +7,38 @@ It drives the port only (``vltk_tpu_torch``; nothing of JAX or of the JAX
 package):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the extraction path from ``csrc/`` (one
+2. builds every CUDA kernel of the two main paths from ``csrc/`` (one
    nvcc per source, started together) and prints the build time;
-3. holds the RoIPool kernel against its plain PyTorch version, bitwise, in
-   float32 and bf16, at the extraction shapes of B=8 and B=16, and times
+3. holds the RoIPool kernel K1 against its plain PyTorch version, bitwise,
+   in float32 and bf16, at the extraction shapes of B=8 and B=16, and times
    both;
-4. holds the greedy-NMS kernel against its plain version, exact keep
+4. holds the greedy-NMS kernel K2 against its plain version, exact keep
    indices, at the RPN shape (B, 6000) -> 300 and the detection shape
    (B*3, 300) -> 36 for B=8 and B=16, and times both;
-5. runs the 36-box extraction (``adapters.frcnn.setup(preset="parity_300")``:
+5. holds the flash-attention kernel K3 against its plain version at every
+   position: bf16 at the serving shape (32, 1024, 12, 64) with rows padded
+   to other lengths, bf16 at s=197, f32 at a small shape; times the kernel,
+   the plain version and ``scaled_dot_product_attention`` with the same
+   boolean mask (the yardstick; the port never calls it);
+6. runs the 36-box extraction (``adapters.frcnn.setup(preset="parity_300")``:
    R-101-C4, 1600 classes, 400 attributes, bf16) at full width on the
    832x1344 canvas with seeded random weights, tamed so activations stay
-   finite; checks the packed output and that both kernels were launched on
+   finite; checks the packed output and that K1 and K2 were launched on
    that run, and prints images/s at B=8 and B=16;
-6. runs a small f32 FRCNN on the card and on the CPU with the same weights
+7. runs a small f32 FRCNN on the card and on the CPU with the same weights
    and compares them key by key (the CPU path is the one the test suite
    holds against the JAX package);
-7. prints the ``kernels`` JSON line, then the device line last.
+8. serves documents with ``predict.DocTokenClassifier`` at LayoutLM-base
+   width (12 layers, hidden 768, 12 heads, bf16, seeded random weights,
+   max_seq_length 1024, attention_impl "auto"): three requests of four
+   synthetic documents, one per word within the budget, K3 launched 12
+   times per forward; then times the classifier step at the JAX bench.py
+   geometry (B=32, seq 1024) on the dense route and on K3, with documents/s
+   and peak memory;
+9. runs a small f32 LayoutLM on the card and on the CPU with the flash
+   route forced on both sides (K3 on the card, the plain version on the
+   CPU) and compares the real positions;
+10. prints the ``kernels`` JSON line, then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -43,9 +58,11 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the tensor
-# cores (the kernels' max / IoU arithmetic)
+# cores (the max / IoU arithmetic of K1 and K2), bf16 dense on the tensor
+# cores (K3's two products)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 RAW_CANVAS = (512, 672)  # bench.py GEOM["full"]: raw canvas, content, canvas
 RAW_HW = (480, 640)
@@ -76,11 +93,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
+    operations over the peak rate of their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -253,10 +270,107 @@ def phase_nms(dev, batch: int) -> dict:
     }
 
 
+# --------------------------------------------------------------------- K3
+
+FLASH_SHAPE = (32, 1024, 12, 64)  # (n, s, nh, dh): bench.py --infer layoutlm
+# bf16: 2 ulps at |x| ~ 1 (the kernel rounds p to bf16 after an online
+# rescale, the plain version after the exact row max); f32: sums in
+# another order
+FLASH_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+
+
+def flash_case(gen: torch.Generator, shape, lengths, dtype, dev):
+    n, s, nh, dh = shape
+    q, k, v = (torch.randn(n, s, nh, dh, generator=gen).to(dev, dtype) for _ in range(3))
+    mask = torch.zeros(n, s)
+    for i, length in enumerate(lengths):
+        mask[i, :length] = 1
+    return q, k, v, mask.to(dev)
+
+
+def flash_work(ids: torch.Tensor, nh: int, dh: int, itemsize: int):
+    """(bytes, operations) of one call: q, k, v read and out written once,
+    ids read once; 4 dh operations (two products) for every (query, key)
+    pair whose ids match, counted on this data with the zero tail that pads
+    s to a multiple of 128 (id 0)."""
+    n, s = ids.shape
+    full = torch.nn.functional.pad(ids, (0, (-s) % 128))
+    pairs = sum(float((row.unique(return_counts=True)[1].double() ** 2).sum()) for row in full)
+    return 4 * n * s * nh * dh * itemsize + ids.numel() * 4, 4 * dh * nh * pairs
+
+
+def phase_flash(dev) -> dict:
+    from vltk_tpu_torch.ops.flash_attention import flash_self_attention
+    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_cuda
+
+    gen = torch.Generator().manual_seed(4)
+    n, s, nh, dh = FLASH_SHAPE
+    main_lengths = [1024, 700, 129, 1] + torch.randint(1, s + 1, (n - 4,), generator=gen).tolist()
+    cases = (
+        ("serving shape, padded rows", FLASH_SHAPE, main_lengths, torch.bfloat16, True),
+        ("s=197", (4, 197, nh, dh), [197, 150, 1, 197], torch.bfloat16, True),
+        ("s=197, mask=None", (4, 197, nh, dh), [197] * 4, torch.bfloat16, False),
+        ("f32", (2, 256, 2, dh), [256, 100], torch.float32, True),
+    )
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain version in full f32
+    worst = 0.0
+    try:
+        for name, shape, lengths, dtype, use_mask in cases:
+            q, k, v, mask = flash_case(gen, shape, lengths, dtype, dev)
+            m = mask if use_mask else None
+            got = flash_attention_cuda(q, k, v, m, dh)
+            torch.cuda.synchronize()
+            want = flash_self_attention(q, k, v, m, dh)
+            err = float((got.float() - want.float()).abs().max())
+            ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dtype]
+            print(f"flash_attention {name} {tuple(shape)} {dtype}: max_abs_err={err} (tol {FLASH_TOL[dtype]})")
+            check(ok, f"flash attention kernel != plain ({name})")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    # timed at bench.py's inputs: every row real
+    q, k, v, mask = flash_case(gen, FLASH_SHAPE, [s] * n, torch.bfloat16, dev)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, mask, dh), reps=20)
+    plain_ms = cuda_ms(lambda: flash_self_attention(q, k, v, mask, dh), reps=3, warmup=1)
+    ids = mask.to(torch.int32)
+    same = ids[:, None, :, None] == ids[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=same), reps=20)
+    # the same function on these all-real rows, without the mask: PyTorch's
+    # own flash backend, what a tuned kernel reaches on this card
+    unmasked_ms = cuda_ms(lambda: sdpa(qt, kt, vt), reps=20)
+    nbytes, nops = flash_work(ids, nh, dh, 2)
+    bound_ms, bound_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    print(
+        f"flash_attention timing {FLASH_SHAPE} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA with the boolean mask {library_ms:.4f} ms (without it {unmasked_ms:.4f} ms), "
+        f"bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nops:.3e} operations, {nbytes:.3e} bytes; {n * nh * s * s:.2e} exponentials)"
+    )
+    return {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "vltk_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vltk_tpu/models/lxmert.py:244",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
 # ----------------------------------------------------------- the main path
 
 
 def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
+    """Drives the extraction step with every launch count set to 0 first;
+    K1 and K2 must have launched, K3 must not."""
     step = bundle["step"]
     dev = bundle["device"]
     rng = np.random.default_rng(0)
@@ -277,8 +391,9 @@ def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
     check(bool(torch.isfinite(packed).all()), "packed output is not finite")
     preds = (packed[..., -2] >= 0).sum(dim=1)
     check(bool((preds > 0).all()), f"an image has no detection: {preds.tolist()}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("roi_pool", "nms"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the extraction path")
+    check(launches["flash_attention"] == 0, "flash attention launched on the extraction path")
     return {
         "batch": batch,
         "images_per_s": batch * steps / dt,
@@ -326,6 +441,164 @@ def phase_small_reference(dev) -> None:
     print(f"small f32 FRCNN card vs CPU: ids/masks exact, max_abs_err={worst} (rtol/atol 1e-3)")
 
 
+# ------------------------------------------------------ the document path
+
+DOC_LABELS = ["other", "question", "answer", "header"]
+DOC_SEQ = 1024
+# three requests of four documents: word counts below and above the
+# 1023-sub-token budget (the long ones are truncated)
+DOC_REQUESTS = ((40, 300, 700, 1500), (1000, 5, 650, 900), (120, 1022, 480, 2000))
+
+
+def synthetic_documents(rng: np.random.Generator, words_of_vocab, counts):
+    """Pages of words drawn from the vocabulary (a quarter of them two
+    words glued, so they split into several sub-tokens) with seeded boxes
+    on a 2200 x 1700 page."""
+    docs = []
+    for n_words in counts:
+        words = [
+            str(rng.choice(words_of_vocab)) + (str(rng.choice(words_of_vocab)) if rng.random() < 0.25 else "")
+            for _ in range(n_words)
+        ]
+        xy = rng.integers(0, 1500, (n_words, 2))
+        boxes = np.concatenate([xy, xy + rng.integers(5, 200, (n_words, 2))], axis=1)
+        docs.append({"words": words, "boxes": boxes.tolist(), "size": (2200, 1700)})
+    return docs
+
+
+def words_within_budget(tok, words) -> int:
+    """How many words the predictor must label: those whose first
+    sub-token starts before the last ([SEP]) slot, of the first
+    max_len - 1 words."""
+    pieces = [max(len(p), 1) for p in tok.encode_words(words)][: DOC_SEQ - 1]
+    starts = np.concatenate([[0], np.cumsum(pieces)[:-1]])
+    return int((starts < DOC_SEQ - 1).sum())
+
+
+def time_doc_step(clf, ids, boxes, mask, steps: int):
+    clf.step(ids, boxes, mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        probs = clf.step(ids, boxes, mask)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(probs).all()), "document step output is not finite")
+    return ids.shape[0] * steps / dt, dt / steps * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_document(dev, wrappers, smi: str) -> dict:
+    """The document path: requests through DocTokenClassifier at LayoutLM-base
+    width, then the classifier step at the bench geometry on both routes."""
+    import dataclasses
+
+    from vltk_tpu_torch import vars as V
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.predict import DocTokenClassifier
+    from vltk_tpu_torch.trace import bench_documents
+
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ)
+    check(
+        (cfg.l_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.intermediate_size,
+         cfg.vocab_size, cfg.coord_vocab, cfg.attention_impl) == (12, 768, 12, 64, 3072, 30522, 1024, "auto"),
+        f"LayoutLM-base config {cfg}",
+    )
+    clf = DocTokenClassifier(DOC_LABELS, config=cfg, batch_size=4, max_seq_length=DOC_SEQ, device=dev)
+    with open(V.VOCABPATH) as f:
+        vocab_words = [w for w in f.read().split("\n") if w.isascii() and w.isalpha()]
+    rng = np.random.default_rng(0)
+    requests = [synthetic_documents(rng, vocab_words, counts) for counts in DOC_REQUESTS]
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    answers = [clf(docs) for docs in requests]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    forwards = len(requests)  # four documents fill one batch of 4
+    check(launches["flash_attention"] == 12 * forwards,
+          f"flash attention launched {launches['flash_attention']} times over {forwards} forwards")
+    check(launches["roi_pool"] == 0 and launches["nms"] == 0, f"extraction kernels on the document path: {launches}")
+    n_words = []
+    for docs, out in zip(requests, answers):
+        check(len(out) == len(docs), "one result per document")
+        for doc, res in zip(docs, out):
+            want = words_within_budget(clf.tokenizer, doc["words"])
+            check(len(res) == want, f"{len(res)} labelled words, want {want}")
+            check([r["word"] for r in res] == doc["words"][:want], "labelled words out of order")
+            scores = np.array([r["score"] for r in res])
+            check(all(r["label"] in DOC_LABELS for r in res), "label outside the label set")
+            check(bool(np.isfinite(scores).all() and (scores > 0).all() and (scores <= 1).all()),
+                  "scores outside (0, 1]")
+            n_words.append(want)
+    print(
+        f"document requests: {len(requests)} x 4 documents, words labelled {n_words}, "
+        f"{serve_s:.3f} s with host prep; launches {launches} over {forwards} forwards"
+    )
+
+    ids, boxes, mask = bench_documents(32, cfg.vocab_size, dev)
+    dense_clf = DocTokenClassifier(
+        DOC_LABELS, params=clf.model.state_dict(), config=dataclasses.replace(cfg, attention_impl="xla"),
+        batch_size=32, max_seq_length=DOC_SEQ, device=dev, tokenizer=clf.tokenizer,
+    )
+    timed = {}
+    for attn, model in (("xla", dense_clf), ("auto", clf)):
+        docs_s, step_ms, peak = time_doc_step(model, ids, boxes, mask, steps=5)
+        timed[attn] = {"documents_per_s": docs_s, "step_ms": step_ms, "peak_mem_gb": peak}
+        route = "dense route" if attn == "xla" else "K3 flash route"
+        print(
+            f"LayoutLM-base doc step B=32 seq {DOC_SEQ} bf16 attention_impl={attn} ({route}): "
+            f"{docs_s:.2f} documents/s ({step_ms:.3f} ms/step over 5 steps) on {smi}; peak {peak:.2f} GB"
+        )
+    with torch.inference_mode():
+        agree = (dense_clf.step(ids, boxes, mask) - clf.step(ids, boxes, mask)).abs().max()
+    print(f"doc step, K3 route vs dense route on all-real documents: max |dprob| = {float(agree):.3e}")
+    return {"launches": launches, "words": n_words, "timed": timed}
+
+
+def phase_small_layoutlm(dev) -> None:
+    """A small f32 LayoutLM on the card against the same model on the CPU,
+    the flash route forced on both sides: K3 on the card, the plain
+    version on the CPU (the gate is opened for the CPU's device too)."""
+    from vltk_tpu_torch.models import lxmert as PX
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig, LayoutLMForTokenClassification, init_weights
+    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
+
+    cfg = LayoutLMConfig(
+        vocab_size=1000, hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+        max_position_embeddings=256, attention_impl="flash",
+    )
+    cpu = init_weights(LayoutLMForTokenClassification(cfg).eval(), seed=5)
+    gpu = LayoutLMForTokenClassification(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    rng = np.random.default_rng(5)
+    ids = torch.from_numpy(rng.integers(0, 1000, (3, 256)))
+    boxes = torch.from_numpy(np.sort(rng.integers(0, 1000, (3, 256, 2, 2)), axis=2).reshape(3, 256, 4))
+    mask = torch.zeros(3, 256)
+    for i, length in enumerate((256, 200, 77)):
+        mask[i, :length] = 1
+    gate = PX._flash_applicable
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    before = flash_attention_auto.launches
+    PX._flash_applicable = lambda s, det, drop, device: s >= 128 and (det or drop == 0.0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            want = cpu(ids, boxes, mask)
+            got = gpu(ids.to(dev), boxes.to(dev), mask.to(dev)).cpu()
+    finally:
+        PX._flash_applicable = gate
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check(flash_attention_auto.launches - before == cfg.l_layers, "small LayoutLM did not run K3 in every layer")
+    real = mask.bool()
+    err = float((got[real] - want[real]).abs().max())
+    print(f"small f32 LayoutLM, flash route, card (K3) vs CPU (plain) at real positions: max_abs_err={err} (1e-4)")
+    check(torch.allclose(got[real], want[real], rtol=1e-4, atol=1e-4), "small LayoutLM: card != CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -346,7 +619,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    outputs = _build.build(["roi_pool", "nms"])
+    outputs = _build.build(["roi_pool", "nms", "flash_attention"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(outputs) or 'cached'})")
     for name, out in outputs.items():
         for line in out.splitlines():
@@ -355,6 +628,7 @@ def main() -> int:
 
     entries = [phase_roi_pool(dev), phase_nms(dev, batch=8)]
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
+    entries.append(phase_flash(dev))
 
     bundle, info = setup(
         preset="parity_300", batch_size=8, device=dev,
@@ -380,10 +654,22 @@ def main() -> int:
     print("extraction_runs " + json.dumps(runs))
 
     phase_small_reference(dev)
+    del bundle
+    torch.cuda.empty_cache()
 
-    by_name = {"roi_pool": "roi_pool", "nms_fixed": "nms"}
+    doc = phase_document(dev, KERNEL_WRAPPERS, smi)
+    print("document_run " + json.dumps(doc))
+    phase_small_layoutlm(dev)
+
+    # launches as counted on each kernel's main path: the B=8 extraction
+    # run for K1 and K2, the document requests for K3
+    launches = {
+        "roi_pool": runs[8]["launches"]["roi_pool"],
+        "nms_fixed": runs[8]["launches"]["nms"],
+        "flash_attention": doc["launches"]["flash_attention"],
+    }
     for e in entries:
-        e["launches"] = runs[8]["launches"][by_name[e["name"]]]
+        e["launches"] = launches[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({
         "ok": True,

@@ -5,15 +5,18 @@ skip without a CUDA device. On a machine with the card:
 
     python -m pytest -m cuda tests/test_torch_kernels.py
 
-They sweep shapes that ``chip_smoke.py`` (which checks the extraction
+They sweep shapes that ``chip_smoke.py`` (which checks the main paths'
 shapes) does not: channel counts that are not a multiple of the block,
 candidate counts around the 64-bit mask words, budgets larger than the
-candidate count, rows with no candidate.
+candidate count, rows with no candidate; sequence lengths around the
+64-key tile and the 128 pad block, padded rows down to length 1.
 """
 
 import pytest
 import torch
 
+from vltk_tpu_torch.ops.flash_attention import flash_self_attention
+from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto, flash_attention_cuda
 from vltk_tpu_torch.ops.nms import nms_fixed
 from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto, nms_fixed_cuda
 from vltk_tpu_torch.ops.roi_pool import roi_pool
@@ -104,13 +107,72 @@ def test_nms_per_row_thresholds_and_single_row(dev):
     assert torch.equal(one[0], want[0][0])
 
 
+# bf16: 2 ulps at |x| ~ 1 (the kernel rounds p to bf16 after an online
+# rescale, the plain version after the exact max); f32: sums in another order
+FLASH_TOL = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [128, 197, 1000, 1024])
+@pytest.mark.parametrize("padded", [False, True])
+def test_flash_attention_kernel_matches_plain(dev, dtype, s, padded):
+    """Every position against the plain version: all-real rows, or rows
+    padded to other lengths (one down to a single real token)."""
+    gen = torch.Generator().manual_seed(s * 10 + padded)
+    n, nh = 3, 2
+    q, k, v = (torch.randn(n, s, nh, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    mask = torch.ones(n, s)
+    if padded:
+        mask[1, s // 2:] = 0
+        mask[2, 1:] = 0
+    mask = mask.to(dev)
+    for m in (mask, None):
+        got = flash_attention_cuda(q, k, v, m, 64)
+        torch.cuda.synchronize()
+        want = flash_self_attention(q, k, v, m, 64)
+        assert got.shape == want.shape == q.shape and got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= FLASH_TOL[dtype], err
+
+
+def test_flash_attention_reads_strided_views(dev):
+    """q, k, v as head views of (n, s, nh * 64) projections, as the model
+    passes them: no copy, same result as contiguous inputs."""
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 300, 3 * 3 * 64, generator=gen).to(dev, torch.bfloat16)
+    q, k, v = (t.view(2, 300, 3, 64) for t in x.split(3 * 64, dim=-1))
+    got = flash_attention_cuda(q, k, v, None, 64)
+    want = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(), None, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q, None, 32)  # dh 32
+    q = torch.zeros(1, 128, 2, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, q, q, None, 64)
+    q = torch.zeros(1, 128, 2, 64, device=dev)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, q, q.bfloat16(), None, 64)
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q, q, q.cpu(), None, 64)
+
+
 def test_dispatchers_count_kernel_launches_only(dev):
     feat = torch.rand(1, 8, 8, 4)
     boxes = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]])
-    before = (roi_pool_auto.launches, nms_fixed_auto.launches)
+    q = torch.rand(1, 128, 1, 64)
+    wrappers = (roi_pool_auto, nms_fixed_auto, flash_attention_auto)
+    before = tuple(w.launches for w in wrappers)
     roi_pool_auto(feat, boxes, 2)
     nms_fixed_auto(boxes[0], torch.ones(1), 0.5, 1)
-    assert (roi_pool_auto.launches, nms_fixed_auto.launches) == before
+    flash_attention_auto(q, q, q, None, 64)
+    assert tuple(w.launches for w in wrappers) == before
     roi_pool_auto(feat.to(dev), boxes.to(dev), 2)
     nms_fixed_auto(boxes[0].to(dev), torch.ones(1, device=dev), 0.5, 1)
-    assert (roi_pool_auto.launches, nms_fixed_auto.launches) == (before[0] + 1, before[1] + 1)
+    qd = q.to(dev)
+    flash_attention_auto(qd, qd, qd, None, 64)
+    assert tuple(w.launches for w in wrappers) == tuple(b + 1 for b in before)

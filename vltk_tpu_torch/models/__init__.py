@@ -1,6 +1,23 @@
-"""Models of the port: the Faster R-CNN extraction path."""
+"""Models of the port: the Faster R-CNN extraction path and the LayoutLM
+document encoder on the shared transformer blocks."""
 
-from vltk_tpu_torch.models.convert import jax_frcnn_to_torch
+from vltk_tpu_torch.models.convert import jax_frcnn_to_torch, jax_layoutlm_to_torch
 from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
+from vltk_tpu_torch.models.layoutlm import (
+    LayoutLM,
+    LayoutLMConfig,
+    LayoutLMForSpanQA,
+    LayoutLMForTokenClassification,
+)
 
-__all__ = ["FRCNN", "FRCNNConfig", "init_weights", "jax_frcnn_to_torch"]
+__all__ = [
+    "FRCNN",
+    "FRCNNConfig",
+    "LayoutLM",
+    "LayoutLMConfig",
+    "LayoutLMForSpanQA",
+    "LayoutLMForTokenClassification",
+    "init_weights",
+    "jax_frcnn_to_torch",
+    "jax_layoutlm_to_torch",
+]

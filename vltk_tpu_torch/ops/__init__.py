@@ -1,11 +1,16 @@
-"""Tensor ops of the port: box algebra, preprocessing, and the two ops
-with hand-written CUDA kernels (RoIPool, greedy NMS), each beside its plain
-PyTorch version."""
+"""Tensor ops of the port: box algebra, preprocessing, and the ops with
+hand-written CUDA kernels (RoIPool, greedy NMS, flash attention), each
+beside its plain PyTorch version."""
 
+from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
 from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto
 from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto
 
 #: the dispatchers whose ``launches`` counters show the kernels ran
-KERNEL_WRAPPERS = {"roi_pool": roi_pool_auto, "nms": nms_fixed_auto}
+KERNEL_WRAPPERS = {
+    "roi_pool": roi_pool_auto,
+    "nms": nms_fixed_auto,
+    "flash_attention": flash_attention_auto,
+}
 
-__all__ = ["KERNEL_WRAPPERS", "nms_fixed_auto", "roi_pool_auto"]
+__all__ = ["KERNEL_WRAPPERS", "flash_attention_auto", "nms_fixed_auto", "roi_pool_auto"]

@@ -1,0 +1,100 @@
+"""OCR processors of the document path.
+
+Counterparts of ``AuxTokenize``, ``_expand_by_tokenmap`` and
+``OCRBoxFixed`` in ``vltk_tpu/processing/visn.py``: OCR words -> flattened
+sub-token ids, tokenmap and attention mask; word boxes -> 0-1000
+normalised sub-token boxes. All outputs are fixed-shape numpy arrays padded
+to ``max_visual_seq_length``.
+"""
+
+from __future__ import annotations
+
+from itertools import chain
+from typing import List
+
+import numpy as np
+
+from vltk_tpu_torch import vars as V
+from vltk_tpu_torch.processing.processor import VisnProcessor
+from vltk_tpu_torch.utils.adapters import rescale_box, truncate_and_pad_list
+
+
+class AuxTokenize(VisnProcessor):
+    """OCR word list -> flattened sub-token ids + tokenmap (#subtokens per
+    word) + visual_attention_mask."""
+
+    keys = (V.text,)
+
+    def setup(
+        self,
+        tokenizer=None,
+        max_visual_seq_length: int = 128,
+        add_visual_cls: bool = False,
+        ignore_id: int = -100,
+    ):
+        self.tokenizer = tokenizer
+        self.max_len = max_visual_seq_length
+        self.add_visual_cls = add_visual_cls
+        self.ignore_id = ignore_id
+
+    def forward(self, entry, **kwargs):
+        text = entry.pop(V.text)
+        if not isinstance(text, (list, tuple)):
+            return entry
+        if len(text) == 1 and isinstance(text[0], list):
+            text = text[0]
+        tok = self.tokenizer
+        if self.add_visual_cls:
+            text = [tok.cls_token] + list(text)
+        pieces = tok.encode_words(list(map(str, text)))
+        pieces = [p if p else [tok.unk_id] for p in pieces]
+        tokenmap = [len(p) for p in pieces]
+        if len(tokenmap) >= self.max_len:
+            tokenmap = tokenmap[: self.max_len - 1]
+        entry[V.tokenmap] = np.asarray(
+            truncate_and_pad_list(tokenmap, self.max_len, self.ignore_id), dtype=np.int32
+        )
+        flat = list(chain(*pieces))
+        n_valid = min(self.max_len, len(flat))
+        entry[V.visual_attention_mask] = np.asarray(
+            [1] * n_valid + [0] * (self.max_len - n_valid), dtype=np.int32
+        )
+        flat = truncate_and_pad_list(flat, self.max_len - 1, tok.pad_id)
+        flat = flat + [tok.sep_id]
+        entry[V.text] = np.asarray(flat, dtype=np.int32)
+        return entry
+
+
+def _expand_by_tokenmap(items: List, tokenmap) -> List:
+    """Repeat each word-level item by its sub-token count."""
+    out: List = []
+    for item, n in zip(items, tokenmap):
+        n = int(n)
+        if n <= 0:
+            continue
+        out.extend([item] * n)
+    return out
+
+
+class OCRBoxFixed(VisnProcessor):
+    """LayoutLM-style 0-1000 normalised token boxes."""
+
+    keys = (V.tokenbox,)
+
+    def setup(self, max_visual_seq_length: int = 128, add_visual_cls: bool = False):
+        self.max_len = max_visual_seq_length
+        self.add_visual_cls = add_visual_cls
+
+    def forward(self, entry, **kwargs):
+        boxes = [list(map(float, b)) for b in entry.pop(V.tokenbox)]
+        rawsize = entry.get(V.rawsize, entry.get(V.size, (1000, 1000)))
+        raw_h, raw_w = float(rawsize[0]), float(rawsize[1])
+        if self.add_visual_cls:
+            boxes = [[0.0, 0.0, raw_w, raw_h]] + boxes
+        if V.tokenmap in entry:
+            boxes = _expand_by_tokenmap(boxes, entry[V.tokenmap])
+        boxes = truncate_and_pad_list(boxes, self.max_len, [0.0, 0.0, 0.0, 0.0])
+        arr = np.asarray(boxes, dtype=np.float32)
+        arr = rescale_box(arr, (1000.0 / raw_w, 1000.0 / raw_h))
+        entry[V.tokenbox] = np.clip(arr, 0.0, 1000.0)
+        return entry

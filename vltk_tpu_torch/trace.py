@@ -1,15 +1,23 @@
-"""Where the device time of the extraction step goes, on the card.
+"""Where the device time of a main path goes, on the card.
 
     python -m vltk_tpu_torch.trace [--batch 8] [--steps 3] [--repeats 3]
+    python -m vltk_tpu_torch.trace --model layoutlm [--attn auto|xla] [--batch 32]
 
-Builds the ``parity_300`` extraction (R-101-C4, 1600 classes, 400
-attributes, bf16) on the 832x1344 canvas with seeded random tamed weights,
-as ``chip_smoke.py`` does, and prints:
+``--model frcnn`` (default) builds the ``parity_300`` extraction (R-101-C4,
+1600 classes, 400 attributes, bf16) on the 832x1344 canvas with seeded
+random tamed weights, as ``chip_smoke.py`` does. ``--model layoutlm``
+builds the document classifier step (``predict.DocTokenClassifier.step``:
+LayoutLM-base, 12 layers, hidden 768, bf16, seeded random weights) at the
+JAX bench.py geometry: seq 1024, batch 32, ids and boxes from
+``default_rng(0)``, device-resident; ``--attn auto`` sends every
+self-attention through the flash kernel K3, ``--attn xla`` takes the dense
+route. It prints:
 
 * the step time over ``--repeats`` windows of ``--steps`` steps (host
   clock, synchronised), to show the spread;
 * the device time of each stage of one step (CUDA events between the
-  stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess);
+  stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess;
+  or embeddings, encoder, head);
 * from a ``torch.profiler`` trace of ``--steps`` steps: device time by
   kernel class and the top kernels, and the device's busy share of the
   traced span (union of kernel intervals over first-start..last-end).
@@ -34,6 +42,7 @@ CANVAS = (832, 1344)
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
+    ("flash_fwd", "flash attention kernel"),
     ("roi_pool_kernel", "roi_pool kernel"),
     ("nms_", "nms kernels"),
     ("sort", "sort"),
@@ -47,6 +56,8 @@ _CLASSES = (
     ("sm90", "conv / gemm"),
     ("nchwToNhwc", "layout"),
     ("nhwcToNchw", "layout"),
+    ("softmax", "softmax"),
+    ("layer_norm", "layer norm"),
     ("elementwise", "elementwise"),
     ("reduce", "reduction"),
     ("index", "gather / index"),
@@ -65,7 +76,7 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def build(batch: int):
+def build_frcnn(batch: int):
     from vltk_tpu_torch.adapters.frcnn import setup, tame_random_weights
 
     bundle, _ = setup(
@@ -79,6 +90,56 @@ def build(batch: int):
     ).cuda()
     sizes = torch.tensor([RAW_HW] * batch, dtype=torch.int32, device="cuda")
     return bundle, raw, sizes
+
+
+DOC_SEQ = 1024  # bench.py --infer layoutlm: --seq default, batch 32 * 1024 // seq
+
+
+def build_layoutlm(batch: int, attn: str):
+    """The document classifier at LayoutLM-base width and the bench.py
+    inputs: ids and boxes from default_rng(0), an all-real mask."""
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.predict import DocTokenClassifier
+
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ, attention_impl=attn)
+    clf = DocTokenClassifier(
+        ["other", "question", "answer", "header"], config=cfg,
+        batch_size=batch, max_seq_length=DOC_SEQ, device="cuda",
+    )
+    ids, boxes, mask = bench_documents(batch, cfg.vocab_size, "cuda")
+    return clf, ids, boxes, mask
+
+
+def bench_documents(batch: int, vocab_size: int, device):
+    """bench.py's LayoutLM inputs (--infer layoutlm), on the device."""
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab_size, (batch, DOC_SEQ))
+    boxes = np.sort(rng.integers(0, 1000, (batch, DOC_SEQ, 2, 2)), axis=2).reshape(batch, DOC_SEQ, 4)
+    put = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa: E731
+    return (put(ids, torch.int64), put(boxes, torch.int64),
+            torch.ones((batch, DOC_SEQ), dtype=torch.float32, device=device))
+
+
+@torch.inference_mode()
+def stage_times_layoutlm(clf, ids, boxes, mask, steps: int):
+    """Mean device ms of embeddings, encoder and head over ``steps``."""
+    model = clf.model
+    names = ("embeddings", "encoder", "head")
+    totals = defaultdict(float)
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        x = model.layoutlm.embeddings(ids, boxes)
+        ev[1].record()
+        for layer in model.layoutlm.encoder.layer:
+            x = layer(x, mask)
+        ev[2].record()
+        torch.softmax(model.classifier(x).float(), dim=-1)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1])
+    return {k: v / steps for k, v in totals.items()}
 
 
 @torch.inference_mode()
@@ -140,7 +201,10 @@ def busy_share(intervals):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--model", choices=("frcnn", "layoutlm"), default="frcnn")
+    ap.add_argument("--attn", choices=("auto", "xla"), default="auto",
+                    help="layoutlm: attention_impl (auto = the flash kernel at seq 1024)")
+    ap.add_argument("--batch", type=int, default=None, help="default 8 (frcnn), 32 (layoutlm)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
@@ -152,20 +216,30 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi)
 
-    bundle, raw, sizes = build(args.batch)
-    step = bundle["step"]
-    step(raw, sizes)  # warm-up
+    if args.model == "frcnn":
+        batch = args.batch or 8
+        bundle, raw, sizes = build_frcnn(batch)
+        step = lambda: bundle["step"](raw, sizes)  # noqa: E731
+        stages_fn = lambda: stage_times(bundle, raw, sizes, args.steps)  # noqa: E731
+        unit = "images_per_s"
+    else:
+        batch = args.batch or 32
+        clf, ids, boxes, mask = build_layoutlm(batch, args.attn)
+        step = lambda: clf.step(ids, boxes, mask)  # noqa: E731
+        stages_fn = lambda: stage_times_layoutlm(clf, ids, boxes, mask, args.steps)  # noqa: E731
+        unit = "documents_per_s"
+    step()  # warm-up
     torch.cuda.synchronize()
     windows = []
     for _ in range(args.repeats):
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(raw, sizes)
+            step()
         torch.cuda.synchronize()
         windows.append((time.perf_counter() - t0) / args.steps * 1e3)
     print(f"step ms over {args.repeats} windows of {args.steps}: {windows}")
 
-    stages = stage_times(bundle, raw, sizes, args.steps)
+    stages = stages_fn()
     total = sum(stages.values())
     for name, ms in stages.items():
         print(f"stage {name:12s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
@@ -175,7 +249,7 @@ def main() -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
-            step(raw, sizes)
+            step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_class = defaultdict(float)
@@ -191,15 +265,17 @@ def main() -> None:
     kernel_ms = sum(by_class.values()) / 1e3 / args.steps
     print(f"profiler: {len(kernels)} kernels, {kernel_ms:.3f} device ms/step, busy share {share}")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"class {cls:16s} {us / 1e3 / args.steps:9.3f} ms/step")
+        print(f"class {cls:22s} {us / 1e3 / args.steps:9.3f} ms/step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"kernel {us / 1e3 / args.steps:8.3f} ms/step x{n // args.steps:4d}  {name[:110]}")
     print(json.dumps({
         "card": smi,
-        "batch": args.batch,
+        "model": args.model,
+        "attn": args.attn if args.model == "layoutlm" else None,
+        "batch": batch,
         "step_ms_windows": windows,
-        "images_per_s": [args.batch * 1e3 / w for w in windows],
+        unit: [batch * 1e3 / w for w in windows],
         "stage_ms": stages,
         "kernel_ms_per_step": kernel_ms,
         "kernel_class_ms_per_step": {k: v / 1e3 / args.steps for k, v in by_class.items()},

@@ -1,0 +1,22 @@
+"""Entry keys and packaged data paths of the port.
+
+A copy of the keys of ``vltk_tpu/vars.py`` that the OCR processing chain
+and the document predictor read and write (the port imports nothing of the
+JAX package), and the path of the port's own copy of the BERT vocabulary.
+"""
+
+from __future__ import annotations
+
+import os
+
+BASEPATH = os.path.abspath(os.path.dirname(__file__))
+LIBDATA = os.path.join(BASEPATH, "libdata")
+VOCABPATH = os.path.join(LIBDATA, "vocab.txt")
+
+text = "text"
+tokenmap = "tokenmap"
+size = "size"
+rawsize = "rawsize"
+scale = "wh_scale"
+tokenbox = "tokenbox"
+visual_attention_mask = "visual_attention_mask"
