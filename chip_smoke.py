@@ -7,7 +7,7 @@ It drives the port only (``vltk_tpu_torch``; nothing of JAX or of the JAX
 package):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the two main paths from ``csrc/`` (one
+2. builds every CUDA kernel of the three main paths from ``csrc/`` (one
    nvcc per source, started together) and prints the build time;
 3. holds the RoIPool kernel K1 against its plain PyTorch version, bitwise,
    in float32 and bf16, at the extraction shapes of B=8 and B=16, and times
@@ -38,7 +38,27 @@ package):
 9. runs a small f32 LayoutLM on the card and on the CPU with the flash
    route forced on both sides (K3 on the card, the plain version on the
    CPU) and compares the real positions;
-10. prints the ``kernels`` JSON line, then the device line last.
+10. holds the flash-attention backward kernels K4 (dk, dv) and K5 (dq),
+   and K3's row statistics, against the plain backward: bf16 at the
+   training shape (8, 1024, 12, 64) with rows of 1024, 819, 129 and 1 real
+   tokens, bf16 at s=197, ``mask=None``, f32 at a small shape; checks that
+   two backward calls are bitwise equal; times K4, K5, the ``di`` pass, the
+   plain backward and ``scaled_dot_product_attention``'s backward with the
+   same boolean mask (the yardstick; the port never calls it);
+11. trains ``OCRTokenExperiment`` at LayoutLM-base width (bf16, seq 1024,
+   attention dropout 0, hidden dropout 0.1, seeded random weights, AdamW
+   lr 1e-5 with warmup, decay and clip 1.0) for one epoch of 8 batches of
+   B=8 drawn as the JAX bench.py draws them (20% pad tail, -100 labels on
+   the pad) and repeated: the loss is finite and falls, K3, K4 and K5 run
+   12 times per step, ``steps_log.json`` and a checkpoint are written; then
+   times the step on the K3/K4/K5 route and on the dense route (sequences/s,
+   ms/step, peak memory);
+12. compares one full-width bf16 step's parameter gradients on the flash
+   route against the dense route (relative L2 per tensor);
+13. trains a small f32 LayoutLM two steps on the card and on the CPU with
+   the flash route forced on both sides and compares loss, gradients and
+   the parameters after the AdamW update;
+14. prints the ``kernels`` JSON line, then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -59,7 +79,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, float32 outside the tensor
 # cores (the max / IoU arithmetic of K1 and K2), bf16 dense on the tensor
-# cores (K3's two products)
+# cores (the products of K3, K4 and K5)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
@@ -365,6 +385,143 @@ def phase_flash(dev) -> dict:
     }
 
 
+# ----------------------------------------------------------------- K4, K5
+
+TRAIN_FLASH_SHAPE = (8, 1024, 12, 64)  # (n, s, nh, dh): bench.py --train layoutlm
+# relative to each tensor's largest magnitude. bf16: p and ds are rounded
+# to bf16 at the same points as in the plain version, from float32 values
+# that differ in the last bits, so an element may land one ulp (2^-8) apart;
+# float32: sums in another order
+BWD_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30))
+
+
+def backward_work(ids: torch.Tensor, nh: int, dh: int, itemsize: int, products: int, outputs: int):
+    """(bytes, operations) of one backward kernel: q, k, v, do read once,
+    ids and the three float32 row vectors (m, l, di) read once, ``outputs``
+    gradients written once; 2 dh operations per product for every (query,
+    key) pair of the s real positions whose ids match (the kernels skip the
+    zero tail, which adds nothing to the gradients)."""
+    n, s = ids.shape
+    pairs = sum(float((row.unique(return_counts=True)[1].double() ** 2).sum()) for row in ids)
+    nbytes = (4 + outputs) * n * s * nh * dh * itemsize + ids.numel() * 4 + 3 * n * nh * s * 4
+    return nbytes, 2 * products * dh * nh * pairs
+
+
+def phase_flash_backward(dev):
+    """K3's statistics, K4 and K5 against the plain backward; determinism;
+    timing at the training shape. Returns the two kernels-line entries."""
+    from vltk_tpu_torch.ops.flash_attention import (
+        flash_self_attention_backward,
+        flash_self_attention_fwd_residuals,
+    )
+    from vltk_tpu_torch.ops.flash_attention_kernel import (
+        flash_attention_backward_cuda,
+        flash_attention_dkv_cuda,
+        flash_attention_dq_cuda,
+        flash_attention_fwd_residuals_cuda,
+    )
+
+    gen = torch.Generator().manual_seed(6)
+    n, s, nh, dh = TRAIN_FLASH_SHAPE
+    main_lengths = [1024, 819, 129, 1] + torch.randint(1, s + 1, (n - 4,), generator=gen).tolist()
+    cases = (
+        ("training shape, padded rows", TRAIN_FLASH_SHAPE, main_lengths, torch.bfloat16, True),
+        ("s=197", (4, 197, nh, dh), [197, 150, 1, 197], torch.bfloat16, True),
+        ("s=197, mask=None", (4, 197, nh, dh), [197] * 4, torch.bfloat16, False),
+        ("f32", (2, 256, 2, dh), [256, 100], torch.float32, True),
+    )
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    worst = {"dkv": 0.0, "dq": 0.0}
+    try:
+        for name, shape, lengths, dtype, use_mask in cases:
+            q, k, v, mask = flash_case(gen, shape, lengths, dtype, dev)
+            do = torch.randn(shape, generator=gen).to(dev, dtype)
+            m = mask if use_mask else None
+            o, stats = flash_self_attention_fwd_residuals(q, k, v, m, dh)
+            _, stats_k = flash_attention_fwd_residuals_cuda(q, k, v, m, dh)
+            torch.cuda.synchronize()
+            stat_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(stats_k, stats))
+            check(stat_err <= 1e-5, f"K3 row statistics != plain ({name}): {stat_err}")
+            got = flash_attention_backward_cuda(q, k, v, m, o, stats, do, dh)
+            again = flash_attention_backward_cuda(q, k, v, m, o, stats, do, dh)
+            torch.cuda.synchronize()
+            want = flash_self_attention_backward(q, k, v, m, o, stats, do, dh)
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            abs_errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            same = all(bitwise_equal(a, b) for a, b in zip(got, again))
+            print(
+                f"flash backward {name} {tuple(shape)} {dtype}: stats rel err {stat_err:.2e} (1e-5); "
+                f"dq/dk/dv rel err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {BWD_TOL[dtype]}); "
+                f"max abs err {max(abs_errs):.3e}; bitwise repeatable {same}"
+            )
+            check(finite and max(errs) <= BWD_TOL[dtype], f"flash backward kernels != plain ({name})")
+            check(same, f"flash backward not deterministic ({name})")
+            if dtype == torch.bfloat16:
+                worst["dq"] = max(worst["dq"], abs_errs[0])
+                worst["dkv"] = max(worst["dkv"], abs_errs[1], abs_errs[2])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+    # timed at bench.py's training inputs: every row 819 real tokens
+    q, k, v, mask = flash_case(gen, TRAIN_FLASH_SHAPE, [int(s * 0.8)] * n, torch.bfloat16, dev)
+    do = torch.randn(TRAIN_FLASH_SHAPE, generator=gen).to(dev, torch.bfloat16)
+    o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, dh)
+    ids = mask.to(torch.int32).contiguous()
+    di_fn = lambda: (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()  # noqa: E731
+    di = di_fn()
+    k4_ms = cuda_ms(lambda: flash_attention_dkv_cuda(q, k, v, do, ids, stats, di), reps=20)
+    k5_ms = cuda_ms(lambda: flash_attention_dq_cuda(q, k, v, do, ids, stats, di), reps=20)
+    di_ms = cuda_ms(di_fn, reps=20)
+    plain_ms = cuda_ms(lambda: flash_self_attention_backward(q, k, v, mask, o, stats, do, dh), reps=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    same = ids[:, None, :, None] == ids[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=same), reps=10)
+    fwd_bwd_ms = cuda_ms(
+        lambda: torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=same), (qt, kt, vt), dot), reps=10
+    )
+    library_ms = fwd_bwd_ms - fwd_ms
+    entries = []
+    for name, ms, products, outputs, src_line in (
+        ("flash_attention_dkv", k4_ms, 4, 2, 941), ("flash_attention_dq", k5_ms, 3, 1, 1287),
+    ):
+        nbytes, nops = backward_work(ids, nh, dh, 2, products, outputs)
+        bound_ms, bound_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        print(
+            f"{name} timing {TRAIN_FLASH_SHAPE} bf16 (819 real of 1024): kernel {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nops:.3e} operations, {nbytes:.3e} bytes)"
+        )
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vltk_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{src_line}",
+            "max_abs_err": worst["dkv" if outputs == 2 else "dq"],
+            "ms": ms,
+            # the plain backward computes dq, dk and dv together: its whole
+            # time stands beside each kernel
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # SDPA's backward (forward + backward minus forward), which
+            # computes dq, dk and dv together, beside each kernel
+            "library_ms": library_ms,
+        })
+    print(
+        f"flash backward timing {TRAIN_FLASH_SHAPE} bf16: K4 {k4_ms:.4f} + K5 {k5_ms:.4f} + di {di_ms:.4f} "
+        f"= {k4_ms + k5_ms + di_ms:.4f} ms; plain backward {plain_ms:.4f} ms; SDPA with the boolean mask: "
+        f"forward {fwd_ms:.4f} ms, forward + backward {fwd_bwd_ms:.4f} ms, backward {library_ms:.4f} ms"
+    )
+    return entries
+
+
 # ----------------------------------------------------------- the main path
 
 
@@ -393,7 +550,8 @@ def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
     check(bool((preds > 0).all()), f"an image has no detection: {preds.tolist()}")
     for name in ("roi_pool", "nms"):
         check(launches[name] > 0, f"kernel {name} was not launched on the extraction path")
-    check(launches["flash_attention"] == 0, "flash attention launched on the extraction path")
+    for name in ("flash_attention", "flash_attention_dkv", "flash_attention_dq"):
+        check(launches[name] == 0, f"{name} launched on the extraction path")
     return {
         "batch": batch,
         "images_per_s": batch * steps / dt,
@@ -521,6 +679,8 @@ def phase_document(dev, wrappers, smi: str) -> dict:
     check(launches["flash_attention"] == 12 * forwards,
           f"flash attention launched {launches['flash_attention']} times over {forwards} forwards")
     check(launches["roi_pool"] == 0 and launches["nms"] == 0, f"extraction kernels on the document path: {launches}")
+    check(launches["flash_attention_dkv"] == 0 and launches["flash_attention_dq"] == 0,
+          f"backward kernels on the serving path: {launches}")
     n_words = []
     for docs, out in zip(requests, answers):
         check(len(out) == len(docs), "one result per document")
@@ -599,6 +759,206 @@ def phase_small_layoutlm(dev) -> None:
     check(torch.allclose(got[real], want[real], rtol=1e-4, atol=1e-4), "small LayoutLM: card != CPU")
 
 
+# ------------------------------------------------------ the training path
+
+TRAIN_BATCH = 8
+TRAIN_STEPS = 8  # one epoch of 8 batches
+# 1e-5, not the 1e-4 of a fine-tune from pretrained weights: with 8 steps
+# the warmup is one update, and AdamW's first step at 1e-4 (a step of ~lr on
+# every weight of a randomly initialised model) throws the loss up ~4x on
+# both attention routes alike before it decays back; at 1e-5 the epoch ends
+# below where it began (`python -m vltk_tpu_torch.trace --model layoutlm
+# --train --lrs 1e-4 1e-5` prints both curves)
+TRAIN_LR = 1e-5
+# relative L2 per parameter tensor, flash route vs dense route, one bf16
+# step: the dense route rounds the scores to bf16 three times (product,
+# / sqrt(dh), + bias) and the probabilities once, the flash route keeps the
+# scores in float32 and rounds p once; a few bf16 ulps (2^-8 = 3.9e-3) of
+# relative difference per layer, carried through 12 layers
+ROUTE_GRAD_BOUND = 5e-2
+
+
+def time_train_step(exp, host_batch, steps: int):
+    data = next(iter(exp._device_batches([host_batch])))
+    exp.train_step(data)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = exp.train_step(data)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(bool(torch.isfinite(metrics["loss"])), "timed training step: loss not finite")
+    return TRAIN_BATCH * steps / dt, dt / steps * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_training(dev, wrappers, smi: str) -> dict:
+    """The training path: OCRTokenExperiment at LayoutLM-base width for one
+    epoch, then the step timed on both attention routes."""
+    import dataclasses
+    import tempfile
+
+    from vltk_tpu_torch.trace import layoutlm_train_config, train_documents, train_experiment
+
+    cfg = layoutlm_train_config("auto")
+    check(
+        (cfg.l_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.intermediate_size, cfg.vocab_size,
+         cfg.coord_vocab, cfg.max_position_embeddings, cfg.dtype, cfg.attention_impl, cfg.attention_dropout,
+         cfg.hidden_dropout) == (12, 768, 12, 64, 3072, 30522, 1024, 1024, "bfloat16", "auto", 0.0, 0.1),
+        f"LayoutLM-base training config {cfg}",
+    )
+    host = {k: v.numpy() for k, v in train_documents(TRAIN_BATCH, cfg.vocab_size, cfg.num_labels, "cpu").items()}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_train_") as logdir:
+        exp = train_experiment(cfg, os.path.join(logdir, "auto"), [host] * TRAIN_STEPS, TRAIN_LR)
+        check(exp.device.type == "cuda", f"experiment on {exp.device}")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        result = exp()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+            log = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in log]
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"training losses {losses}")
+        first, last = np.mean(losses[:2]), np.mean(losses[-2:])
+        check(last < first, f"training loss did not fall: first two {first}, last two {last}")
+        for name in ("flash_attention", "flash_attention_dkv", "flash_attention_dq"):
+            check(launches[name] == 12 * TRAIN_STEPS,
+                  f"{name} launched {launches[name]} times over {TRAIN_STEPS} steps (want 12 per step)")
+        check(launches["roi_pool"] == 0 and launches["nms"] == 0, f"extraction kernels on the training path: {launches}")
+        ckpt = os.path.join(exp.ckpt_dir, "ocr_tokens_epoch_0.pt")
+        check(os.path.exists(ckpt) and os.path.exists(os.path.join(exp.ckpt_dir, "info.json")),
+              "no checkpoint written")
+        print(
+            f"training: OCRTokenExperiment LayoutLM-base bf16 seq 1024 B={TRAIN_BATCH}, {TRAIN_STEPS} steps in "
+            f"{train_s:.2f} s with checkpointing; losses {[round(x, 5) for x in losses]}; "
+            f"token_acc {result['train'].get('token_acc')}; launches {launches}"
+        )
+        timed = {}
+        xla = train_experiment(dataclasses.replace(cfg, attention_impl="xla"), os.path.join(logdir, "xla"), [host],
+                               TRAIN_LR)
+        for attn, e in (("auto", exp), ("xla", xla)):
+            seq_s, step_ms, peak = time_train_step(e, host, steps=5)
+            timed[attn] = {"sequences_per_s": seq_s, "step_ms": step_ms, "peak_mem_gb": peak}
+            route = "K3/K4/K5 flash route" if attn == "auto" else "dense route"
+            print(
+                f"LayoutLM-base train step B={TRAIN_BATCH} seq 1024 bf16 attention_impl={attn} ({route}): "
+                f"{seq_s:.2f} sequences/s ({step_ms:.3f} ms/step over 5 steps) on {smi}; peak {peak:.2f} GB"
+            )
+        del exp, xla
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "train_s": train_s, "timed": timed}
+
+
+def phase_route_gradients(dev) -> None:
+    """One full-width bf16 step's parameter gradients, flash route against
+    dense route, same weights and batch, dropout 0."""
+    import dataclasses
+
+    from vltk_tpu_torch.models.layoutlm import LayoutLMForTokenClassification, init_weights, token_classification_loss
+    from vltk_tpu_torch.trace import layoutlm_train_config, train_documents
+
+    cfg = layoutlm_train_config("auto", hidden_dropout=0.0)
+    b = train_documents(TRAIN_BATCH, cfg.vocab_size, cfg.num_labels, dev)
+    state = init_weights(LayoutLMForTokenClassification(cfg), seed=0).state_dict()
+    grads = {}
+    for impl in ("auto", "xla"):
+        model = LayoutLMForTokenClassification(dataclasses.replace(cfg, attention_impl=impl))
+        model.load_state_dict(state)
+        model.to(dev).train()
+        logits = model(b["vtext"], b["tokenbox"], b["visual_attention_mask"])
+        token_classification_loss(logits, b["tokenlabels"]).backward()
+        grads[impl] = {n: p.grad.float() for n, p in model.named_parameters() if p.grad is not None}
+        del model
+    errs = {}
+    for name, g in grads["auto"].items():
+        if name.endswith("attention.self.key.bias"):
+            continue  # zero but for rounding on both routes: softmax ignores a bias on every key
+        ref = grads["xla"][name]
+        errs[name] = float((g - ref).norm() / ref.norm().clamp(min=1e-30))
+    worst = max(errs, key=errs.get)
+    print(
+        f"flash vs dense route, one bf16 step at full width: relative L2 of {len(errs)} parameter gradients "
+        f"median {np.median(list(errs.values())):.3e}, max {errs[worst]:.3e} ({worst}; bound {ROUTE_GRAD_BOUND})"
+    )
+    check(errs[worst] <= ROUTE_GRAD_BOUND, f"flash route gradients differ from the dense route's: {worst}")
+    torch.cuda.empty_cache()
+
+
+def phase_small_layoutlm_train(dev) -> None:
+    """Two f32 training steps of a small LayoutLM on the card and on the CPU
+    with the flash route forced on both sides (K3, K4, K5 on the card, the
+    plain versions on the CPU): loss 1e-5, gradients 1e-4, parameters after
+    the AdamW update 1e-5. The first update has lr 0 (the schedule), so the
+    second step is the one that moves the weights."""
+    import copy
+
+    from vltk_tpu_torch.config import TrainConfig
+    from vltk_tpu_torch.models import lxmert as PX
+    from vltk_tpu_torch.models.layoutlm import (
+        LayoutLMConfig,
+        LayoutLMForTokenClassification,
+        init_weights,
+        token_classification_loss,
+    )
+    from vltk_tpu_torch.ops import KERNEL_WRAPPERS
+    from vltk_tpu_torch.train import make_optimizer, make_train_step
+
+    cfg = LayoutLMConfig(
+        vocab_size=1000, hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+        max_position_embeddings=256, attention_impl="flash", attention_dropout=0.0, hidden_dropout=0.0,
+    )
+    cpu = init_weights(LayoutLMForTokenClassification(cfg), seed=7)
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(7)
+    mask = np.zeros((3, 256), np.float32)
+    for i, length in enumerate((256, 200, 77)):
+        mask[i, :length] = 1
+    labels = rng.integers(0, cfg.num_labels, (3, 256))
+    labels[mask == 0] = -100
+    batch = {
+        "ids": torch.from_numpy(rng.integers(0, 1000, (3, 256))),
+        "boxes": torch.from_numpy(np.sort(rng.integers(0, 1000, (3, 256, 2, 2)), axis=2).reshape(3, 256, 4)),
+        "mask": torch.from_numpy(mask), "labels": torch.from_numpy(labels),
+    }
+
+    def loss_fn(model, b):
+        return token_classification_loss(model(b["ids"], b["boxes"], b["mask"]), b["labels"]), {}
+
+    gate = PX._flash_applicable
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    PX._flash_applicable = lambda s, det, drop, device: s >= 128 and (det or drop == 0.0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = lambda: [KERNEL_WRAPPERS[k].launches for k in ("flash_attention", "flash_attention_dkv", "flash_attention_dq")]  # noqa: E731
+    before = counts()
+    out = {}
+    try:
+        for side, model in (("cpu", cpu), ("gpu", gpu)):
+            opt, sched = make_optimizer(model, TrainConfig(learning_rate=1e-3), total_steps=10)
+            step = make_train_step(model, loss_fn, opt, sched)
+            b = {k: v.to(model.classifier.weight.device) for k, v in batch.items()}
+            losses = [float(step(b)["loss"]) for _ in range(2)]
+            out[side] = (losses, {n: (p.grad.cpu(), p.detach().cpu()) for n, p in model.named_parameters()})
+    finally:
+        PX._flash_applicable = gate
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check([a - b for a, b in zip(counts(), before)] == [4, 4, 4], "small training steps did not run K3, K4, K5 per layer")
+    loss_err = max(abs(a - b) for a, b in zip(out["cpu"][0], out["gpu"][0]))
+    grad_err = max(float((out["gpu"][1][n][0] - g).abs().max()) for n, (g, _) in out["cpu"][1].items())
+    # the key bias's gradient is zero but for rounding; AdamW normalises
+    # that rounding into a full-size step of either sign, so its weights
+    # are left out of the parameter comparison
+    param_err = max(float((out["gpu"][1][n][1] - p).abs().max()) for n, (_, p) in out["cpu"][1].items()
+                    if not n.endswith("attention.self.key.bias"))
+    print(
+        f"small f32 LayoutLM training, flash route, card (K3/K4/K5) vs CPU (plain), 2 steps: loss err {loss_err:.2e} "
+        f"(1e-5), grad err {grad_err:.2e} (1e-4), param err after AdamW {param_err:.2e} (1e-5)"
+    )
+    check(loss_err <= 1e-5 and grad_err <= 1e-4 and param_err <= 1e-5, "small LayoutLM training: card != CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -619,7 +979,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    outputs = _build.build(["roi_pool", "nms", "flash_attention"])
+    outputs = _build.build(["roi_pool", "nms", "flash_attention", "flash_attention_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(outputs) or 'cached'})")
     for name, out in outputs.items():
         for line in out.splitlines():
@@ -629,6 +989,7 @@ def main() -> int:
     entries = [phase_roi_pool(dev), phase_nms(dev, batch=8)]
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
     entries.append(phase_flash(dev))
+    entries += phase_flash_backward(dev)
 
     bundle, info = setup(
         preset="parity_300", batch_size=8, device=dev,
@@ -661,12 +1022,20 @@ def main() -> int:
     print("document_run " + json.dumps(doc))
     phase_small_layoutlm(dev)
 
+    train = phase_training(dev, KERNEL_WRAPPERS, smi)
+    print("training_run " + json.dumps(train))
+    phase_route_gradients(dev)
+    phase_small_layoutlm_train(dev)
+
     # launches as counted on each kernel's main path: the B=8 extraction
-    # run for K1 and K2, the document requests for K3
+    # run for K1 and K2, the document requests for K3, the training epoch
+    # for K4 and K5
     launches = {
         "roi_pool": runs[8]["launches"]["roi_pool"],
         "nms_fixed": runs[8]["launches"]["nms"],
         "flash_attention": doc["launches"]["flash_attention"],
+        "flash_attention_dkv": train["launches"]["flash_attention_dkv"],
+        "flash_attention_dq": train["launches"]["flash_attention_dq"],
     }
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -9,14 +9,27 @@ They sweep shapes that ``chip_smoke.py`` (which checks the main paths'
 shapes) does not: channel counts that are not a multiple of the block,
 candidate counts around the 64-bit mask words, budgets larger than the
 candidate count, rows with no candidate; sequence lengths around the
-64-key tile and the 128 pad block, padded rows down to length 1.
+64-key tile and the 128 pad block, padded rows down to length 1; for the
+backward kernels K4 and K5 also strided output gradients, determinism, and
+the gradients that a training step on the card hands the q/k/v projections.
 """
 
 import pytest
 import torch
 
-from vltk_tpu_torch.ops.flash_attention import flash_self_attention
-from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto, flash_attention_cuda
+from vltk_tpu_torch.ops.flash_attention import (
+    flash_self_attention,
+    flash_self_attention_backward,
+    flash_self_attention_fwd_residuals,
+)
+from vltk_tpu_torch.ops.flash_attention_kernel import (
+    flash_attention_auto,
+    flash_attention_backward_cuda,
+    flash_attention_cuda,
+    flash_attention_dkv_cuda,
+    flash_attention_dq_cuda,
+    flash_attention_fwd_residuals_cuda,
+)
 from vltk_tpu_torch.ops.nms import nms_fixed
 from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto, nms_fixed_cuda
 from vltk_tpu_torch.ops.roi_pool import roi_pool
@@ -176,3 +189,149 @@ def test_dispatchers_count_kernel_launches_only(dev):
     qd = q.to(dev)
     flash_attention_auto(qd, qd, qd, None, 64)
     assert tuple(w.launches for w in wrappers) == tuple(b + 1 for b in before)
+
+
+# backward: relative to each tensor's largest magnitude. bf16: p and ds are
+# rounded to bf16 at the same points in both, but from float32 values that
+# differ in the last bits (exp2 on pre-scaled scores, other sum orders), so a
+# rounded element may land one ulp (2^-8 relative) apart, and so may each
+# output; float32: sums in another order
+BWD_TOL = {torch.bfloat16: 2 ** -6, torch.float32: 1e-5}
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def _bwd_case(dev, dtype, s, padded, seed):
+    gen = torch.Generator().manual_seed(seed)
+    n, nh = 3, 2
+    q, k, v, do = (torch.randn(n, s, nh, 64, generator=gen).to(dev, dtype) for _ in range(4))
+    mask = torch.ones(n, s)
+    if padded:
+        mask[1, s // 2:] = 0
+        mask[2, 1:] = 0  # a row of length 1
+    return q, k, v, do, mask.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [128, 197, 1000, 1024])
+@pytest.mark.parametrize("padded", [False, True])
+def test_flash_backward_kernels_match_plain(dev, dtype, s, padded):
+    """K3's statistics against the plain version's, then K4 and K5 against
+    the plain backward on the same inputs (the plain output and
+    statistics), with the mask and with ``mask=None``."""
+    q, k, v, do, mask = _bwd_case(dev, dtype, s, padded, s * 10 + padded)
+    for m in (mask, None):
+        o, stats = flash_self_attention_fwd_residuals(q, k, v, m, 64)
+        o_k, stats_k = flash_attention_fwd_residuals_cuda(q, k, v, m, 64)
+        torch.cuda.synchronize()
+        assert _rel_err(o_k, o) <= BWD_TOL[dtype]
+        for got, want in zip(stats_k, stats):
+            assert got.shape == want.shape == (3, 2, s) and got.dtype == torch.float32
+            assert ((got - want).abs() / want.abs().clamp(min=1.0)).max().item() <= 1e-5
+        got = flash_attention_backward_cuda(q, k, v, m, o, stats, do, 64)
+        torch.cuda.synchronize()
+        want = flash_self_attention_backward(q, k, v, m, o, stats, do, 64)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape == q.shape and g.dtype == dtype
+            assert bool(torch.isfinite(g).all())
+            assert _rel_err(g, w) <= BWD_TOL[dtype], _rel_err(g, w)
+
+
+def test_flash_backward_reads_a_strided_output_gradient(dev):
+    """``do`` as a strided view (the gradient of a head view of a wider
+    projection) gives the same gradients as its contiguous copy."""
+    q, k, v, _, mask = _bwd_case(dev, torch.bfloat16, 300, True, 11)
+    wide = torch.randn(3, 300, 2, 3 * 64, device=dev).bfloat16()
+    do = wide[..., 64:128]
+    assert not do.is_contiguous()
+    o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+    got = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+    want = flash_attention_backward_cuda(q, k, v, mask, o, stats, do.contiguous(), 64)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_flash_backward_is_deterministic(dev):
+    """No atomics: two backward calls are bitwise equal."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, mask = _bwd_case(dev, dtype, 1024, True, 12)
+        o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+        a = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+        b = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(_bits(x), _bits(y))
+
+
+def test_flash_backward_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 128, 2, 32, device=dev, dtype=torch.bfloat16)
+    stats = (torch.zeros(1, 2, 128, device=dev), torch.ones(1, 2, 128, device=dev))
+    with pytest.raises(ValueError):
+        flash_attention_backward_cuda(q, q, q, None, q, stats, q, 32)  # dh 32
+    q = torch.zeros(1, 128, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_backward_cuda(q, q, q, None, q, stats, q.float(), 64)  # do dtype
+    with pytest.raises(TypeError):
+        flash_attention_backward_cuda(q.half(), q.half(), q.half(), None, q, stats, q, 64)
+
+
+def test_autograd_routes_through_k3_k4_k5(dev):
+    """Grad enabled and an input that requires it: K3, then K4 and K5 once
+    each in the backward, gradients equal to the direct kernel calls."""
+    q, k, v, do, mask = _bwd_case(dev, torch.bfloat16, 256, True, 13)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counts = lambda: (flash_attention_auto.launches, flash_attention_dkv_cuda.launches,  # noqa: E731
+                      flash_attention_dq_cuda.launches)
+    before = counts()
+    out = flash_attention_auto(*leaves, mask, 64)
+    out.backward(do)
+    assert counts() == tuple(b + 1 for b in before)
+    o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+    want = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), o)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with torch.no_grad():
+        flash_attention_auto(*leaves, mask, 64)
+    assert counts()[1:] == tuple(b + 2 for b in before[1:])
+
+
+def test_training_forward_on_the_card_gives_qkv_gradients(dev, monkeypatch):
+    """The flash route in training mode (attention dropout 0) carries
+    gradients: every q/k/v projection of every layer gets a non-zero one,
+    close to the dense route's at this f32 size. The key bias is the
+    exception on both routes: a bias on every key moves a query's scores by
+    one constant, which softmax ignores, so its gradient is zero but for
+    rounding."""
+    import dataclasses
+
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig, LayoutLMForTokenClassification, init_weights
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = LayoutLMConfig(vocab_size=500, hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+                         max_position_embeddings=256, attention_impl="flash", attention_dropout=0.0,
+                         hidden_dropout=0.0)
+    gen = torch.Generator().manual_seed(14)
+    ids = torch.randint(0, 500, (2, 256), generator=gen).to(dev)
+    boxes = torch.randint(0, 1000, (2, 256, 4), generator=gen).sort(-1).values.to(dev)
+    mask = torch.ones(2, 256, device=dev)
+    grads = {}
+    for impl in ("flash", "xla"):
+        model = init_weights(LayoutLMForTokenClassification(dataclasses.replace(cfg, attention_impl=impl)), 14)
+        model.to(dev).train()
+        before = flash_attention_dkv_cuda.launches
+        model(ids, boxes, mask).float().square().mean().backward()
+        assert flash_attention_dkv_cuda.launches - before == (2 if impl == "flash" else 0)
+        grads[impl] = {n: p.grad for n, p in model.named_parameters() if ".attention.self." in n}
+    assert len(grads["flash"]) == 2 * 3 * 2
+    for name, g in grads["flash"].items():
+        assert g is not None and bool(torch.isfinite(g).all()), name
+        if name.endswith("key.bias"):
+            assert g.abs().max().item() < 1e-6, name
+            continue
+        assert g.abs().max().item() > 0, name
+        assert _rel_err(g, grads["xla"][name]) <= 1e-3, name

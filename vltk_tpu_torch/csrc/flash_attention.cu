@@ -32,6 +32,14 @@
 // pre-scaled by log2(e). This is the simple form: wgmma and TMA, which the
 // card needs for its full tensor rate, are a later step.
 //
+// With m_out and l_out (nullable) the kernel also writes the row statistics
+// the backward kernels (csrc/flash_attention_bwd.cu) recompute p from, as the
+// Pallas forward keeps them for its VJP: m, the row max of the masked,
+// scaled scores, and l, the row sum of exp(scores - m); float32 (n, nh, s),
+// natural-log units (the running max is kept in log2 units here and scaled
+// by ln 2 on the way out). Rows past s are not written. Serving passes null
+// and pays nothing for it.
+//
 // float32 inputs take a scalar instantiation of the same algorithm (one
 // thread per query row, FMAs on the CUDA cores): it exists so that the
 // dtype=None configs and the float32 checks run through the kernel too.
@@ -42,6 +50,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_utils.cuh"
+
 namespace {
 
 constexpr int D = 64;          // head size
@@ -51,6 +61,7 @@ constexpr int LDS = D + 8;     // shared row stride (elements): 144 bytes
 constexpr int PAD_BLOCK = 128; // the Pallas kernel's block: s counts as padded to it
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -58,51 +69,12 @@ struct Params {
   const void* v;
   const int* ids;
   void* o;
+  float* m_out;  // nullable: row statistics (n, nh, s)
+  float* l_out;
   int s, s_pad, nh;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   float sm_scale;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; src_bytes = 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // ------------------------------------------------------------------ bf16
 
@@ -254,6 +226,17 @@ __global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
   }
   const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;
   const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  if (p.m_out != nullptr && tig == 0) {
+    const size_t row0 = (size_t)blockIdx.y * p.s;
+    if (r_lo < p.s) {
+      p.m_out[row0 + r_lo] = m_lo * LN2;
+      p.l_out[row0 + r_lo] = l_lo;
+    }
+    if (r_hi < p.s) {
+      p.m_out[row0 + r_hi] = m_hi * LN2;
+      p.l_out[row0 + r_hi] = l_hi;
+    }
+  }
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int col = t * 8 + 2 * tig;
@@ -330,6 +313,10 @@ __global__ void __launch_bounds__(BQ) flash_fwd_f32(Params p) {
     }
   }
   if (live) {
+    if (p.m_out != nullptr) {
+      p.m_out[(size_t)blockIdx.y * p.s + row] = m;
+      p.l_out[(size_t)blockIdx.y * p.s + row] = l;
+    }
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
     for (int d = 0; d < D; ++d) O[(size_t)row * p.o_ss + d] = acc[d] * inv;
@@ -339,18 +326,20 @@ __global__ void __launch_bounds__(BQ) flash_fwd_f32(Params p) {
 }  // namespace
 
 // q, k, v, out: (n, s, nh, 64) with the given strides in elements (the last
-// stride is 1); ids: (n, s) int32 contiguous. dtype: 0 = float32,
+// stride is 1); ids: (n, s) int32 contiguous; m_out, l_out: null, or float32
+// (n, nh, s) contiguous for the row statistics. dtype: 0 = float32,
 // 1 = bfloat16 (then every base pointer is 16-byte aligned and every stride a
 // multiple of 8). Returns the cudaError_t of the launch.
 extern "C" int flash_attention_forward(const void* q, const void* k, const void* v,
-                                       const int* ids, void* out, int n, int s, int nh,
+                                       const int* ids, void* out, float* m_out,
+                                       float* l_out, int n, int s, int nh,
                                        long long q_sb, long long q_ss, long long q_sh,
                                        long long k_sb, long long k_ss, long long k_sh,
                                        long long v_sb, long long v_ss, long long v_sh,
                                        long long o_sb, long long o_ss, long long o_sh,
                                        float sm_scale, int dtype, void* stream) {
   if (n == 0 || s == 0 || nh == 0) return 0;
-  Params p{q, k, v, ids, out, s, (s + PAD_BLOCK - 1) / PAD_BLOCK * PAD_BLOCK, nh,
+  Params p{q, k, v, ids, out, m_out, l_out, s, (s + PAD_BLOCK - 1) / PAD_BLOCK * PAD_BLOCK, nh,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, sm_scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((s + BQ - 1) / BQ, n * nh);

@@ -4,7 +4,7 @@ Counterpart of ``vltk_tpu/models/layoutlm.py``: BERT-style token
 embeddings plus the shared x (left/right), shared y (top/bottom), height
 and width coordinate embeddings, all summed before the LayerNorm; a
 single-stream stack of ``TransformerLayer``; per-token classification and
-extractive span-QA heads. Module and state-dict names are those of HF
+extractive span-QA heads and their losses. Module and state-dict names are those of HF
 ``transformers.LayoutLMModel`` / ``LayoutLMForTokenClassification`` /
 ``LayoutLMForQuestionAnswering`` (without the pooler), so an HF state dict
 loads as it is.
@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from vltk_tpu_torch.models.lxmert import LxmertConfig, TransformerLayer
+from vltk_tpu_torch.models.lxmert import LxmertConfig, TransformerLayer, masked_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +144,20 @@ class LayoutLMForSpanQA(nn.Module):
             bias = (1.0 - attention_mask.float()) * -10000.0
             start, end = start + bias, end + bias
         return start, end
+
+
+def token_classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                              ignore_id: int = -100) -> torch.Tensor:
+    """Token-level cross entropy ignoring padded and unlabelled positions."""
+    return masked_cross_entropy(logits, labels, ignore_id)
+
+
+def span_qa_loss(start_logits: torch.Tensor, end_logits: torch.Tensor, span_start: torch.Tensor,
+                 span_end: torch.Tensor, ignore_id: int = -100) -> torch.Tensor:
+    """Mean cross entropy over start and end positions, rows with
+    ``ignore_id`` skipped."""
+    return (masked_cross_entropy(start_logits, span_start, ignore_id)
+            + masked_cross_entropy(end_logits, span_end, ignore_id)) / 2
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:

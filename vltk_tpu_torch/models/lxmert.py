@@ -4,7 +4,8 @@ Counterpart of the encoder parts of ``vltk_tpu/models/lxmert.py``:
 ``LxmertConfig`` (same field set), the flash-attention gate
 (``_flash_applicable`` / ``_impl_wants_flash`` / ``_flash_eligible``),
 ``MultiHeadAttention`` with its dense and flash branches,
-``FeedForward`` and ``TransformerLayer``. LayoutLM runs on them now;
+``FeedForward``, ``TransformerLayer`` and ``masked_cross_entropy``. LayoutLM
+runs on them now;
 VisualBERT, ViT and LXMERT reuse them later.
 
 Module names follow HF ``transformers`` BERT-style layers
@@ -20,6 +21,9 @@ divides the ``compute_dtype`` scores by sqrt(dh) in that type and adds
 ``(1 - mask) * -10000``; the flash route (``ops/flash_attention_kernel.py``,
 the CUDA kernel K3 on the card) uses segment ids and a float32 scale, so pad
 queries differ between the routes and they agree at real positions only.
+In training the flash route is differentiable on the card as well: the
+dispatcher runs K3 with its row statistics and the backward kernels K4 and
+K5 behind a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -220,3 +224,14 @@ class TransformerLayer(FeedForward):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         return super().forward(self.attention(x, x, mask))
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -100) -> torch.Tensor:
+    """Cross entropy averaged over the positions whose label is not
+    ``ignore_id``, over the whole batch; 0 (not NaN) when none is. Float32
+    log-softmax, as the JAX package's."""
+    valid = labels != ignore_id
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / valid.sum().clamp(min=1)

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` into a
 shared library with a plain C interface, cached under
-``vltk_tpu_torch/_build/`` by the hash of its source and flags, and loaded
-with ``ctypes``. Nothing is compiled when a module is imported; a build
+``vltk_tpu_torch/_build/`` by the hash of its source, the shared headers
+(``csrc/*.cuh``) and flags, and loaded with ``ctypes``. Nothing is compiled when a module is imported; a build
 error raises with the compiler's output.
 """
 
@@ -50,9 +50,13 @@ def _flags(name: str) -> List[str]:
 
 
 def _so_path(name: str) -> str:
+    """The library's path, keyed by the source, the shared headers of
+    ``csrc/`` and the flags."""
     digest = hashlib.sha256()
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 

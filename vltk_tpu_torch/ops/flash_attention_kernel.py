@@ -1,34 +1,52 @@
-"""Flash-attention dispatcher: the CUDA kernel ``csrc/flash_attention.cu``
-for tensors on the card, the plain version (``ops/flash_attention.py``) for
-tensors on the CPU.
+"""Flash-attention dispatcher: the CUDA kernels for tensors on the card, the
+plain versions (``ops/flash_attention.py``) for tensors on the CPU.
 
 Counterpart of ``vltk_tpu/models/lxmert.py:_flash_self_attention``, which
-calls the Pallas TPU kernel. ``flash_attention_auto.launches`` counts kernel
-launches (CPU calls do not count).
+calls the Pallas TPU kernel and, under ``jax.grad``, its custom VJP. On the
+card the forward is K3 (``csrc/flash_attention.cu``) and the backward is K4
+(dk, dv) then K5 (dq) (``csrc/flash_attention_bwd.cu``), joined by
+``FlashAttentionFunction``; ``di = sum(o * do)`` between them is a plain
+PyTorch reduction, as JAX computes it outside Pallas.
+
+Launch counters (CPU calls do not count): ``flash_attention_auto.launches``
+for K3, ``flash_attention_dkv_cuda.launches`` for K4,
+``flash_attention_dq_cuda.launches`` for K5.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from vltk_tpu_torch.ops import _build
 from vltk_tpu_torch.ops.flash_attention import flash_self_attention
 
-HEAD_DIM = 64  # the kernel's head size: that of every model config in the repo
+HEAD_DIM = 64  # the kernels' head size: that of every model config in the repo
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+Stats = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_forward
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    for fn in (lib.flash_attention_backward_dkv, lib.flash_attention_backward_dq):
+        fn.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -42,19 +60,15 @@ def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    mask: Optional[torch.Tensor], dh: int,
-) -> torch.Tensor:
-    """Launch the kernel: q, k, v (n, s, nh, 64) float32 or bfloat16 on one
-    CUDA device, mask (n, s) or None. Same contract as the plain
-    ``flash_self_attention``."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dh: int) -> None:
+    """What every kernel takes: q, k, v (n, s, nh, 64) of one shape, one
+    dtype (float32 or bfloat16) and one CUDA device."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"flash attention: want q, k, v of one shape (n, s, nh, dh), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    n, s, nh, d = q.shape
+    n, _, nh, d = q.shape
     if d != HEAD_DIM or dh != HEAD_DIM:
         raise ValueError(f"flash attention kernel: head size {d} (dh={dh}); it takes {HEAD_DIM}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -67,24 +81,144 @@ def flash_attention_cuda(
         raise ValueError("flash attention kernel: q, k and v must share a CUDA device")
     if n * nh > 65535:
         raise ValueError(f"flash attention kernel: n * nh = {n * nh} exceeds the grid")
+
+
+def _segment_ids(mask: Optional[torch.Tensor], q: torch.Tensor) -> torch.Tensor:
+    n, s = q.shape[0], q.shape[1]
     if mask is None:
-        ids = torch.ones((n, s), dtype=torch.int32, device=dev)
-    else:
-        if tuple(mask.shape) != (n, s) or mask.device != dev:
-            raise ValueError(f"flash attention: mask {tuple(mask.shape)} on {mask.device}")
-        ids = mask.to(torch.int32).contiguous()
+        return torch.ones((n, s), dtype=torch.int32, device=q.device)
+    if tuple(mask.shape) != (n, s) or mask.device != q.device:
+        raise ValueError(f"flash attention: mask {tuple(mask.shape)} on {mask.device}")
+    return mask.to(torch.int32).contiguous()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _forward(q, k, v, ids, residuals: bool):
+    """Launch K3; with ``residuals`` it also writes the row statistics."""
+    n, s, nh, d = q.shape
+    dev = q.device
     q, k, v = _kernel_view(q), _kernel_view(k), _kernel_view(v)
     out = torch.empty((n, s, nh, d), dtype=q.dtype, device=dev)
+    m = l = None  # noqa: E741
+    if residuals:
+        m = torch.empty((n, nh, s), dtype=torch.float32, device=dev)
+        l = torch.empty((n, nh, s), dtype=torch.float32, device=dev)  # noqa: E741
     strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            n, s, nh, *strides, 1.0 / float(dh) ** 0.5, _DTYPE_CODE[q.dtype], stream,
+            None if m is None else m.data_ptr(), None if l is None else l.data_ptr(),
+            n, s, nh, *strides, 1.0 / float(HEAD_DIM) ** 0.5, _DTYPE_CODE[q.dtype], _stream(dev),
         )
     _build.check(err, "flash_attention_forward launch")
     flash_attention_auto.launches += 1
-    return out
+    return out, (m, l)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    mask: Optional[torch.Tensor], dh: int,
+) -> torch.Tensor:
+    """Launch K3: q, k, v (n, s, nh, 64) float32 or bfloat16 on one CUDA
+    device, mask (n, s) or None. Same contract as the plain
+    ``flash_self_attention``."""
+    _check(q, k, v, dh)
+    return _forward(q, k, v, _segment_ids(mask, q), residuals=False)[0]
+
+
+def flash_attention_fwd_residuals_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    mask: Optional[torch.Tensor], dh: int,
+) -> Tuple[torch.Tensor, Stats]:
+    """K3 with its row statistics: the contract of the plain
+    ``flash_self_attention_fwd_residuals`` (m, l float32 (n, nh, s))."""
+    _check(q, k, v, dh)
+    return _forward(q, k, v, _segment_ids(mask, q), residuals=True)
+
+
+def _backward_launch(fn_name: str, q, k, v, do, ids, stats: Stats, di, dq, dk, dv) -> None:
+    """One of the two backward entry points; the outputs it does not write
+    are None."""
+    n, s, nh, _ = q.shape
+    dev = q.device
+    m, l = stats  # noqa: E741
+    views = (q, k, v, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 21)(
+        *[st for t in views for st in (t.stride()[:3] if t is not None else (0, 0, 0))]
+    )
+    with torch.cuda.device(dev):
+        err = getattr(_bwd_lib(), fn_name)(
+            *[None if t is None else t.data_ptr() for t in views[:4]],
+            ids.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr(),
+            *[None if t is None else t.data_ptr() for t in views[4:]],
+            n, s, nh, strides, 1.0 / float(HEAD_DIM) ** 0.5, _DTYPE_CODE[q.dtype], _stream(dev),
+        )
+    _build.check(err, f"{fn_name} launch")
+
+
+def flash_attention_dkv_cuda(q, k, v, do, ids, stats: Stats, di) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K4: (dk, dv) from q, k, v, do (n, s, nh, 64, kernel views),
+    ids (n, s) int32, stats (m, l) and di float32 (n, nh, s) contiguous."""
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _backward_launch("flash_attention_backward_dkv", q, k, v, do, ids, stats, di, None, dk, dv)
+    flash_attention_dkv_cuda.launches += 1
+    return dk, dv
+
+
+def flash_attention_dq_cuda(q, k, v, do, ids, stats: Stats, di) -> torch.Tensor:
+    """Launch K5: dq, from the inputs K4 takes."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _backward_launch("flash_attention_backward_dq", q, k, v, do, ids, stats, di, dq, None, None)
+    flash_attention_dq_cuda.launches += 1
+    return dq
+
+
+def _backward(q, k, v, ids, o, stats: Stats, do):
+    """di (a plain reduction), then K4, then K5."""
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"flash attention backward: output gradient {tuple(do.shape)} {do.dtype} on "
+            f"{do.device}; want {tuple(q.shape)} {q.dtype} on {q.device}"
+        )
+    m, l = (t.contiguous() for t in stats)  # noqa: E741
+    q, k, v, do = (_kernel_view(t) for t in (q, k, v, do))
+    di = (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dk, dv = flash_attention_dkv_cuda(q, k, v, do, ids, (m, l), di)
+    dq = flash_attention_dq_cuda(q, k, v, do, ids, (m, l), di)
+    return dq, dk, dv
+
+
+def flash_attention_backward_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor],
+    o: torch.Tensor, stats: Stats, do: torch.Tensor, dh: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) on the card: the contract of the plain
+    ``flash_self_attention_backward``."""
+    _check(q, k, v, dh)
+    return _backward(q, k, v, _segment_ids(mask, q), o, stats, do)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K3 forward (with its row statistics), K4 and K5 backward. Saves q,
+    k, v, the segment ids, the output and the statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, dh):
+        _check(q, k, v, dh)
+        ids = _segment_ids(mask, q)
+        out, stats = _forward(q, k, v, ids, residuals=True)
+        ctx.save_for_backward(q, k, v, ids, out, *stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, ids, out, m, l = ctx.saved_tensors  # noqa: E741
+        dq, dk, dv = _backward(q, k, v, ids, out, (m, l), do)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_auto(
@@ -92,11 +226,17 @@ def flash_attention_auto(
     mask: Optional[torch.Tensor], dh: int,
 ) -> torch.Tensor:
     """(n, s, nh, dh) q/k/v -> attention with segment ids q = kv = mask.
-    The kernel on CUDA tensors (or an error), the plain version on CPU
-    ones."""
+    On CUDA tensors the kernels (or an error): K3 alone without autograd,
+    ``FlashAttentionFunction`` (K3, then K4 and K5 in the backward) when
+    grad is enabled and an input requires it. On CPU tensors the plain
+    version, which autograd differentiates."""
     if q.device.type == "cpu":
         return flash_self_attention(q, k, v, mask, dh)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, mask, dh)
     return flash_attention_cuda(q, k, v, mask, dh)
 
 
 flash_attention_auto.launches = 0
+flash_attention_dkv_cuda.launches = 0
+flash_attention_dq_cuda.launches = 0

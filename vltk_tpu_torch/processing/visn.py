@@ -1,9 +1,9 @@
 """OCR processors of the document path.
 
-Counterparts of ``AuxTokenize``, ``_expand_by_tokenmap`` and
-``OCRBoxFixed`` in ``vltk_tpu/processing/visn.py``: OCR words -> flattened
-sub-token ids, tokenmap and attention mask; word boxes -> 0-1000
-normalised sub-token boxes. All outputs are fixed-shape numpy arrays padded
+Counterparts of ``AuxTokenize``, ``_expand_by_tokenmap``, ``OCRBoxFixed``
+and ``TokenLabels`` in ``vltk_tpu/processing/visn.py``: OCR words ->
+flattened sub-token ids, tokenmap and attention mask; word boxes -> 0-1000
+normalised sub-token boxes; word labels -> sub-token label ids. All outputs are fixed-shape numpy arrays padded
 to ``max_visual_seq_length``.
 """
 
@@ -97,4 +97,47 @@ class OCRBoxFixed(VisnProcessor):
         arr = np.asarray(boxes, dtype=np.float32)
         arr = rescale_box(arr, (1000.0 / raw_w, 1000.0 / raw_h))
         entry[V.tokenbox] = np.clip(arr, 0.0, 1000.0)
+        return entry
+
+
+class TokenLabels(VisnProcessor):
+    """Word labels expanded to fixed-length sub-token label ids. Reads the
+    word-level label strings (``tokenlabels`` if a prior processor produced
+    them, else the adapter's ``label`` column), repeats each by its
+    ``tokenmap`` count, maps them to ids through the label table of
+    ``metadata_ids`` (``label`` or ``labels``), and pads with
+    ``ignore_id``."""
+
+    keys = (V.tokenmap,)
+
+    def setup(
+        self,
+        max_visual_seq_length: int = 128,
+        add_visual_cls: bool = False,
+        metadata_ids=None,
+        ignore_id: int = -100,
+    ):
+        self.max_len = max_visual_seq_length
+        self.add_visual_cls = add_visual_cls
+        self.metadata_ids = metadata_ids or {}
+        self.ignore_id = ignore_id
+
+    def forward(self, entry, **kwargs):
+        labels = entry.pop(V.tokenlabels, None)
+        if labels is None:
+            labels = entry.pop(V.label, None)
+        if labels is None:
+            return entry
+        labels = list(labels)
+        if self.add_visual_cls:
+            labels = [None] + labels
+        labels = _expand_by_tokenmap(labels, entry[V.tokenmap])
+        table = self.metadata_ids.get(V.label) or self.metadata_ids.get(V.labels, {})
+        ids = [
+            self.ignore_id if lab is None else int(table.get(lab, self.ignore_id))
+            for lab in labels
+        ][: self.max_len - 1]
+        entry[V.tokenlabels] = np.asarray(
+            truncate_and_pad_list(ids, self.max_len, self.ignore_id), dtype=np.int32
+        )
         return entry

@@ -2,6 +2,8 @@
 
     python -m vltk_tpu_torch.trace [--batch 8] [--steps 3] [--repeats 3]
     python -m vltk_tpu_torch.trace --model layoutlm [--attn auto|xla] [--batch 32]
+    python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] [--batch 8]
+    python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] --lrs 1e-4 1e-5
 
 ``--model frcnn`` (default) builds the ``parity_300`` extraction (R-101-C4,
 1600 classes, 400 attributes, bf16) on the 832x1344 canvas with seeded
@@ -11,13 +13,18 @@ LayoutLM-base, 12 layers, hidden 768, bf16, seeded random weights) at the
 JAX bench.py geometry: seq 1024, batch 32, ids and boxes from
 ``default_rng(0)``, device-resident; ``--attn auto`` sends every
 self-attention through the flash kernel K3, ``--attn xla`` takes the dense
-route. It prints:
+route. ``--train`` times the training step of ``OCRTokenExperiment``
+instead (``make_train_step``: forward, token cross entropy, backward,
+clipped AdamW, schedule) at the JAX bench.py ``--train layoutlm``
+geometry: seq 1024, batch 8, a 20% pad tail with -100 labels on it,
+attention dropout 0 (hidden dropout 0.1); on ``--attn auto`` K3 runs with
+its statistics in the forward and K4 and K5 in the backward. It prints:
 
 * the step time over ``--repeats`` windows of ``--steps`` steps (host
   clock, synchronised), to show the spread;
 * the device time of each stage of one step (CUDA events between the
   stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess;
-  or embeddings, encoder, head);
+  or embeddings, encoder, head; or forward, backward, optimizer);
 * from a ``torch.profiler`` trace of ``--steps`` steps: device time by
   kernel class and the top kernels, and the device's busy share of the
   traced span (union of kernel intervals over first-start..last-end).
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -43,6 +51,8 @@ CANVAS = (832, 1344)
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
     ("flash_fwd", "flash attention kernel"),
+    ("flash_bwd_dkv", "flash dk/dv kernel (K4)"),
+    ("flash_bwd_dq", "flash dq kernel (K5)"),
     ("roi_pool_kernel", "roi_pool kernel"),
     ("nms_", "nms kernels"),
     ("sort", "sort"),
@@ -118,6 +128,98 @@ def bench_documents(batch: int, vocab_size: int, device):
     put = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa: E731
     return (put(ids, torch.int64), put(boxes, torch.int64),
             torch.ones((batch, DOC_SEQ), dtype=torch.float32, device=device))
+
+
+TRAIN_SEQ = 1024  # bench.py --train layoutlm: --seq default, batch 8 * 1024 // seq
+
+
+def train_documents(batch: int, vocab_size: int, num_labels: int, device):
+    """bench.py's LayoutLM training inputs (--train layoutlm), on the
+    device: ids, boxes (x0 y0 in [0, 900), w h in [1, 100)), a 20% pad
+    tail, labels with -100 on the pad."""
+    s = TRAIN_SEQ
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, vocab_size, (batch, s))
+    xy0 = rng.integers(0, 900, (batch, s, 2))
+    wh = rng.integers(1, 100, (batch, s, 2))
+    boxes = np.concatenate([xy0, xy0 + wh], axis=-1)
+    mask = np.ones((batch, s), np.float32)
+    mask[:, int(s * 0.8):] = 0.0
+    labels = rng.integers(0, num_labels, (batch, s))
+    labels[mask == 0.0] = -100
+    put = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa: E731
+    return {"vtext": put(ids, torch.int32), "tokenbox": put(boxes, torch.int32),
+            "visual_attention_mask": put(mask, torch.float32), "tokenlabels": put(labels, torch.int32)}
+
+
+def layoutlm_train_config(attn: str, hidden_dropout: float = 0.1):
+    """LayoutLM-base, bf16, seq 1024, attention dropout 0 (bench.py)."""
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+
+    return LayoutLMConfig(dtype="bfloat16", max_position_embeddings=TRAIN_SEQ, attention_impl=attn,
+                          attention_dropout=0.0, hidden_dropout=hidden_dropout)
+
+
+def train_experiment(cfg, logdir: str, loader, lr: float = 1e-4):
+    """An ``OCRTokenExperiment`` for one epoch over ``loader`` at the model
+    config ``cfg``, seeded random weights, on CUDA; AdamW at ``lr`` with
+    weight decay 0.01, warmup 0.1 and clip 1.0."""
+    from vltk_tpu_torch.config import Config
+    from vltk_tpu_torch.experiments import OCRTokenExperiment
+
+    class Experiment(OCRTokenExperiment):
+        model_config = cfg
+
+    config = Config()
+    config.logdir = logdir
+    config.data.lang.update({"max_visual_seq_length": cfg.max_position_embeddings})
+    config.train.update({"epochs": 1, "learning_rate": lr, "weight_decay": 0.01,
+                         "warmup_ratio": 0.1, "clip_grad_norm": 1.0})
+    return Experiment(config, loaders=(loader, None), device="cuda")
+
+
+def build_layoutlm_train(batch: int, attn: str, logdir: str):
+    """The experiment over bench.py's training batch, and that batch on the
+    device as its train step takes it."""
+    cfg = layoutlm_train_config(attn)
+    data = train_documents(batch, cfg.vocab_size, cfg.num_labels, "cuda")
+    exp = train_experiment(cfg, logdir, [data])
+    return exp, exp.prepare_batch(data)
+
+
+def epoch_losses(batch: int, steps: int, lr: float, logdir: str, attn: str = "auto"):
+    """The logged losses of one epoch of ``steps`` repeats of bench.py's
+    training batch at ``lr`` (the epoch ``chip_smoke.py`` trains)."""
+    cfg = layoutlm_train_config(attn)
+    host = {k: v.numpy() for k, v in train_documents(batch, cfg.vocab_size, cfg.num_labels, "cpu").items()}
+    exp = train_experiment(cfg, logdir, [host] * steps, lr)
+    exp()
+    with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def stage_times_train(exp, data, steps: int):
+    """Mean device ms of forward (with the loss), backward and optimizer
+    (clip, AdamW, schedule) over ``steps`` training steps."""
+    model, opt = exp.model, exp.optimizer
+    names = ("forward", "backward", "optimizer")
+    totals = defaultdict(float)
+    model.train()
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = exp.loss_fn(model, data)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        exp.scheduler.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(names):
+            totals[name] += ev[i].elapsed_time(ev[i + 1])
+    return {k: v / steps for k, v in totals.items()}
 
 
 @torch.inference_mode()
@@ -204,7 +306,12 @@ def main() -> None:
     ap.add_argument("--model", choices=("frcnn", "layoutlm"), default="frcnn")
     ap.add_argument("--attn", choices=("auto", "xla"), default="auto",
                     help="layoutlm: attention_impl (auto = the flash kernel at seq 1024)")
-    ap.add_argument("--batch", type=int, default=None, help="default 8 (frcnn), 32 (layoutlm)")
+    ap.add_argument("--train", action="store_true", help="layoutlm: the training step (bench.py --train)")
+    ap.add_argument("--lrs", type=float, nargs="+", default=None,
+                    help="layoutlm --train: instead of tracing, print the losses of chip_smoke.py's "
+                         "8-step epoch at each of these learning rates")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="default 8 (frcnn), 32 (layoutlm), 8 (layoutlm --train)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
@@ -216,12 +323,30 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi)
 
+    tmp = None
+    if args.train and args.lrs:
+        import tempfile
+
+        for lr in args.lrs:
+            with tempfile.TemporaryDirectory(prefix="vltk_trace_") as logdir:
+                losses = epoch_losses(args.batch or 8, 8, lr, logdir, args.attn)
+            print(json.dumps({"card": smi, "attn": args.attn, "lr": lr, "epoch_losses": losses}))
+        return
     if args.model == "frcnn":
         batch = args.batch or 8
         bundle, raw, sizes = build_frcnn(batch)
         step = lambda: bundle["step"](raw, sizes)  # noqa: E731
         stages_fn = lambda: stage_times(bundle, raw, sizes, args.steps)  # noqa: E731
         unit = "images_per_s"
+    elif args.train:
+        import tempfile
+
+        batch = args.batch or 8
+        tmp = tempfile.TemporaryDirectory(prefix="vltk_trace_")
+        exp, data = build_layoutlm_train(batch, args.attn, tmp.name)
+        step = lambda: exp.train_step(data)  # noqa: E731
+        stages_fn = lambda: stage_times_train(exp, data, args.steps)  # noqa: E731
+        unit = "sequences_per_s"
     else:
         batch = args.batch or 32
         clf, ids, boxes, mask = build_layoutlm(batch, args.attn)
@@ -251,7 +376,11 @@ def main() -> None:
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device events without the spans of user annotations (such as the
+    # optimizer's ``Optimizer.step#...`` record), which are not kernels
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
     by_class = defaultdict(float)
     by_name = defaultdict(lambda: [0.0, 0])
     intervals = []
@@ -269,9 +398,12 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     for name, (us, n) in top:
         print(f"kernel {us / 1e3 / args.steps:8.3f} ms/step x{n // args.steps:4d}  {name[:110]}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps({
         "card": smi,
         "model": args.model,
+        "train": bool(args.train),
+        "peak_mem_gb": peak_gb,
         "attn": args.attn if args.model == "layoutlm" else None,
         "batch": batch,
         "step_ms_windows": windows,
@@ -283,6 +415,8 @@ def main() -> None:
         "traced_span_ms_per_step": span / 1e3 / args.steps,
         "top_kernels": [[name, us / 1e3 / args.steps, n // args.steps] for name, (us, n) in top],
     }))
+    if tmp is not None:
+        tmp.cleanup()
 
 
 if __name__ == "__main__":
