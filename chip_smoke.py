@@ -7,45 +7,54 @@ It drives the port only (``vltk_tpu_torch``; nothing of JAX or of the JAX
 package):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the three main paths from ``csrc/`` (one
+2. builds every CUDA kernel of the four main paths from ``csrc/`` (one
    nvcc per source, started together) and prints the build time;
 3. holds the RoIPool kernel K1 against its plain PyTorch version, bitwise,
    in float32 and bf16, at the extraction shapes of B=8 and B=16, and times
    both;
-4. holds the greedy-NMS kernel K2 against its plain version, exact keep
+4. holds the RoIPool ablation kernels K6-K9 (``pool``, ``pool_contig``,
+   ``pool_grouped``, ``pool_grouped_v3``) against their plain versions,
+   bitwise, every mode, at (2, 52, 84, 1024) float32 and (8, 52, 84, 1024)
+   bf16 x 300 RoIs (K7 at cb 128, K8/K9 at G 4 and 12), and the RoIPool
+   modes against K1; times every mode, the table build alone and the
+   plain versions at the bf16 shape and prints the phase split; then runs
+   the probe's path (``tools.probe_roipool_ablation.run``: every variant
+   timed and checked against K1 on the probe's inputs) with the launch
+   counts set to 0 and checks that K6-K9 were launched there;
+5. holds the greedy-NMS kernel K2 against its plain version, exact keep
    indices, at the RPN shape (B, 6000) -> 300 and the detection shape
    (B*3, 300) -> 36 for B=8 and B=16, and times both;
-5. holds the flash-attention kernel K3 against its plain version at every
+6. holds the flash-attention kernel K3 against its plain version at every
    position: bf16 at the serving shape (32, 1024, 12, 64) with rows padded
    to other lengths, bf16 at s=197, f32 at a small shape; times the kernel,
    the plain version and ``scaled_dot_product_attention`` with the same
    boolean mask (the yardstick; the port never calls it);
-6. runs the 36-box extraction (``adapters.frcnn.setup(preset="parity_300")``:
+7. runs the 36-box extraction (``adapters.frcnn.setup(preset="parity_300")``:
    R-101-C4, 1600 classes, 400 attributes, bf16) at full width on the
    832x1344 canvas with seeded random weights, tamed so activations stay
    finite; checks the packed output and that K1 and K2 were launched on
    that run, and prints images/s at B=8 and B=16;
-7. runs a small f32 FRCNN on the card and on the CPU with the same weights
+8. runs a small f32 FRCNN on the card and on the CPU with the same weights
    and compares them key by key (the CPU path is the one the test suite
    holds against the JAX package);
-8. serves documents with ``predict.DocTokenClassifier`` at LayoutLM-base
+9. serves documents with ``predict.DocTokenClassifier`` at LayoutLM-base
    width (12 layers, hidden 768, 12 heads, bf16, seeded random weights,
    max_seq_length 1024, attention_impl "auto"): three requests of four
    synthetic documents, one per word within the budget, K3 launched 12
    times per forward; then times the classifier step at the JAX bench.py
    geometry (B=32, seq 1024) on the dense route and on K3, with documents/s
    and peak memory;
-9. runs a small f32 LayoutLM on the card and on the CPU with the flash
+10. runs a small f32 LayoutLM on the card and on the CPU with the flash
    route forced on both sides (K3 on the card, the plain version on the
    CPU) and compares the real positions;
-10. holds the flash-attention backward kernels K4 (dk, dv) and K5 (dq),
+11. holds the flash-attention backward kernels K4 (dk, dv) and K5 (dq),
    and K3's row statistics, against the plain backward: bf16 at the
    training shape (8, 1024, 12, 64) with rows of 1024, 819, 129 and 1 real
    tokens, bf16 at s=197, ``mask=None``, f32 at a small shape; checks that
    two backward calls are bitwise equal; times K4, K5, the ``di`` pass, the
    plain backward and ``scaled_dot_product_attention``'s backward with the
    same boolean mask (the yardstick; the port never calls it);
-11. trains ``OCRTokenExperiment`` at LayoutLM-base width (bf16, seq 1024,
+12. trains ``OCRTokenExperiment`` at LayoutLM-base width (bf16, seq 1024,
    attention dropout 0, hidden dropout 0.1, seeded random weights, AdamW
    lr 1e-5 with warmup, decay and clip 1.0) for one epoch of 8 batches of
    B=8 drawn as the JAX bench.py draws them (20% pad tail, -100 labels on
@@ -53,12 +62,12 @@ package):
    12 times per step, ``steps_log.json`` and a checkpoint are written; then
    times the step on the K3/K4/K5 route and on the dense route (sequences/s,
    ms/step, peak memory);
-12. compares one full-width bf16 step's parameter gradients on the flash
+13. compares one full-width bf16 step's parameter gradients on the flash
    route against the dense route (relative L2 per tensor);
-13. trains a small f32 LayoutLM two steps on the card and on the CPU with
+14. trains a small f32 LayoutLM two steps on the card and on the CPU with
    the flash route forced on both sides and compares loss, gradients and
    the parameters after the AdamW update;
-14. prints the ``kernels`` JSON line, then the device line last.
+15. prints the ``kernels`` JSON line, then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -204,6 +213,149 @@ def phase_roi_pool(dev) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+# ----------------------------------------------------------------- K6-K9
+
+
+def ablation_cases():
+    """(name, label, kernel call, plain call, computes RoIPool) for every
+    variant x mode: K7 at cb 128, K8/K9 at G 4 and 12 (300 RoIs are not a
+    multiple of the default 8). Each call returns the variant's own layout."""
+    from vltk_tpu_torch.ops import roi_pool_ablation as plain
+    from vltk_tpu_torch.ops import roi_pool_ablation_kernel as K
+
+    cases = []
+    for mode in plain.POOL_MODES:
+        cases.append(("pool", f"pool {mode}", lambda f, b, m=mode: K.pool_cuda(f, b, m),
+                      lambda f, b, m=mode: plain.pool(f, b, m), mode in ("full", "v3")))
+    for mode in plain.CONTIG_MODES:
+        cases.append(("pool_contig", f"pool_contig {mode}", lambda f, b, m=mode: K.pool_contig_cuda(f, b, m, 128),
+                      lambda f, b, m=mode: plain.pool_contig(f, b, m, 128), mode in ("full", "stackwrite")))
+    for g in (4, 12):
+        cases.append(("pool_grouped", f"pool_grouped G={g}", lambda f, b, g=g: K.pool_grouped_cuda(f, b, g),
+                      lambda f, b, g=g: plain.pool_grouped(f, b, g), True))
+        cases.append(("pool_grouped_v3", f"pool_grouped_v3 G={g}", lambda f, b, g=g: K.pool_grouped_v3_cuda(f, b, g),
+                      lambda f, b, g=g: plain.pool_grouped_v3(f, b, g), True))
+    return cases
+
+
+def ablation_work(label: str, feat: torch.Tensor, boxes: torch.Tensor, out: torch.Tensor):
+    """(bytes, operations) of one call: the modes that return zeros write
+    their output and need no input; the others read the map and the boxes
+    once and write once. Operations: one max per cell of every bin (capped
+    as the mode caps it: a row bin x one column for noP2, one row x a
+    column bin for noP1), times C."""
+    from vltk_tpu_torch.ops import roi_pool_ablation as plain
+
+    nbytes = out.numel() * out.element_size()
+    if label.endswith(("p1only", "zeroOut")):
+        return nbytes, 0.0
+    nbytes += feat.numel() * feat.element_size() + boxes.numel() * 4
+    if label.endswith("noBoth"):
+        return nbytes, 0.0
+    h, w, c = feat.shape[1:]
+    hs, he, ws, we = plain.capped_edges(boxes, h, w, "v3" if "v3" in label else "v2")
+    rows, cols = (he - hs).clamp(min=0).double(), (we - ws).clamp(min=0).double()
+    if label.endswith("noP1"):
+        return nbytes, float(cols.sum()) * 14 * c
+    if label.endswith("noP2"):
+        return nbytes, float(rows.sum()) * 14 * c
+    return nbytes, float((rows[..., :, None] * cols[..., None, :]).sum()) * c
+
+
+def phase_roi_ablation(dev) -> list:
+    """K6-K9 against their plain versions, bitwise, every mode, at the
+    probe's map in float32 (B=2) and bf16 (B=8) x 300 RoIs on
+    ``roi_boxes``; the RoIPool modes also against K1. Times every mode, the
+    table build alone, K1 and the plain versions at the bf16 shape; then
+    runs the probe's path once and counts its launches. Returns the four
+    kernels-line entries."""
+    from vltk_tpu_torch.ops import KERNEL_WRAPPERS
+    from vltk_tpu_torch.ops import roi_pool_ablation as plain
+    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import build_table_cuda
+    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
+    from vltk_tpu_torch.tools import probe_roipool_ablation as probe
+
+    gen = torch.Generator().manual_seed(8)
+    cases = ablation_cases()
+    worst = {}
+    for b, dtype in ((2, torch.float32), (8, torch.bfloat16)):
+        feat = torch.randn(b, *FEAT_HW, C_RES4, generator=gen).to(dev, dtype)
+        boxes = roi_boxes(gen, b, N_ROI, dev)
+        k1 = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+        for name, label, kernel, ref, is_roipool in cases:
+            got = kernel(feat, boxes)
+            torch.cuda.synchronize()
+            want = ref(feat, boxes)
+            eq = bitwise_equal(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            worst[name] = max(worst.get(name, 0.0), err)
+            same_k1 = None
+            if is_roipool:
+                same_k1 = bitwise_equal(plain.from_contig(got) if name == "pool_contig" else got, k1)
+            print(f"{label} {tuple(feat.shape)} {dtype} x {N_ROI}: bitwise_equal={eq} max_abs_err={err} "
+                  f"equal_to_K1={same_k1}")
+            check(eq, f"{label} kernel != plain at {tuple(feat.shape)} {dtype}")
+            check(same_k1 is not False, f"{label} != K1 at {tuple(feat.shape)} {dtype}")
+            del got, want
+        torch.cuda.empty_cache()
+
+    # timed at the bf16 shape of the loop's last pass
+    rows = {}
+    k1_ms = cuda_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16), reps=20)
+    table_ms = cuda_ms(lambda: build_table_cuda(feat), reps=20)
+    levels = plain.caps(*FEAT_HW)[0]
+    t_bound, _ = bound(feat.numel() * 2 * (1 + levels), 0.0)
+    print(f"roi_pool_ablation table build {tuple(feat.shape)} bf16 ({levels} levels): {table_ms:.4f} ms, "
+          f"bound {t_bound:.4f} ms (bytes); K1 {k1_ms:.4f} ms")
+    for name, label, kernel, ref, _ in cases:
+        out = kernel(feat, boxes)
+        ms = cuda_ms(lambda: kernel(feat, boxes), reps=20)
+        plain_ms = cuda_ms(lambda: ref(feat, boxes), reps=2, warmup=1)
+        bound_ms, bound_by = bound(*ablation_work(label, feat, boxes, out))
+        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"{label} timing {tuple(feat.shape)} bf16 x {N_ROI}: kernel {ms:.4f} ms (table build included), "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        del out
+    r = {k: v["ms"] for k, v in rows.items()}
+    print(
+        f"roi_pool_ablation phase split (ms, bf16 {tuple(feat.shape)} x {N_ROI}): build {table_ms:.4f}; "
+        f"K7 zeroOut - build (per-block cost + contiguous zero write) {r['pool_contig zeroOut'] - table_ms:.4f}; "
+        f"pass 1 (p1only - zeroOut) {r['pool_contig p1only'] - r['pool_contig zeroOut']:.4f}; "
+        f"pass 2 + tile (full - p1only) {r['pool_contig full'] - r['pool_contig p1only']:.4f}; "
+        f"K6 noBoth - build {r['pool noBoth'] - table_ms:.4f}; full - noP1 {r['pool full'] - r['pool noP1']:.4f}; "
+        f"full - noP2 {r['pool full'] - r['pool noP2']:.4f}"
+    )
+    del feat, boxes, k1
+    torch.cuda.empty_cache()
+
+    # the probe's path: its inputs, every variant timed and checked against K1
+    feat, boxes = probe.make_inputs(*probe.SHAPE, dev)
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    probe_rows = probe.run(feat, boxes, iters=5)
+    launches = {name: KERNEL_WRAPPERS[name].launches for name in ("pool", "pool_contig", "pool_grouped", "pool_grouped_v3")}
+    check(all(r["same_as_shipped"] is not False for r in probe_rows), "probe: a RoIPool variant != K1")
+    check(all(n > 0 for n in launches.values()), f"probe path launched {launches}")
+    print("probe_run " + json.dumps({"launches": launches, "rows": probe_rows}))
+    del feat, boxes
+    torch.cuda.empty_cache()
+
+    entries = []
+    for name, label, line in (("pool", "pool full", 446), ("pool_contig", "pool_contig full", 217),
+                              ("pool_grouped", "pool_grouped G=4", 177), ("pool_grouped_v3", "pool_grouped_v3 G=4", 83)):
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "vltk_tpu_torch/csrc/roi_pool_ablation.cu",
+            "replaces": f"tools/probe_roipool_ablation.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            **rows[label],
+            "library_ms": None,
+        })
+    return entries
 
 
 # --------------------------------------------------------------------- K2
@@ -979,14 +1131,16 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    outputs = _build.build(["roi_pool", "nms", "flash_attention", "flash_attention_bwd"])
+    outputs = _build.build(["roi_pool", "roi_pool_ablation", "nms", "flash_attention", "flash_attention_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(outputs) or 'cached'})")
     for name, out in outputs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.replace('ptxas info    :', '').strip()}")
 
-    entries = [phase_roi_pool(dev), phase_nms(dev, batch=8)]
+    entries = [phase_roi_pool(dev)]
+    ablation = phase_roi_ablation(dev)
+    entries.append(phase_nms(dev, batch=8))
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
     entries.append(phase_flash(dev))
     entries += phase_flash_backward(dev)
@@ -1039,7 +1193,8 @@ def main() -> int:
     }
     for e in entries:
         e["launches"] = launches[e["name"]]
-    print(json.dumps({"kernels": entries}))
+    # K6-K9: launches counted on the probe's path inside their phase
+    print(json.dumps({"kernels": entries + ablation}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -11,7 +11,10 @@ candidate counts around the 64-bit mask words, budgets larger than the
 candidate count, rows with no candidate; sequence lengths around the
 64-key tile and the 128 pad block, padded rows down to length 1; for the
 backward kernels K4 and K5 also strided output gradients, determinism, and
-the gradients that a training step on the card hands the q/k/v projections.
+the gradients that a training step on the card hands the q/k/v projections;
+for the RoIPool ablation kernels K6-K9 every mode in both types on maps
+whose width is and is not a multiple of 8, channel counts that are not a
+multiple of the kernel's chunk, and groups of RoIs.
 """
 
 import pytest
@@ -32,7 +35,19 @@ from vltk_tpu_torch.ops.flash_attention_kernel import (
 )
 from vltk_tpu_torch.ops.nms import nms_fixed
 from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto, nms_fixed_cuda
+from vltk_tpu_torch.ops import roi_pool_ablation as ablation
 from vltk_tpu_torch.ops.roi_pool import roi_pool
+from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
+    build_table_cuda,
+    pool_auto,
+    pool_contig_auto,
+    pool_contig_cuda,
+    pool_cuda,
+    pool_grouped_auto,
+    pool_grouped_cuda,
+    pool_grouped_v3_auto,
+    pool_grouped_v3_cuda,
+)
 from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto, roi_pool_cuda
 
 pytestmark = pytest.mark.cuda
@@ -178,16 +193,22 @@ def test_dispatchers_count_kernel_launches_only(dev):
     feat = torch.rand(1, 8, 8, 4)
     boxes = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]])
     q = torch.rand(1, 128, 1, 64)
-    wrappers = (roi_pool_auto, nms_fixed_auto, flash_attention_auto)
+    wrappers = (roi_pool_auto, nms_fixed_auto, flash_attention_auto, pool_auto, pool_contig_auto,
+                pool_grouped_auto, pool_grouped_v3_auto)
+
+    def run(feat, boxes, q):
+        roi_pool_auto(feat, boxes, 2)
+        nms_fixed_auto(boxes[0], torch.ones(1, device=boxes.device), 0.5, 1)
+        flash_attention_auto(q, q, q, None, 64)
+        pool_auto(feat, boxes, "v3")
+        pool_contig_auto(feat, boxes, "full", cb=4)
+        pool_grouped_auto(feat, boxes, group=1)
+        pool_grouped_v3_auto(feat, boxes, group=1)
+
     before = tuple(w.launches for w in wrappers)
-    roi_pool_auto(feat, boxes, 2)
-    nms_fixed_auto(boxes[0], torch.ones(1), 0.5, 1)
-    flash_attention_auto(q, q, q, None, 64)
+    run(feat, boxes, q)
     assert tuple(w.launches for w in wrappers) == before
-    roi_pool_auto(feat.to(dev), boxes.to(dev), 2)
-    nms_fixed_auto(boxes[0].to(dev), torch.ones(1, device=dev), 0.5, 1)
-    qd = q.to(dev)
-    flash_attention_auto(qd, qd, qd, None, 64)
+    run(feat.to(dev), boxes.to(dev), q.to(dev))
     assert tuple(w.launches for w in wrappers) == tuple(b + 1 for b in before)
 
 
@@ -335,3 +356,115 @@ def test_training_forward_on_the_card_gives_qkv_gradients(dev, monkeypatch):
             continue
         assert g.abs().max().item() > 0, name
         assert _rel_err(g, grads["xla"][name]) <= 1e-3, name
+
+
+# ------------------------------------------------- RoIPool ablation, K6-K9
+
+# (b, h, w, c, p): the smallest map the noP* modes take; W a multiple of 8
+# (the v3 window's edge) with C not a multiple of the chunk; the probe's
+# map; a wide map that shrinks the kernel's channel chunk
+ABLATION_SHAPES = [(1, 14, 14, 8, 4), (2, 20, 24, 72, 12), (2, 52, 84, 256, 12), (1, 30, 200, 128, 6)]
+
+
+def _ablation_case(dev, dtype, b, h, w, c, p):
+    gen = torch.Generator().manual_seed(b * 100 + w + c)
+    feat = torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
+    boxes = _boxes(gen, b, p, h, w)
+    boxes[0, 1] = torch.tensor([-1000.0, -1000.0, 3000.0, 3000.0])  # past every cap
+    boxes[-1, -1] = torch.tensor([-90.0, -90.0, -20.0, -20.0])  # off the map: empty bins
+    return feat, boxes.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ABLATION_SHAPES)
+@pytest.mark.parametrize("mode", ablation.POOL_MODES)
+def test_pool_kernel_bitwise(dev, dtype, shape, mode):
+    feat, boxes = _ablation_case(dev, dtype, *shape)
+    got = pool_cuda(feat, boxes, mode)
+    torch.cuda.synchronize()
+    want = ablation.pool(feat, boxes, mode)
+    assert got.shape == want.shape == (shape[0], shape[4], 14, 14, shape[3])
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ABLATION_SHAPES)
+@pytest.mark.parametrize("mode", ablation.CONTIG_MODES)
+def test_pool_contig_kernel_bitwise(dev, dtype, shape, mode):
+    feat, boxes = _ablation_case(dev, dtype, *shape)
+    cb = 8 if shape[3] % 128 else 128
+    got = pool_contig_cuda(feat, boxes, mode, cb)
+    torch.cuda.synchronize()
+    want = ablation.pool_contig(feat, boxes, mode, cb)
+    assert got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ABLATION_SHAPES)
+@pytest.mark.parametrize("v3", [False, True])
+def test_pool_grouped_kernels_bitwise(dev, dtype, shape, v3):
+    feat, boxes = _ablation_case(dev, dtype, *shape)
+    kernel, ref = (pool_grouped_v3_cuda, ablation.pool_grouped_v3) if v3 else (pool_grouped_cuda, ablation.pool_grouped)
+    for group in (1, 2, shape[4]):
+        got = kernel(feat, boxes, group)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ref(feat, boxes, group)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_contig_tile_of_an_odd_channel_block(dev, dtype):
+    """cb = 3: the 14 x 14 x cb tile is not a multiple of 16 bytes, so K7
+    stores it element by element."""
+    feat, boxes = _ablation_case(dev, dtype, 1, 20, 24, 9, 6)
+    for mode in ablation.CONTIG_MODES:
+        got = pool_contig_cuda(feat, boxes, mode, 3)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(ablation.pool_contig(feat, boxes, mode, 3)))
+
+
+def test_ablation_table_levels(dev):
+    """Level l of the table is the max of rows y .. min(y + l, H - 1)."""
+    feat = torch.randn(2, 20, 24, 40, device=dev).bfloat16()
+    table = build_table_cuda(feat)
+    torch.cuda.synchronize()
+    assert table.shape == (ablation.caps(20, 24)[0], 2, 20, 24, 40)
+    for lv in range(table.shape[0]):
+        want = torch.stack([feat[:, y:y + lv + 1].amax(1) for y in range(20)], 1)
+        assert torch.equal(_bits(table[lv]), _bits(want))
+
+
+def test_ablation_roipool_modes_equal_k1_inside_the_map(dev):
+    """On boxes within the map the capped windows cover every bin: the
+    RoIPool modes are bitwise equal to K1."""
+    gen = torch.Generator().manual_seed(21)
+    feat = torch.randn(2, 52, 84, 128, generator=gen).to(dev, torch.bfloat16)
+    xy = torch.rand(2, 24, 2, generator=gen) * torch.tensor([84 * 16.0, 52 * 16.0])
+    boxes = torch.cat([xy, torch.minimum(xy + torch.rand(2, 24, 2, generator=gen) * 900,
+                                         torch.tensor([84 * 16.0 - 1, 52 * 16.0 - 1]))], -1).to(dev)
+    want = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+    outs = [pool_cuda(feat, boxes, "full"), pool_cuda(feat, boxes, "v3"), pool_grouped_cuda(feat, boxes, 4),
+            pool_grouped_v3_cuda(feat, boxes, 12)]
+    outs += [ablation.from_contig(pool_contig_cuda(feat, boxes, m, 64)) for m in ("full", "stackwrite")]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(want))
+
+
+def test_ablation_kernels_reject_what_they_do_not_take(dev):
+    feat = torch.zeros(1, 16, 16, 8, device=dev)
+    boxes = torch.zeros(1, 4, 4, device=dev)
+    with pytest.raises(TypeError):
+        pool_cuda(feat.half(), boxes)
+    with pytest.raises(TypeError):
+        pool_contig_cuda(feat, boxes.double(), cb=8)
+    with pytest.raises(ValueError):
+        pool_grouped_cuda(feat, boxes.cpu(), 2)  # boxes on the CPU
+    with pytest.raises(ValueError):
+        pool_grouped_v3_cuda(feat, boxes, 3)  # P % G
+    with pytest.raises(ValueError):
+        pool_contig_cuda(feat, boxes, cb=3)  # C % cb
+    with pytest.raises(ValueError):
+        pool_cuda(feat[:, :13], boxes, "noBoth")  # H < 14
+    with pytest.raises(ValueError):
+        pool_cuda(feat, boxes[..., :3], "full")

@@ -307,7 +307,7 @@ class TestGuards:
             "import importlib, pkgutil, sys\n"
             "import vltk_tpu_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages(vltk_tpu_torch.__path__, 'vltk_tpu_torch.')]\n"
-            "assert len(mods) >= 44, mods\n"
+            "assert len(mods) >= 49, mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax') or m.startswith(('jax.', 'flax.'))"
             " or m == 'vltk_tpu' or m.startswith('vltk_tpu.')]\n"

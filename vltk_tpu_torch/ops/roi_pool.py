@@ -44,28 +44,28 @@ def roi_bin_edges(
     return hstart, hend, wstart, wend
 
 
-def roi_pool(
+def bin_max(
     features: torch.Tensor,
-    boxes: torch.Tensor,
-    output_size: int = 14,
-    spatial_scale: float = 1.0 / 16,
-) -> torch.Tensor:
-    """Exact RoIPool by a loop over in-bin offsets (one masked gather-max
-    per offset).
+    hstart: torch.Tensor,
+    hend: torch.Tensor,
+    wstart: torch.Tensor,
+    wend: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Max over the cells of every bin by a loop over in-bin offsets (one
+    masked gather-max per offset).
 
     Args:
-      features: (B, H, W, C) feature maps.
-      boxes: (B, P, 4) xyxy in input-image coordinates.
+      features: (B, H, W, C).
+      hstart, hend: (B, P, R) row ranges [hstart, hend) of the R bin rows.
+      wstart, wend: (B, P, S) column ranges of the S bin columns.
 
-    Returns (B, P, output_size, output_size, C) in the features' dtype.
+    Returns the max (B, P, R, S, C) in the features' dtype (-inf where the
+    bin is empty; NaN propagates) and the emptiness (B, P, R, S, 1).
     """
     b, h, w, c = features.shape
-    p = boxes.shape[1]
-    ps = output_size
-    hstart, hend, wstart, wend = roi_bin_edges(boxes, spatial_scale, h, w, ps)
-    lh = hend - hstart  # (B, P, ps)
+    lh = hend - hstart
     lw = wend - wstart
-    # the widest bin of THIS data, so boxes of any extent pool exactly
+    # the widest bin of THIS data, so bins of any extent are covered
     max_bh = max(int(lh.max()) if lh.numel() else 0, 1)
     max_bw = max(int(lw.max()) if lw.numel() else 0, 1)
 
@@ -73,17 +73,36 @@ def roi_pool(
     bi = torch.arange(b, device=features.device)[:, None, None, None]
     acc = None
     for i in range(max_bh):
-        iy = torch.clamp(hstart + i, max=h - 1)  # (B, P, ps)
+        iy = torch.clamp(hstart + i, 0, h - 1)  # (B, P, R)
         in_y = (hstart + i) < hend
         for j in range(max_bw):
-            ix = torch.clamp(wstart + j, max=w - 1)
+            ix = torch.clamp(wstart + j, 0, w - 1)
             in_x = (wstart + j) < wend
-            idx = iy[..., :, None] * w + ix[..., None, :]  # (B, P, ps, ps)
-            vals = flat[bi, idx]  # (B, P, ps, ps, C)
+            idx = iy[..., :, None] * w + ix[..., None, :]  # (B, P, R, S)
+            vals = flat[bi, idx]  # (B, P, R, S, C)
             mask = (in_y[..., :, None] & in_x[..., None, :])[..., None]
             if acc is None:
                 acc = torch.where(mask, vals, torch.full_like(vals, float("-inf")))
             else:
                 acc = torch.where(mask, torch.maximum(acc, vals), acc)
     empty = ((lh <= 0)[..., :, None] | (lw <= 0)[..., None, :])[..., None]
+    return acc, empty
+
+
+def roi_pool(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16,
+) -> torch.Tensor:
+    """Exact RoIPool.
+
+    Args:
+      features: (B, H, W, C) feature maps.
+      boxes: (B, P, 4) xyxy in input-image coordinates.
+
+    Returns (B, P, output_size, output_size, C) in the features' dtype.
+    """
+    h, w = features.shape[1:3]
+    acc, empty = bin_max(features, *roi_bin_edges(boxes, spatial_scale, h, w, output_size))
     return torch.where(empty, torch.zeros((), dtype=features.dtype, device=features.device), acc)

@@ -1,0 +1,167 @@
+"""Dispatchers of the RoIPool ablation variants: the CUDA kernels K6-K9 of
+``csrc/roi_pool_ablation.cu`` for tensors on the card, the plain versions
+of ``ops/roi_pool_ablation.py`` for tensors on the CPU.
+
+Counterparts of ``pool``, ``pool_contig``, ``pool_grouped`` and
+``pool_grouped_v3`` in ``tools/probe_roipool_ablation.py`` (Pallas on the
+TPU). Every call on the card launches the table build, then the variant's
+pool kernel; ``<dispatcher>.launches`` counts those calls (CPU calls do not
+count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vltk_tpu_torch.ops import _build
+from vltk_tpu_torch.ops import roi_pool_ablation as plain
+from vltk_tpu_torch.ops.roi_pool_ablation import OUT_SIZE, caps, check_args
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MODE_CODE = {"full": 0, "v3": 1, "noP1": 2, "noP2": 3, "noBoth": 4, "stackwrite": 5, "p1only": 6, "zeroOut": 7}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "roi_ablation_build_table": [_P, _P] + [_I] * 6 + [_P],
+    "roi_ablation_pool": [_P] * 3 + [_I] * 9 + [_P],
+    "roi_ablation_pool_contig": [_P] * 3 + [_I] * 10 + [_P],
+    "roi_ablation_pool_grouped": [_P] * 3 + [_I] * 10 + [_P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("roi_pool_ablation")
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda(features: torch.Tensor, boxes: torch.Tensor) -> None:
+    if features.dtype not in _DTYPE_CODE:
+        raise TypeError(f"roi_pool_ablation kernel: unsupported dtype {features.dtype}")
+    if boxes.dtype != torch.float32:
+        raise TypeError(f"roi_pool_ablation kernel: boxes must be float32, got {boxes.dtype}")
+    if features.device != boxes.device or features.device.type != "cuda":
+        raise ValueError("roi_pool_ablation kernel: features and boxes must share a CUDA device")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def build_table_cuda(features: torch.Tensor) -> torch.Tensor:
+    """The row-range-max table (max_bh, B, H, W, C): level l holds the max
+    of rows y .. min(y + l, H - 1). Launches the build kernel alone (the
+    variants launch it themselves); no launch is counted."""
+    features = features.contiguous()
+    b, h, w, c = features.shape
+    levels = caps(h, w)[0]
+    table = torch.empty((levels, b, h, w, c), dtype=features.dtype, device=features.device)
+    with torch.cuda.device(features.device):
+        err = _lib().roi_ablation_build_table(
+            features.data_ptr(), table.data_ptr(), b, h, w, c, levels,
+            _DTYPE_CODE[features.dtype], _stream(features),
+        )
+    _build.check(err, "roi_ablation_build_table launch")
+    return table
+
+
+def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor, out: torch.Tensor, *args: int) -> None:
+    """The table build, then the variant's kernel on the current stream."""
+    features = features.contiguous()
+    boxes = boxes.contiguous()
+    table = build_table_cuda(features)
+    b, h, w, c = features.shape
+    max_bh, max_bw = caps(h, w)
+    with torch.cuda.device(features.device):
+        err = getattr(_lib(), entry)(
+            table.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w, c, boxes.shape[1],
+            max_bh, max_bw, *args, _DTYPE_CODE[features.dtype], _stream(features),
+        )
+    _build.check(err, f"{entry} launch")
+
+
+def _nhwc_out(features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    b, _, _, c = features.shape
+    return torch.empty((b, boxes.shape[1], OUT_SIZE, OUT_SIZE, c), dtype=features.dtype, device=features.device)
+
+
+def pool_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
+    """K6: (B, H, W, C) float32/bf16, (B, P, 4) float32 on one CUDA device
+    -> (B, P, 14, 14, C). ``cb`` is checked and otherwise unused: the
+    kernel picks its own channel chunk."""
+    check_args(features, boxes, mode, plain.POOL_MODES, cb)
+    _check_cuda(features, boxes)
+    out = _nhwc_out(features, boxes)
+    _launch("roi_ablation_pool", features, boxes, out, MODE_CODE[mode])
+    pool_auto.launches += 1
+    return out
+
+
+def pool_contig_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
+    """K7: -> (B, C/cb, P, 14, 14, cb)."""
+    check_args(features, boxes, mode, plain.CONTIG_MODES, cb, contig=True)
+    _check_cuda(features, boxes)
+    b, _, _, c = features.shape
+    out = torch.empty(
+        (b, c // cb, boxes.shape[1], OUT_SIZE, OUT_SIZE, cb), dtype=features.dtype, device=features.device
+    )
+    _launch("roi_ablation_pool_contig", features, boxes, out, MODE_CODE[mode], cb)
+    pool_contig_auto.launches += 1
+    return out
+
+
+def pool_grouped_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 8, cb: int = 128) -> torch.Tensor:
+    """K8: v2 RoIPool, G RoIs per block -> (B, P, 14, 14, C)."""
+    check_args(features, boxes, cb=cb, group=group)
+    _check_cuda(features, boxes)
+    out = _nhwc_out(features, boxes)
+    _launch("roi_ablation_pool_grouped", features, boxes, out, 0, group)
+    pool_grouped_auto.launches += 1
+    return out
+
+
+def pool_grouped_v3_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 4, cb: int = 128) -> torch.Tensor:
+    """K9: v3 RoIPool, G RoIs per block -> (B, P, 14, 14, C)."""
+    check_args(features, boxes, cb=cb, group=group)
+    _check_cuda(features, boxes)
+    out = _nhwc_out(features, boxes)
+    _launch("roi_ablation_pool_grouped", features, boxes, out, 1, group)
+    pool_grouped_v3_auto.launches += 1
+    return out
+
+
+def pool_auto(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
+    """K6 on CUDA tensors (or an error), the plain ``pool`` on CPU ones."""
+    if features.device.type == "cpu":
+        return plain.pool(features, boxes, mode, cb)
+    return pool_cuda(features, boxes, mode, cb)
+
+
+def pool_contig_auto(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
+    """K7 on CUDA tensors (or an error), the plain ``pool_contig`` on CPU ones."""
+    if features.device.type == "cpu":
+        return plain.pool_contig(features, boxes, mode, cb)
+    return pool_contig_cuda(features, boxes, mode, cb)
+
+
+def pool_grouped_auto(features: torch.Tensor, boxes: torch.Tensor, group: int = 8, cb: int = 128) -> torch.Tensor:
+    """K8 on CUDA tensors (or an error), the plain ``pool_grouped`` on CPU ones."""
+    if features.device.type == "cpu":
+        return plain.pool_grouped(features, boxes, group, cb)
+    return pool_grouped_cuda(features, boxes, group, cb)
+
+
+def pool_grouped_v3_auto(features: torch.Tensor, boxes: torch.Tensor, group: int = 4, cb: int = 128) -> torch.Tensor:
+    """K9 on CUDA tensors (or an error), the plain ``pool_grouped_v3`` on CPU ones."""
+    if features.device.type == "cpu":
+        return plain.pool_grouped_v3(features, boxes, group, cb)
+    return pool_grouped_v3_cuda(features, boxes, group, cb)
+
+
+for _fn in (pool_auto, pool_contig_auto, pool_grouped_auto, pool_grouped_v3_auto):
+    _fn.launches = 0
