@@ -8,7 +8,8 @@ package):
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds every CUDA kernel of the four main paths from ``csrc/`` (one
-   nvcc per source, started together) and prints the build time;
+   nvcc per source, started together) and prints the build time and each
+   kernel's registers and spills (``-Xptxas -v``);
 3. holds the RoIPool kernel K1 against its plain PyTorch version, bitwise,
    in float32 and bf16, at the extraction shapes of B=8 and B=16, and times
    both;
@@ -47,13 +48,17 @@ package):
 10. runs a small f32 LayoutLM on the card and on the CPU with the flash
    route forced on both sides (K3 on the card, the plain version on the
    CPU) and compares the real positions;
-11. holds the flash-attention backward kernels K4 (dk, dv) and K5 (dq),
-   and K3's row statistics, against the plain backward: bf16 at the
-   training shape (8, 1024, 12, 64) with rows of 1024, 819, 129 and 1 real
-   tokens, bf16 at s=197, ``mask=None``, f32 at a small shape; checks that
-   two backward calls are bitwise equal; times K4, K5, the ``di`` pass, the
-   plain backward and ``scaled_dot_product_attention``'s backward with the
-   same boolean mask (the yardstick; the port never calls it);
+11. holds the flash-attention backward kernels K5 (dq, and the fused
+   ``di = sum(o * do)``) and K4 (dk, dv), and K3's row statistics, against
+   the plain backward: bf16 at the training shape (8, 1024, 12, 64) with
+   rows of 1024, 819, 129 and 1 real tokens, bf16 with alternating 64-row
+   blocks of real and pad (whole tiles the kernels skip), bf16 at s=197,
+   ``mask=None``, f32 at a small shape; di against its torch expression;
+   checks that two backward calls are bitwise equal; times K5, K4, the
+   plain backward, the torch di pass K5 replaces, and
+   ``scaled_dot_product_attention``'s backward with the same boolean mask,
+   measured directly after one forward (the yardstick; the port never
+   calls it);
 12. trains ``OCRTokenExperiment`` at LayoutLM-base width (bf16, seq 1024,
    attention dropout 0, hidden dropout 0.1, seeded random weights, AdamW
    lr 1e-5 with warmup, decay and clip 1.0) for one epoch of 8 batches of
@@ -166,7 +171,7 @@ def roi_pool_ops(boxes: torch.Tensor, c: int) -> float:
 
 def phase_roi_pool(dev) -> dict:
     from vltk_tpu_torch.ops.roi_pool import roi_pool
-    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
+    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto, roi_pool_cuda
 
     gen = torch.Generator().manual_seed(1)
     c = C_RES4
@@ -199,6 +204,16 @@ def phase_roi_pool(dev) -> dict:
             f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes RoIPool"
         )
         timed.append((ms, plain_ms, bound_ms, bound_by))
+    # ROADMAP C.1: the kernel has no backward yet, so the dispatcher refuses
+    # features that want a gradient instead of cutting it
+    before = roi_pool_auto.launches
+    try:
+        roi_pool_auto(feat.detach().requires_grad_(), boxes, 14, 1 / 16)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised and roi_pool_auto.launches == before, "roi_pool_auto cut the gradient instead of raising")
+    print("roi_pool grad guard: features that require grad raise on the card, nothing launched (ROADMAP C.1)")
     # the kernels line reports the B=8 step's shape
     ms, plain_ms, bound_ms, bound_by = timed[0]
     return {
@@ -452,11 +467,15 @@ FLASH_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-5}
 
 
 def flash_case(gen: torch.Generator, shape, lengths, dtype, dev):
+    """q, k, v and a mask whose row i is real on its first lengths[i]
+    positions, or, where lengths[i] is a list of (start, stop) spans, on
+    those spans."""
     n, s, nh, dh = shape
     q, k, v = (torch.randn(n, s, nh, dh, generator=gen).to(dev, dtype) for _ in range(3))
     mask = torch.zeros(n, s)
-    for i, length in enumerate(lengths):
-        mask[i, :length] = 1
+    for i, row in enumerate(lengths):
+        for start, stop in ([(0, row)] if isinstance(row, int) else row):
+            mask[i, start:stop] = 1
     return q, k, v, mask.to(dev)
 
 
@@ -551,21 +570,33 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1e-30))
 
 
-def backward_work(ids: torch.Tensor, nh: int, dh: int, itemsize: int, products: int, outputs: int):
-    """(bytes, operations) of one backward kernel: q, k, v, do read once,
-    ids and the three float32 row vectors (m, l, di) read once, ``outputs``
-    gradients written once; 2 dh operations per product for every (query,
-    key) pair of the s real positions whose ids match (the kernels skip the
-    zero tail, which adds nothing to the gradients)."""
+def backward_work(ids: torch.Tensor, nh: int, dh: int, itemsize: int, products: int, inputs: int, outputs: int):
+    """(bytes, operations) of one backward kernel: ``inputs`` (n, s, nh, dh)
+    tensors read once (K4: q, k, v, do; K5 also o), ids and three float32
+    row vectors read or written once (K4 reads m, l, di; K5 reads m, l and
+    writes di), ``outputs`` gradients written once; 2 dh operations per
+    product for every (query, key) pair of the s real positions whose ids
+    match (the kernels skip the zero tail, which adds nothing to the
+    gradients, and the tiles whose ids cannot match)."""
     n, s = ids.shape
     pairs = sum(float((row.unique(return_counts=True)[1].double() ** 2).sum()) for row in ids)
-    nbytes = (4 + outputs) * n * s * nh * dh * itemsize + ids.numel() * 4 + 3 * n * nh * s * 4
+    nbytes = (inputs + outputs) * n * s * nh * dh * itemsize + ids.numel() * 4 + 3 * n * nh * s * 4
     return nbytes, 2 * products * dh * nh * pairs
 
 
+def alternating_rows(n: int, s: int):
+    """Masks whose whole 64-row tiles share no id: alternating blocks of 64
+    real and 64 pad positions (starting real, then starting pad), and a
+    real block, a pad block and a real block again."""
+    rows = [[(j, j + 64) for j in range(0, s, 128)], [(j, j + 64) for j in range(64, s, 128)],
+            [(0, 192), (s - 320, s)]]
+    return (rows * n)[:n]
+
+
 def phase_flash_backward(dev):
-    """K3's statistics, K4 and K5 against the plain backward; determinism;
-    timing at the training shape. Returns the two kernels-line entries."""
+    """K3's statistics, K5 (dq, di) and K4 (dk, dv) against the plain
+    backward, di against its torch expression; determinism; timing at the
+    training shape. Returns the two kernels-line entries."""
     from vltk_tpu_torch.ops.flash_attention import (
         flash_self_attention_backward,
         flash_self_attention_fwd_residuals,
@@ -582,6 +613,7 @@ def phase_flash_backward(dev):
     main_lengths = [1024, 819, 129, 1] + torch.randint(1, s + 1, (n - 4,), generator=gen).tolist()
     cases = (
         ("training shape, padded rows", TRAIN_FLASH_SHAPE, main_lengths, torch.bfloat16, True),
+        ("alternating 64-row blocks", (4, s, nh, dh), alternating_rows(4, s), torch.bfloat16, True),
         ("s=197", (4, 197, nh, dh), [197, 150, 1, 197], torch.bfloat16, True),
         ("s=197, mask=None", (4, 197, nh, dh), [197] * 4, torch.bfloat16, False),
         ("f32", (2, 256, 2, dh), [256, 100], torch.float32, True),
@@ -601,8 +633,12 @@ def phase_flash_backward(dev):
             check(stat_err <= 1e-5, f"K3 row statistics != plain ({name}): {stat_err}")
             got = flash_attention_backward_cuda(q, k, v, m, o, stats, do, dh)
             again = flash_attention_backward_cuda(q, k, v, m, o, stats, do, dh)
+            ids = (torch.ones(shape[:2], device=dev) if m is None else m).to(torch.int32)
+            _, di = flash_attention_dq_cuda(q, k, v, do, ids, tuple(x.contiguous() for x in stats), o)
             torch.cuda.synchronize()
             want = flash_self_attention_backward(q, k, v, m, o, stats, do, dh)
+            di_want = (o.float() * do.float()).sum(-1).permute(0, 2, 1)
+            di_err = rel_err(di, di_want)
             errs = [rel_err(g, w) for g, w in zip(got, want)]
             abs_errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
             finite = all(bool(torch.isfinite(g).all()) for g in got)
@@ -610,9 +646,10 @@ def phase_flash_backward(dev):
             print(
                 f"flash backward {name} {tuple(shape)} {dtype}: stats rel err {stat_err:.2e} (1e-5); "
                 f"dq/dk/dv rel err {errs[0]:.2e}/{errs[1]:.2e}/{errs[2]:.2e} (tol {BWD_TOL[dtype]}); "
-                f"max abs err {max(abs_errs):.3e}; bitwise repeatable {same}"
+                f"max abs err {max(abs_errs):.3e}; fused di rel err {di_err:.2e} (1e-6); bitwise repeatable {same}"
             )
             check(finite and max(errs) <= BWD_TOL[dtype], f"flash backward kernels != plain ({name})")
+            check(di_err <= 1e-6, f"K5's di != sum(o * do) ({name}): {di_err}")
             check(same, f"flash backward not deterministic ({name})")
             if dtype == torch.bfloat16:
                 worst["dq"] = max(worst["dq"], abs_errs[0])
@@ -625,30 +662,36 @@ def phase_flash_backward(dev):
     do = torch.randn(TRAIN_FLASH_SHAPE, generator=gen).to(dev, torch.bfloat16)
     o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, dh)
     ids = mask.to(torch.int32).contiguous()
-    di_fn = lambda: (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()  # noqa: E731
-    di = di_fn()
+    _, di = flash_attention_dq_cuda(q, k, v, do, ids, stats, o)
+    k5_ms = cuda_ms(lambda: flash_attention_dq_cuda(q, k, v, do, ids, stats, o), reps=20)
     k4_ms = cuda_ms(lambda: flash_attention_dkv_cuda(q, k, v, do, ids, stats, di), reps=20)
-    k5_ms = cuda_ms(lambda: flash_attention_dq_cuda(q, k, v, do, ids, stats, di), reps=20)
-    di_ms = cuda_ms(di_fn, reps=20)
+    # the torch pass that K5's prologue replaces, for comparison only
+    di_torch_ms = cuda_ms(lambda: (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous(), reps=20)
     plain_ms = cuda_ms(lambda: flash_self_attention_backward(q, k, v, mask, o, stats, do, dh), reps=3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     same = ids[:, None, :, None] == ids[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
+    # SDPA's backward measured directly: one forward, then CUDA events
+    # around the backward alone; beside it the earlier yardstick, (forward +
+    # backward) - forward from two separate loops
+    out = sdpa(qt, kt, vt, attn_mask=same)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), reps=10)
     fwd_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=same), reps=10)
     fwd_bwd_ms = cuda_ms(
         lambda: torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=same), (qt, kt, vt), dot), reps=10
     )
-    library_ms = fwd_bwd_ms - fwd_ms
+    del out
     entries = []
-    for name, ms, products, outputs, src_line in (
-        ("flash_attention_dkv", k4_ms, 4, 2, 941), ("flash_attention_dq", k5_ms, 3, 1, 1287),
+    for name, ms, products, inputs, outputs, src_line in (
+        ("flash_attention_dkv", k4_ms, 4, 4, 2, 941), ("flash_attention_dq", k5_ms, 3, 5, 1, 1287),
     ):
-        nbytes, nops = backward_work(ids, nh, dh, 2, products, outputs)
+        nbytes, nops = backward_work(ids, nh, dh, 2, products, inputs, outputs)
         bound_ms, bound_by = bound(nbytes, nops, BF16_OPS_PER_S)
         print(
             f"{name} timing {TRAIN_FLASH_SHAPE} bf16 (819 real of 1024): kernel {ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {nops:.3e} operations, {nbytes:.3e} bytes)"
+            f"bound {bound_ms:.4f} ms ({bound_by}: {nops:.3e} operations, {nbytes:.3e} bytes), "
+            f"{ms / bound_ms:.2f}x the bound"
         )
         entries.append({
             "name": name,
@@ -662,14 +705,16 @@ def phase_flash_backward(dev):
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # SDPA's backward (forward + backward minus forward), which
-            # computes dq, dk and dv together, beside each kernel
+            # SDPA's backward, measured directly, which computes dq, dk and
+            # dv together, beside each kernel
             "library_ms": library_ms,
         })
     print(
-        f"flash backward timing {TRAIN_FLASH_SHAPE} bf16: K4 {k4_ms:.4f} + K5 {k5_ms:.4f} + di {di_ms:.4f} "
-        f"= {k4_ms + k5_ms + di_ms:.4f} ms; plain backward {plain_ms:.4f} ms; SDPA with the boolean mask: "
-        f"forward {fwd_ms:.4f} ms, forward + backward {fwd_bwd_ms:.4f} ms, backward {library_ms:.4f} ms"
+        f"flash backward timing {TRAIN_FLASH_SHAPE} bf16: K5 (with di) {k5_ms:.4f} + K4 {k4_ms:.4f} "
+        f"= {k4_ms + k5_ms:.4f} ms against SDPA's backward with the boolean mask {library_ms:.4f} ms "
+        f"(measured directly; {(k4_ms + k5_ms) / library_ms:.3f}x); earlier yardstick: forward {fwd_ms:.4f} ms, "
+        f"forward + backward {fwd_bwd_ms:.4f} ms, difference {fwd_bwd_ms - fwd_ms:.4f} ms; the torch di pass "
+        f"K5 replaces {di_torch_ms:.4f} ms; plain backward {plain_ms:.4f} ms"
     )
     return entries
 
@@ -1134,9 +1179,8 @@ def main() -> int:
     outputs = _build.build(["roi_pool", "roi_pool_ablation", "nms", "flash_attention", "flash_attention_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(outputs) or 'cached'})")
     for name, out in outputs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.replace('ptxas info    :', '').strip()}")
+        for line in _build.ptxas_lines(out):
+            print(f"  {name}: {line}")
 
     entries = [phase_roi_pool(dev)]
     ablation = phase_roi_ablation(dev)

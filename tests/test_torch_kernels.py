@@ -10,8 +10,10 @@ shapes) does not: channel counts that are not a multiple of the block,
 candidate counts around the 64-bit mask words, budgets larger than the
 candidate count, rows with no candidate; sequence lengths around the
 64-key tile and the 128 pad block, padded rows down to length 1; for the
-backward kernels K4 and K5 also strided output gradients, determinism, and
-the gradients that a training step on the card hands the q/k/v projections;
+backward kernels K5 and K4 also masks whose whole 64-row tiles share no id
+(the tiles the kernels skip), K5's fused di, strided output gradients,
+determinism, and the gradients that a training step on the card hands the
+q/k/v projections; K1's refusal to cut a gradient;
 for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
 multiple of the kernel's chunk, and groups of RoIs.
@@ -225,18 +227,29 @@ def _rel_err(got, want):
 
 
 def _bwd_case(dev, dtype, s, padded, seed):
+    """q, k, v, do (3, s, 2, 64) and a mask: all real (padded False), rows
+    padded to s/2 and to 1 (True), or whole 64-row blocks of one id:
+    "alternating" (64 real, 64 pad, ... and the reverse) or "real-pad-real"
+    (a real block, a pad block, a real block)."""
     gen = torch.Generator().manual_seed(seed)
     n, nh = 3, 2
     q, k, v, do = (torch.randn(n, s, nh, 64, generator=gen).to(dev, dtype) for _ in range(4))
     mask = torch.ones(n, s)
-    if padded:
+    if padded is True:
         mask[1, s // 2:] = 0
         mask[2, 1:] = 0  # a row of length 1
+    elif padded == "alternating":
+        block = (torch.arange(s) // 64) % 2
+        mask[0], mask[1], mask[2] = 1 - block, block, 1 - block
+        mask[2, -1] = 0
+    elif padded == "real-pad-real":
+        mask[:, 64:192] = 0
+        mask[2, 0:128] = 0
     return q, k, v, do, mask.to(dev)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("s", [128, 197, 1000, 1024])
+@pytest.mark.parametrize("s", [1, 128, 129, 197, 1000, 1024])
 @pytest.mark.parametrize("padded", [False, True])
 def test_flash_backward_kernels_match_plain(dev, dtype, s, padded):
     """K3's statistics against the plain version's, then K4 and K5 against
@@ -257,7 +270,52 @@ def test_flash_backward_kernels_match_plain(dev, dtype, s, padded):
         for g, w in zip(got, want):
             assert g.shape == w.shape == q.shape and g.dtype == dtype
             assert bool(torch.isfinite(g).all())
+            # at s = 1 a real row sees its one key only: p = 1 and o = v, so
+            # ds = (do v - o do) * sm_scale is zero but for the order of two
+            # float32 sums, and dq, dk there are rounding noise of either
+            # sign; a tensor made only of such rows is held in absolute terms
+            noise_only = s == 1 and w.float().abs().max().item() < 1e-5
+            if noise_only:
+                assert (g.float() - w.float()).abs().max().item() <= 1e-5
+            else:
+                assert _rel_err(g, w) <= BWD_TOL[dtype], _rel_err(g, w)
+
+
+@pytest.mark.parametrize("s", [256, 1024])
+@pytest.mark.parametrize("kind", ["alternating", "real-pad-real"])
+def test_flash_backward_skips_tiles_exactly(dev, s, kind):
+    """Masks whose whole 64-row tiles share no id, so the bf16 kernels skip
+    tile pairs: every gradient still matches the plain backward, and so do
+    the float32 kernels, which skip nothing."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do, mask = _bwd_case(dev, dtype, s, kind, s + len(kind))
+        o, stats = flash_self_attention_fwd_residuals(q, k, v, mask, 64)
+        got = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+        torch.cuda.synchronize()
+        want = flash_self_attention_backward(q, k, v, mask, o, stats, do, 64)
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all())
             assert _rel_err(g, w) <= BWD_TOL[dtype], _rel_err(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_fused_di(dev, dtype):
+    """K5 returns di = sum(o * do) float32 (n, nh, s), the vector K4 reads,
+    within 1e-6 of the largest magnitude of its torch expression (sums in
+    another order)."""
+    q, k, v, do, mask = _bwd_case(dev, dtype, 1000, True, 15)
+    o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+    ids = mask.to(torch.int32)
+    dq, di = flash_attention_dq_cuda(q, k, v, do, ids, stats, o)
+    torch.cuda.synchronize()
+    want = (o.float() * do.float()).sum(-1).permute(0, 2, 1)
+    assert dq.shape == q.shape and di.shape == (3, 2, 1000) and di.dtype == torch.float32
+    assert _rel_err(di, want) <= 1e-6, _rel_err(di, want)
+    dk, dv = flash_attention_dkv_cuda(q, k, v, do, ids, stats, di)
+    full = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+    torch.cuda.synchronize()
+    for g, w in zip((dq, dk, dv), full):
+        assert torch.equal(_bits(g), _bits(w))
 
 
 def test_flash_backward_reads_a_strided_output_gradient(dev):
@@ -276,15 +334,18 @@ def test_flash_backward_reads_a_strided_output_gradient(dev):
 
 
 def test_flash_backward_is_deterministic(dev):
-    """No atomics: two backward calls are bitwise equal."""
+    """No atomics: two backward calls, and K5's di, are bitwise equal."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do, mask = _bwd_case(dev, dtype, 1024, True, 12)
         o, stats = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
         a = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
         b = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+        di_a = flash_attention_dq_cuda(q, k, v, do, mask.int(), stats, o)[1]
+        di_b = flash_attention_dq_cuda(q, k, v, do, mask.int(), stats, o)[1]
         torch.cuda.synchronize()
         for x, y in zip(a, b):
             assert torch.equal(_bits(x), _bits(y))
+        assert torch.equal(_bits(di_a), _bits(di_b))
 
 
 def test_flash_backward_rejects_what_it_does_not_take(dev):
@@ -356,6 +417,26 @@ def test_training_forward_on_the_card_gives_qkv_gradients(dev, monkeypatch):
             continue
         assert g.abs().max().item() > 0, name
         assert _rel_err(g, grads["xla"][name]) <= 1e-3, name
+
+
+def test_roi_pool_refuses_to_cut_the_gradient(dev):
+    """ROADMAP C.1: K1 has no backward yet, so on the card features that
+    require grad raise while grad is enabled, and nothing is launched;
+    without grad the kernel runs, and on the CPU the plain version carries
+    the gradient."""
+    feat = torch.rand(1, 8, 8, 4, device=dev, requires_grad=True)
+    boxes = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]], device=dev)
+    before = roi_pool_auto.launches
+    with pytest.raises(RuntimeError, match="A.12"):
+        roi_pool_auto(feat, boxes, 2)
+    assert roi_pool_auto.launches == before
+    with torch.no_grad():
+        out = roi_pool_auto(feat, boxes, 2)
+    assert roi_pool_auto.launches == before + 1
+    assert torch.equal(out, roi_pool(feat.detach(), boxes, 2, 1 / 16))
+    leaf = feat.detach().cpu().requires_grad_()
+    roi_pool_auto(leaf, boxes.cpu(), 2).sum().backward()
+    assert leaf.grad is not None and leaf.grad.abs().sum().item() > 0
 
 
 # ------------------------------------------------- RoIPool ablation, K6-K9

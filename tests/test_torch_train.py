@@ -130,26 +130,35 @@ def port_model(jax_model):
 class TestPlainBackward:
     @staticmethod
     def _case(rng, s, lengths):
+        """Row i of the mask is real on its first lengths[i] positions, or,
+        where lengths[i] is a tuple of (start, stop) spans, on those."""
         q, k, v, do = (rng.normal(size=(2, s, 2, 64)).astype(np.float32) for _ in range(4))
         if lengths is None:
             return q, k, v, do, None
         mask = np.zeros((2, s), np.float32)
-        for i, length in enumerate(lengths):
-            mask[i, :length] = 1.0
+        for i, row in enumerate(lengths):
+            for start, stop in ((0, row),) if isinstance(row, int) else row:
+                mask[i, start:stop] = 1.0
         return q, k, v, do, mask
 
     @pytest.mark.parametrize(
         "s,lengths",
-        [(128, (128, 88)), (197, (197, 184)), (197, None), (100, (100, 1))],
-        ids=["s128-pad40", "s197-pad13", "s197-mask-none", "s100-row-of-one"],
+        [(128, (128, 88)), (197, (197, 184)), (197, None), (100, (100, 1)),
+         (256, (((0, 64), (128, 192)), ((64, 128), (192, 256)))),
+         (256, (((0, 64), (192, 256)), ((0, 100), (170, 256))))],
+        ids=["s128-pad40", "s197-pad13", "s197-mask-none", "s100-row-of-one",
+             "s256-alternating-64-blocks", "s256-real-pad-real"],
     )
     def test_matches_pallas_vjp_at_every_position(self, rng, s, lengths):
         """dq, dk, dv against ``jax.vjp`` of ``_flash_self_attention`` run in
         Pallas interpret mode: a padded tail inside one 128 block, s padded
         to 256 inside, ``mask=None`` (an all-ones mask synthesised before
-        the pad), and a row of one real token (its pad queries see the pad
+        the pad), a row of one real token (its pad queries see the pad
         keys and the zero keys of the 128 tail, which enter the backward
-        only through the forward's statistics)."""
+        only through the forward's statistics), and masks that are not a
+        prefix, whose whole 64-row tiles share no id (the tile pairs the
+        CUDA kernels skip): alternating blocks of 64 real and 64 pad, and a
+        real block, pad, then a real block again."""
         import jax.experimental.pallas.tpu as pltpu
 
         q, k, v, do, mask = self._case(rng, s, lengths)
@@ -190,6 +199,52 @@ class TestPlainBackward:
             assert g.dtype == dtype
             err = (g.float() - leaf.grad).abs().max() / leaf.grad.abs().max()
             assert err <= (1e-6 if dtype == torch.float32 else 2 ** -6), float(err)
+
+
+class TestSweepTool:
+    def test_parses_block_shapes_and_needs_the_card(self, monkeypatch):
+        """``tools.sweep_flash_backward`` reads K5:K4 pairs of three-digit
+        block shapes, refuses a shape the kernels cannot take, and exits
+        with a message where there is no CUDA device."""
+        from vltk_tpu_torch.tools import sweep_flash_backward as sweep
+
+        assert sweep.parse_shapes("223:133,222:124") == [(223, 133), (222, 124)]
+        assert len(sweep.parse_shapes(sweep.DEFAULT_SHAPES)) == 4
+        for bad in ("323:133", "203:133", "221:133", "22:133"):
+            with pytest.raises(ValueError):
+                sweep.parse_shapes(bad)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            sweep.main(["--shapes", "223:133"])
+
+    def test_ptxas_lines_name_each_kernel(self):
+        """``_build.ptxas_lines`` keeps the register, spill and performance
+        lines of ``-Xptxas -v`` and names each kernel: a nested (anonymous
+        namespace, template) symbol, a plain mangled one whose parameter
+        types are length-prefixed too, and an ``extern "C"`` one."""
+        from vltk_tpu_torch.ops import _build
+
+        out = "\n".join([
+            "ptxas info    : 0 bytes gmem",
+            "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__5860b625_22_flash_attention_bwd_cu_"
+            "a50b7cef17flash_bwd_dq_bf16ILi1ELi3ELi3EEEvNS_4MapsENS_6ParamsE' for 'sm_90a'",
+            "ptxas info    : Function properties for _ZN55_GLOBAL__N__5860b625_22_flash_attention_bwd_cu_"
+            "a50b7cef17flash_bwd_dq_bf16ILi1ELi3ELi3EEEvNS_4MapsENS_6ParamsE",
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "ptxas info    : Used 132 registers, used 1 barriers",
+            "ptxas info    : Compiling entry function '_Z14flash_fwd_bf166Params' for 'sm_90a'",
+            "ptxas info    : Used 128 registers, used 1 barriers, 46592 bytes smem",
+            "ptxas info    : Compiling entry function 'nms_mask' for 'sm_90a'",
+            "ptxas kernel.ptx, line 9; warning : Performance Loss: wgmma serialized",
+            "ptxas info    : Used 32 registers",
+        ])
+        assert _build.ptxas_lines(out) == [
+            "flash_bwd_dq_bf16: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "flash_bwd_dq_bf16: Used 132 registers, used 1 barriers",
+            "flash_fwd_bf16: Used 128 registers, used 1 barriers, 46592 bytes smem",
+            "ptxas kernel.ptx, line 9; warning : Performance Loss: wgmma serialized",
+            "nms_mask: Used 32 registers",
+        ]
 
 
 # ---------------------------------------------------------------- losses

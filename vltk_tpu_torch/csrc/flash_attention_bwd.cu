@@ -1,16 +1,18 @@
-// Flash-attention backward with segment ids for Hopper (sm_90a): K4 (dK, dV)
-// and K5 (dQ).
+// Flash-attention backward with segment ids for Hopper (sm_90a): K5 (dQ, and
+// di) and K4 (dK, dV), launched in that order.
 //
 // Replaces: the two Pallas TPU kernels of the custom VJP of
 // jax.experimental.pallas.ops.tpu.flash_attention, which JAX runs when it
 // differentiates vltk_tpu/models/lxmert.py:_flash_self_attention (every
 // self-attention of LayoutLM training at padded length >= 1024):
-// _flash_attention_bwd_dkv (K4) and _flash_attention_bwd_dq (K5).
+// _flash_attention_bwd_dq (K5) and _flash_attention_bwd_dkv (K4); and the
+// di = sum(o * do) that JAX computes between them outside Pallas (K5).
 //
-// What they compute, per batch row b and head h, with q, k, v, do (the
-// output gradient) and dq, dk, dv (n, s, nh, 64) read and written in that
-// layout through strides, ids (n, s) int32, and the forward's row statistics
-// m, l and di = sum(o * do) float32 (n, nh, s):
+// What they compute, per batch row b and head h, with q, k, v, o (the
+// forward's output), do (the output gradient) and dq, dk, dv (n, s, nh, 64)
+// read and written in that layout through strides, ids (n, s) int32, and the
+// forward's row statistics m, l float32 (n, nh, s):
+//   di = sum(o * do)     (float32 (n, nh, s); K5 writes it, K4 reads it)
 //   p  = exp(q k^T * sm_scale + where(ids differ, MASK) - m) * (1 / l)
 //   dv = p^T do          (p rounded to the input type first)
 //   ds = (do v^T - di) * p * sm_scale
@@ -22,46 +24,83 @@
 // dq (ds * 0), and a query past s has a zero output gradient, so it adds
 // nothing to dk or dv; only the statistics carry the pad's effect.
 //
-// Bound on this card: operations. At the training shape (n = 8, s = 1024,
-// nh = 12, dh = 64, bf16) K4 does four s x s x 64 products per (b, h),
-// 5.2e10 FLOP, 0.052 ms at 989 TFLOP/s, and K5 three, 3.9e10 FLOP, 0.039 ms;
-// their bytes (q, k, v, do, the statistics, the outputs) take ~0.02 ms each
-// at 3.35 TB/s. Each also recomputes 1.0e8 exponentials.
+// Bound on this card: operations. At the training inputs (n = 8, s = 1024,
+// nh = 12, dh = 64, bf16, 819 real tokens of 1024 in every row) 6.84e7
+// (query, key) pairs match; K4 does four 64-deep products on each, 3.50e10
+// FLOP, 0.0354 ms at 989 TFLOP/s, and K5 three, 2.63e10 FLOP, 0.0266 ms.
+// Their bytes (q, k, v, do, for K5 also o, the statistics and di, the
+// outputs) take 0.023 ms each at 3.35 TB/s. Each also recomputes 6.8e7
+// exponentials.
 //
 // Design (FlashAttention-2's backward, split in two kernels so that nothing
 // is summed across blocks: no atomics, so dq, dk and dv are deterministic).
-// K4: one block of 4 warps per (64-key tile, batch row x head); each warp owns
-// 16 keys, keeps their k and v as mma A fragments and their 16 x 64 dK and dV
-// accumulators in registers, and walks every query tile: it recomputes p^T
-// (keys x queries) from q and the statistics, takes dV += p^T do, then
-// dp^T = v do^T, ds^T, and dK += ds^T q. K5: one block per (64-query tile,
-// batch row x head); each warp owns 16 queries, keeps q and do as A
-// fragments, their statistics and di in registers (read once), and walks
-// every key tile: p, dp = do v^T, ds, dQ += ds k. The streamed q/do (K4) or
-// k/v (K5) tiles are double-buffered in shared memory with cp.async; the
-// block's own tiles are staged through the second buffer before the loop.
-// All products are warp-level mma.sync.m16n8k16 bf16 -> f32 with ldmatrix
-// (.trans where the tile's rows are the product's depth); score fragments
-// are re-packed in registers as the A operand. exp is exp2 on pre-scaled
-// scores. This is the simple form: wgmma and TMA are a later step.
+// A block owns resident rows, 64 per warpgroup, and streams 64-row tiles of
+// the other side through a ring of NS stages in shared memory. Every tile
+// is copied by TMA (one thread issues it, an mbarrier counts its bytes)
+// into 128-byte-swizzled shared memory, the layout wgmma reads. Every
+// product is wgmma.mma_async bf16 -> f32 on a warpgroup's 64 rows: scores
+// and dp with A and B from shared memory (K-major), the gradient updates
+// with the rounded p or ds as A from registers (an accumulator's layout is
+// wgmma's A layout) and the streamed tile as B read transposed (tnspB). exp
+// is exp2 on pre-scaled scores (ex2.approx.ftz).
+//   K5: one block of one warpgroup per (64 queries, b x h). Its q, do and o
+// tiles come in once; the prologue computes di for its rows from o and do
+// (and writes it for K4), reads m and l, and then walks the key tiles:
+// S = q k^T, dP = do v^T (m64n64), p and ds in registers, dQ += ds k. Two
+// warpgroups of 64 queries a block spill at two blocks an SM (128
+// registers) and run a fifth slower at one block an SM, so K5 takes one
+// warpgroup at three blocks an SM (at most 168 registers): one block's
+// exponentials overlap another's products.
+//   K4: one block of one warpgroup per (64 keys, b x h). Its k and v tiles
+// come in once; the ring carries the query tiles of q and do with their m,
+// l, di and ids, taken in two halves of 32 queries: S^T = k q^T, dP^T =
+// v do^T (m64n32), dV += p^T do, dK += ds^T q. The halves keep a thread
+// under 168 registers (dK and dV hold 64), so three blocks share an SM. On an
+// H100 this beats two warpgroups of 64 keys each in one block (one block
+// an SM) at the training inputs, although fewer resident keys read each
+// query tile from L2 twice as often:
+// tools/sweep_flash_backward.py times both (PERF.md keeps the numbers).
+//   Tile skipping: each block reduces its batch row's ids to a [min, max]
+// interval per 64-row tile and walks only the streamed tiles whose interval
+// meets one of its warpgroups' (a warpgroup skips the products of a tile
+// that meets only another's). This is exact: a pair of rows whose ids
+// differ has p = exp2(MASK - m) = 0 in float32, and so ds = 0, so a skipped
+// tile would add only zeros; a query always matches its own key, so no row
+// loses all its keys.
+//   One thread issues the ring's next TMA before the block waits on the
+// current stage, and one __syncthreads per tile frees a stage for reuse: no
+// warp specialisation yet. `-Xptxas -v` reports the registers; no spills.
 //
 // float32 inputs take scalar instantiations of the same algorithm (one
 // thread per key row for K4, per query row for K5), for the dtype=None
-// configs and the float32 checks.
+// configs and the float32 checks; K5's computes di too.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_utils.cuh"
+#include "wgmma_utils.cuh"
 
 namespace {
 
-constexpr int D = 64;       // head size
-constexpr int BT = 64;      // rows of a tile (keys or queries)
-constexpr int LDS = D + 8;  // shared row stride (elements): 144 bytes
+constexpr int D = 64;         // head size
+constexpr int BT = 64;        // rows of a streamed tile, and of a warpgroup's share
+// Block shapes as three digits: warpgroups of 64 resident rows per block,
+// blocks an SM keeps (it caps the registers: 65536 / (128 x warpgroups x
+// blocks)), stages of the ring. The design note says why these;
+// tools/sweep_flash_backward.py builds others with -DDQ_SHAPE / -DDKV_SHAPE.
+#ifndef DQ_SHAPE
+#define DQ_SHAPE 133  // K5: 128 threads at <= 168 registers
+#endif
+#ifndef DKV_SHAPE
+#define DKV_SHAPE 133  // K4: 128 threads at <= 168 registers
+#endif
+constexpr int TILE = BT * D;  // elements of a 64-row tile
+constexpr uint32_t TILE_BYTES = TILE * 2;
 constexpr float MASK_VALUE = -0.7f * FLT_MAX;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -70,20 +109,26 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
+  const void* o;
   const int* ids;
   const float* m;
   const float* l;
-  const float* di;
+  float* di;
   void* dq;
   void* dk;
   void* dv;
   int s, nh;
-  // (batch, seq, head) strides in elements of q, k, v, do, dq, dk, dv
-  long long st[7][3];
+  // (batch, seq, head) strides in elements of q, k, v, do, o, dq, dk, dv
+  long long st[8][3];
   float sm_scale;
 };
 
-enum { Q = 0, K = 1, V = 2, DO = 3, DQ = 4, DK = 5, DV = 6 };
+enum { Q = 0, K = 1, V = 2, DO = 3, O = 4, DQ = 5, DK = 6, DV = 7 };
+
+// the TMA maps of the bf16 inputs (o: K5 only)
+struct Maps {
+  CUtensorMap q, k, v, dout, o;
+};
 
 template <typename T>
 __device__ __forceinline__ T* base(const Params& p, const void* ptr, int which) {
@@ -91,287 +136,504 @@ __device__ __forceinline__ T* base(const Params& p, const void* ptr, int which) 
   return static_cast<T*>(const_cast<void*>(ptr)) + b * p.st[which][0] + h * p.st[which][2];
 }
 
-__device__ __forceinline__ void zero(float (&c)[8][4]) {
-#pragma unroll
-  for (int t = 0; t < 8; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[t][e] = 0.f;
+// ------------------------------------------------------ bf16 shared helpers
+
+// 2^x on the MUFU unit, subnormal results flushed to zero (a p below
+// 2^-126 adds nothing at bf16 precision); one instruction where exp2f spends
+// four on the subnormal range
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// a warp's A fragments of rows [warp*16, warp*16+16) of a 64 x 64 tile
-__device__ __forceinline__ void load_a(uint32_t (&f)[4][4], const __nv_bfloat16* tile, int warp,
-                                       int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    ldmatrix_x4(f[ks], &tile[(warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8]);
-}
+__device__ __forceinline__ int2 empty_interval() { return make_int2(INT_MAX, INT_MIN); }
 
-// c (16 x 64) += a (16 x 64, A fragments) * tile^T: the tile's rows are the
-// product's columns, its 64 elements the depth
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], const uint32_t (&a)[4][4],
-                                        const __nv_bfloat16* tile, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-    for (int t2 = 0; t2 < 4; ++t2) {
-      uint32_t b[4];
-      const int row = t2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-      ldmatrix_x4(b, &tile[row * LDS + ks * 16 + ((lane >> 3) & 1) * 8]);
-      mma_bf16(c[2 * t2], a[ks], b[0], b[1]);
-      mma_bf16(c[2 * t2 + 1], a[ks], b[2], b[3]);
+__device__ __forceinline__ bool meets(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
+
+// [min, max] of the ids of each 64-row tile's rows below s (the empty
+// interval for none), one warp per tile
+__device__ __forceinline__ void tile_intervals(const int* ids, int s, int nt, int2* iv) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < nt; t += blockDim.x / 32) {
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int r = lane; r < BT; r += 32) {
+      const int row = t * BT + r;
+      if (row < s) {
+        lo = min(lo, ids[row]);
+        hi = max(hi, ids[row]);
+      }
     }
-  }
-}
-
-// c (16 x 64) += x (16 x 64, an accumulator rounded to bf16 as A) * tile:
-// the tile's rows are the product's depth
-__device__ __forceinline__ void mma_ab(float (&c)[8][4], const float (&x)[8][4],
-                                       const __nv_bfloat16* tile, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int d2 = 0; d2 < 4; ++d2) {
-      uint32_t b[4];
-      const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4_trans(b, &tile[row * LDS + d2 * 16 + (lane >> 4) * 8]);
-      mma_bf16(c[2 * d2], a, b[0], b[1]);
-      mma_bf16(c[2 * d2 + 1], a, b[2], b[3]);
+    for (int o = 16; o; o >>= 1) {
+      lo = min(lo, __shfl_xor_sync(~0u, lo, o));
+      hi = max(hi, __shfl_xor_sync(~0u, hi, o));
     }
+    if (lane == 0) iv[t] = make_int2(lo, hi);
   }
 }
 
-// 64 rows from row0 of a (s, 64) bf16 view with row stride ss into a padded
-// shared tile; rows past s are zero-filled
-__device__ __forceinline__ void copy_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long ss, int row0, int s, int tid) {
-  for (int c = tid; c < BT * 8; c += 128) {
-    const int r = c >> 3, col = (c & 7) * 8, row = row0 + r;
-    cp_async16(&dst[r * LDS + col], src + (size_t)min(row, s - 1) * ss + col, row < s ? 16 : 0);
-  }
+// the interval of warpgroup w's resident rows (a block of WGS warpgroups
+// owns tiles WGS * blockIdx.x ...)
+template <int WGS>
+__device__ __forceinline__ int2 own_interval(const int2* iv, int nt, int w) {
+  const int t = WGS * blockIdx.x + w;
+  return t < nt ? iv[t] : empty_interval();
 }
 
-// write a warp's 16 x 64 accumulator rows (r_lo = row0 + g, r_hi = r_lo + 8)
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ss, const float (&c)[8][4],
-                                           int r_lo, int s, int tig) {
+// one warp: the streamed tiles whose interval meets one of the block's
+// warpgroups', in order, and their count
+template <int WGS>
+__device__ __forceinline__ void needed_tiles(const int2* iv, int nt, int* list, int* count) {
+  const int lane = threadIdx.x & 31;
+  int c = 0;
+  for (int b0 = 0; b0 < nt; b0 += 32) {
+    const int t = b0 + lane;
+    bool need = false;
+#pragma unroll
+    for (int w = 0; w < WGS; ++w) need = need || (t < nt && meets(iv[t], own_interval<WGS>(iv, nt, w)));
+    const unsigned ballot = __ballot_sync(~0u, need);
+    if (need) list[c + __popc(ballot & ((1u << lane) - 1))] = t;
+    c += __popc(ballot);
+  }
+  if (lane == 0) *count = c;
+}
+
+// write a warp's 16 rows of a warpgroup accumulator (r_lo = row0 + g, r_hi
+// = r_lo + 8) to a (s, 64) bf16 view with row stride ss
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ss, const float (&c)[32], int r_lo,
+                                           int s, int tig) {
   const int r_hi = r_lo + 8;
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int col = t * 8 + 2 * tig;
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + 2 * tig;
     if (r_lo < s)
       *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r_lo * ss + col) =
-          __floats2bfloat162_rn(c[t][0], c[t][1]);
+          __floats2bfloat162_rn(c[4 * j], c[4 * j + 1]);
     if (r_hi < s)
       *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r_hi * ss + col) =
-          __floats2bfloat162_rn(c[t][2], c[t][3]);
+          __floats2bfloat162_rn(c[4 * j + 2], c[4 * j + 3]);
   }
 }
 
-// ------------------------------------------------------------- K4, bf16
-
-__global__ void __launch_bounds__(128) flash_bwd_dkv_bf16(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[2][BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sO[2][BT * LDS];  // do tiles
-  __shared__ float sM[2][BT], sL[2][BT], sD[2][BT];  // m * log2(e), 1 / l, di
-  __shared__ int sId[2][BT];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int k0 = blockIdx.x * BT;
-  const __nv_bfloat16* Qp = base<const __nv_bfloat16>(p, p.q, Q);
-  const __nv_bfloat16* Kp = base<const __nv_bfloat16>(p, p.k, K);
-  const __nv_bfloat16* Vp = base<const __nv_bfloat16>(p, p.v, V);
-  const __nv_bfloat16* Op = base<const __nv_bfloat16>(p, p.dout, DO);
-  const int b = blockIdx.y / p.nh;
-  const int* ids = p.ids + (size_t)b * p.s;
-  const size_t srow = (size_t)blockIdx.y * p.s;
-
-  auto load_q = [&](int tile, int buf) {
-    const int q0 = tile * BT;
-    copy_tile(sQ[buf], Qp, p.st[Q][1], q0, p.s, tid);
-    copy_tile(sO[buf], Op, p.st[DO][1], q0, p.s, tid);
-    if (tid < BT) {
-      const int row = q0 + tid;
-      const bool live = row < p.s;
-      // a query past s: id -1 matches no key, so its p is 0
-      sM[buf][tid] = live ? p.m[srow + row] * LOG2E : 0.f;
-      sL[buf][tid] = live ? 1.f / p.l[srow + row] : 0.f;
-      sD[buf][tid] = live ? p.di[srow + row] : 0.f;
-      sId[buf][tid] = live ? ids[row] : -1;
-    }
-  };
-
-  // the block's keys and values, staged through buffer 1
-  copy_tile(sQ[1], Kp, p.st[K][1], k0, p.s, tid);
-  copy_tile(sO[1], Vp, p.st[V][1], k0, p.s, tid);
-  load_q(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t kf[4][4], vf[4][4];
-  load_a(kf, sQ[1], warp, lane);
-  load_a(vf, sO[1], warp, lane);
-  __syncthreads();  // buffer 1 is free for the next query tile
-
-  const int kr_lo = k0 + warp * 16 + g, kr_hi = kr_lo + 8;
-  const int kid_lo = kr_lo < p.s ? ids[kr_lo] : 0;
-  const int kid_hi = kr_hi < p.s ? ids[kr_hi] : 0;
-  const float scale = p.sm_scale * LOG2E;
-
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
-  const int nq = (p.s + BT - 1) / BT;
-  for (int j = 0; j < nq; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nq) load_q(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the newest: tile j has landed
-    __syncthreads();
-
-    // p^T: 16 keys x 64 queries per warp (rows g, g + 8: e < 2, e >= 2)
-    float pt[8][4];
-    zero(pt);
-    mma_abt(pt, kf, sQ[buf], lane);
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N]) {
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = t * 8 + 2 * tig + (e & 1);
-        const bool hit = sId[buf][qc] == (e < 2 ? kid_lo : kid_hi);
-        const float x = hit ? pt[t][e] * scale : MASK_VALUE;
-        pt[t][e] = exp2f(x - sM[buf][qc]) * sL[buf][qc];
-      }
-    }
-    mma_ab(dv, pt, sO[buf], lane);  // dV += p^T do
+  for (int i = 0; i < N; ++i) c[i] = 0.f;
+}
 
-    float ds[8][4];  // dp^T = v do^T, then ds^T
-    zero(ds);
-    mma_abt(ds, vf, sO[buf], lane);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = t * 8 + 2 * tig + (e & 1);
-        ds[t][e] = (ds[t][e] - sD[buf][qc]) * pt[t][e] * p.sm_scale;
-      }
-    }
-    mma_ab(dk, ds, sQ[buf], lane);  // dK += ds^T q
-    __syncthreads();  // tile j read by every warp before its buffer is refilled
-  }
+__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
 
-  store_rows(base<__nv_bfloat16>(p, p.dk, DK), p.st[DK][1], dk, kr_lo, p.s, tig);
-  store_rows(base<__nv_bfloat16>(p, p.dv, DV), p.st[DV][1], dv, kr_lo, p.s, tig);
+// the resident rows of a block, 64 per warpgroup from row0, into `dst`; a
+// tile that starts past s is not loaded (its warpgroup has no row to
+// compute or store)
+template <int WGS>
+__device__ __forceinline__ void load_resident(__nv_bfloat16* dst, const CUtensorMap* map, uint64_t* bar, int row0,
+                                              int s, int h, int b) {
+  for (int w = 0; w < WGS; ++w)
+    if (row0 + w * BT < s) tma_load_4d(dst + w * TILE, map, bar, 0, h, row0 + w * BT, b);
+}
+
+// the bytes load_resident copies
+template <int WGS>
+__device__ __forceinline__ uint32_t resident_bytes(int row0, int s) {
+  uint32_t bytes = 0;
+  for (int w = 0; w < WGS; ++w) bytes += row0 + w * BT < s ? TILE_BYTES : 0u;
+  return bytes;
+}
+
+// shared memory of the bf16 kernels, in bytes (the first 1024 are room to
+// align the tiles); rows = resident rows of a block, NS = stages of the
+// ring, nt = tiles of 64 rows in s
+__host__ __device__ constexpr size_t dq_smem_bytes(int rows, int NS, int nt) {
+  return 1024 + (size_t)(3 * rows + 2 * NS * BT) * D * 2  // q, do, o; the k, v ring
+         + (NS + 1) * 8                                     // barriers
+         + (4 * rows + NS * BT) * 4                         // m, 1/l, di, ids of the queries; key ids
+         + (size_t)nt * 12 + 4;                             // intervals, tile list, count
+}
+__host__ __device__ constexpr size_t dkv_smem_bytes(int rows, int NS, int nt) {
+  return 1024 + (size_t)(2 * rows + 2 * NS * BT) * D * 2  // k, v; the q, do ring
+         + (NS + 1) * 8                                     // barriers
+         + 4 * NS * BT * 4                                  // m, 1/l, di, ids of the ring's queries
+         + (size_t)nt * 12 + 4;                             // intervals, tile list, count
 }
 
 // ------------------------------------------------------------- K5, bf16
 
-__global__ void __launch_bounds__(128) flash_bwd_dq_bf16(Params p) {
-  __shared__ __align__(16) __nv_bfloat16 sK[2][BT * LDS];
-  __shared__ __align__(16) __nv_bfloat16 sV[2][BT * LDS];
-  __shared__ int sId[2][BT];
+template <int WGS, int MIN_BLOCKS, int NS>
+__global__ void __launch_bounds__(128 * WGS, MIN_BLOCKS)
+    flash_bwd_dq_bf16(const __grid_constant__ Maps maps, Params p) {
+  constexpr int TR = WGS * BT;  // resident query rows
+  static_assert(NS >= 2, "the ring loads one stage ahead");
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));
+  __nv_bfloat16* sDO = sQ + TR * D;
+  __nv_bfloat16* sO = sDO + TR * D;
+  __nv_bfloat16* sK = sO + TR * D;  // NS tiles
+  __nv_bfloat16* sV = sK + NS * TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NS * TILE);  // NS
+  uint64_t* res = full + NS;
+  float* sM = reinterpret_cast<float*>(res + 1);  // m * log2(e) of the 128 queries
+  float* sIL = sM + TR;                           // 1 / l
+  float* sDi = sIL + TR;
+  int* sQid = reinterpret_cast<int*>(sDi + TR);
+  int* sKid = sQid + TR;  // NS x 64 key ids
+  int2* sIv = reinterpret_cast<int2*>(sKid + NS * BT);
+  const int s = p.s, nt = (s + BT - 1) / BT;
+  int* sList = reinterpret_cast<int*>(sIv + nt);
+  int* sCount = sList + nt;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * BT;
-  const __nv_bfloat16* Qp = base<const __nv_bfloat16>(p, p.q, Q);
-  const __nv_bfloat16* Kp = base<const __nv_bfloat16>(p, p.k, K);
-  const __nv_bfloat16* Vp = base<const __nv_bfloat16>(p, p.v, V);
-  const __nv_bfloat16* Op = base<const __nv_bfloat16>(p, p.dout, DO);
-  const int b = blockIdx.y / p.nh;
-  const int* ids = p.ids + (size_t)b * p.s;
-  const size_t srow = (size_t)blockIdx.y * p.s;
+  const int b = blockIdx.y / p.nh, h = blockIdx.y % p.nh;
+  const int q0 = blockIdx.x * TR;
+  const int* ids = p.ids + (size_t)b * s;
+  const size_t srow = (size_t)blockIdx.y * s;
 
-  auto load_kv = [&](int tile, int buf) {
-    const int k0 = tile * BT;
-    copy_tile(sK[buf], Kp, p.st[K][1], k0, p.s, tid);
-    copy_tile(sV[buf], Vp, p.st[V][1], k0, p.s, tid);
-    // a key past s is a zero key: id -1 skips it (it would add ds * 0)
-    if (tid < BT) sId[buf][tid] = k0 + tid < p.s ? ids[k0 + tid] : -1;
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
+    mbar_init(res, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma_prefetch_map(&maps.k);
+    tma_prefetch_map(&maps.v);
+    mbar_expect_tx(res, 3 * resident_bytes<WGS>(q0, s));
+    load_resident<WGS>(sQ, &maps.q, res, q0, s, h, b);
+    load_resident<WGS>(sDO, &maps.dout, res, q0, s, h, b);
+    load_resident<WGS>(sO, &maps.o, res, q0, s, h, b);
+  }
+  tile_intervals(ids, s, nt, sIv);
+  if (tid < TR) {
+    const int row = q0 + tid;
+    const bool live = row < s;
+    sM[tid] = live ? p.m[srow + row] * LOG2E : 0.f;
+    sIL[tid] = live ? 1.f / p.l[srow + row] : 0.f;
+    sQid[tid] = live ? ids[row] : -2;
+  }
+  __syncthreads();
+  if (warp == 0) needed_tiles<WGS>(sIv, nt, sList, sCount);
+  __syncthreads();
+  const int cnt = *sCount;
+  const int2 mine = own_interval<WGS>(sIv, nt, wg);
+
+  auto load_stage = [&](int i) {  // entry i of the list into stage i % NS
+    const int st = i % NS, k0 = sList[i] * BT;
+    mbar_expect_tx(&full[st], 2 * TILE_BYTES);
+    tma_load_4d(sK + st * TILE, &maps.k, &full[st], 0, h, k0, b);
+    tma_load_4d(sV + st * TILE, &maps.v, &full[st], 0, h, k0, b);
   };
+  // a key past s is a zero key: id -1 skips it (it would add ds * 0)
+  auto key_id = [&](int i) {  // thread tid < 64: the id of key row tid of entry i
+    const int key = sList[i] * BT + tid;
+    return key < s ? ids[key] : -1;
+  };
+  const int ahead0 = min(NS - 1, cnt);
+  if (tid == 0)
+    for (int i = 0; i < ahead0; ++i) load_stage(i);
+  if (tid < BT)
+    for (int i = 0; i < ahead0; ++i) sKid[(i % NS) * BT + tid] = key_id(i);
 
-  // the block's queries and output gradients, staged through buffer 1
-  copy_tile(sK[1], Qp, p.st[Q][1], q0, p.s, tid);
-  copy_tile(sV[1], Op, p.st[DO][1], q0, p.s, tid);
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[4][4], of[4][4];
-  load_a(qf, sK[1], warp, lane);
-  load_a(of, sV[1], warp, lane);
-  __syncthreads();
-
-  // this thread's two query rows: statistics and di, read once
-  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
-  const bool live_lo = r_lo < p.s, live_hi = r_hi < p.s;
-  const int id_lo = live_lo ? ids[r_lo] : -2, id_hi = live_hi ? ids[r_hi] : -2;
-  const float m_lo = live_lo ? p.m[srow + r_lo] * LOG2E : 0.f;
-  const float m_hi = live_hi ? p.m[srow + r_hi] * LOG2E : 0.f;
-  const float il_lo = live_lo ? 1.f / p.l[srow + r_lo] : 0.f;
-  const float il_hi = live_hi ? 1.f / p.l[srow + r_hi] : 0.f;
-  const float di_lo = live_lo ? p.di[srow + r_lo] : 0.f;
-  const float di_hi = live_hi ? p.di[srow + r_hi] : 0.f;
-  const float scale = p.sm_scale * LOG2E;
-
-  float dq[8][4];
-  zero(dq);
-  const int nk = (p.s + BT - 1) / BT;
-  for (int j = 0; j < nk; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < nk) load_kv(j + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    float pr[8][4];  // p: 16 queries x 64 keys per warp
-    zero(pr);
-    mma_abt(pr, qf, sK[buf], lane);
+  // di of row tid / 2 from its o and do rows (two threads, 32 columns each)
+  mbar_wait(res, 0);
+  {
+    const int r = tid >> 1, half = tid & 1;
+    const uint8_t* orow = reinterpret_cast<const uint8_t*>(sO) + r * 128;
+    const uint8_t* dorow = reinterpret_cast<const uint8_t*>(sDO) + r * 128;
+    float acc = 0.f;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
+    for (int c = 0; c < 4; ++c) {
+      const int chunk = (half * 4 + c) ^ (r & 7);  // the 128B swizzle
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow + chunk * 16);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dorow + chunk * 16);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kid = sId[buf][t * 8 + 2 * tig + (e & 1)];
-        const bool lo = e < 2;
-        const float x = kid == (lo ? id_lo : id_hi) ? pr[t][e] * scale : MASK_VALUE;
-        pr[t][e] = exp2f(x - (lo ? m_lo : m_hi)) * (lo ? il_lo : il_hi);
+        const float2 a = __bfloat1622float2(o2[e]), x = __bfloat1622float2(d2[e]);
+        acc = fmaf(a.x, x.x, acc);
+        acc = fmaf(a.y, x.y, acc);
       }
     }
-    float ds[8][4];  // dp = do v^T, then ds
-    zero(ds);
-    mma_abt(ds, of, sV[buf], lane);
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[t][e] = (ds[t][e] - (e < 2 ? di_lo : di_hi)) * pr[t][e] * p.sm_scale;
+    acc += __shfl_xor_sync(~0u, acc, 1);
+    if (half == 0) {
+      sDi[r] = acc;
+      if (q0 + r < s) p.di[srow + q0 + r] = acc;
     }
-    mma_ab(dq, ds, sK[buf], lane);  // dQ += ds k
-    __syncthreads();
+  }
+  __syncthreads();
+
+  // this thread's two query rows of its warpgroup's 64
+  const int rl = wg * BT + (warp & 3) * 16 + g, rh = rl + 8;
+  const int id_lo = sQid[rl], id_hi = sQid[rh];
+  const float m_lo = sM[rl], m_hi = sM[rh], il_lo = sIL[rl], il_hi = sIL[rh];
+  const float di_lo = sDi[rl], di_hi = sDi[rh];
+  const float scale = p.sm_scale * LOG2E;
+  const uint64_t q_a = sw128_desc(sQ + wg * TILE), do_a = sw128_desc(sDO + wg * TILE);
+
+  float dq[32], sc[32], dp[32];
+  zero(dq);
+  zero(sc);
+  zero(dp);
+  for (int i = 0; i < cnt; ++i) {
+    const int st = i % NS, ahead = i + NS - 1;
+    int next_id = -1;
+    if (ahead < cnt) {
+      if (tid == 0) load_stage(ahead);  // into the stage freed at the end of i - 1
+      if (tid < BT) next_id = key_id(ahead);
+    }
+    if (meets(sIv[sList[i]], mine)) {
+      mbar_wait(&full[st], (i / NS) & 1);
+      const uint64_t k_b = sw128_desc(sK + st * TILE), v_b = sw128_desc(sV + st * TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0>(sc, q_a + kk * DESC_K_STEP, k_b + kk * DESC_K_STEP, kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss<0>(dp, do_a + kk * DESC_K_STEP, v_b + kk * DESC_K_STEP, kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // S
+      fence_acc(sc);
+      const int* kid = sKid + st * BT;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int2 kk = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * tig);  // columns 2 tig, 2 tig + 1
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool lo = e < 2;
+          const float x = (e & 1 ? kk.y : kk.x) == (lo ? id_lo : id_hi) ? sc[4 * j + e] * scale : MASK_VALUE;
+          sc[4 * j + e] = exp2_ftz(x - (lo ? m_lo : m_hi)) * (lo ? il_lo : il_hi);
+        }
+      }
+      wgmma_wait<0>();  // dP
+      fence_acc(dp);
+      uint32_t a[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[4 * j + e] = (dp[4 * j + e] - (e < 2 ? di_lo : di_hi)) * sc[4 * j + e] * p.sm_scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], dp, kk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(dq, a[kk], k_b + kk * DESC_MN_STEP, 1);  // dQ += ds k
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+    }
+    if (ahead < cnt && tid < BT) sKid[(ahead % NS) * BT + tid] = next_id;
+    __syncthreads();  // stage i read by both warpgroups before it is refilled
   }
 
-  store_rows(base<__nv_bfloat16>(p, p.dq, DQ), p.st[DQ][1], dq, r_lo, p.s, tig);
+  store_rows(base<__nv_bfloat16>(p, p.dq, DQ), p.st[DQ][1], dq, q0 + rl, s, tig);
+}
+
+// ------------------------------------------------------------- K4, bf16
+
+template <int WGS, int MIN_BLOCKS, int NS>
+__global__ void __launch_bounds__(128 * WGS, MIN_BLOCKS)
+    flash_bwd_dkv_bf16(const __grid_constant__ Maps maps, Params p) {
+  constexpr int TR = WGS * BT;  // resident key rows
+  static_assert(NS >= 2, "the ring loads one stage ahead");
+  extern __shared__ uint8_t smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(align1024(smem_raw));
+  __nv_bfloat16* sV = sK + TR * D;
+  __nv_bfloat16* sQ = sV + TR * D;  // NS tiles
+  __nv_bfloat16* sDO = sQ + NS * TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sDO + NS * TILE);  // NS
+  uint64_t* res = full + NS;
+  float* sM = reinterpret_cast<float*>(res + 1);  // NS x 64: m * log2(e) of the ring's queries
+  float* sIL = sM + NS * BT;                      // 1 / l
+  float* sDi = sIL + NS * BT;
+  int* sQid = reinterpret_cast<int*>(sDi + NS * BT);
+  int2* sIv = reinterpret_cast<int2*>(sQid + NS * BT);
+  const int s = p.s, nt = (s + BT - 1) / BT;
+  int* sList = reinterpret_cast<int*>(sIv + nt);
+  int* sCount = sList + nt;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int b = blockIdx.y / p.nh, h = blockIdx.y % p.nh;
+  const int k0 = blockIdx.x * TR;
+  const int* ids = p.ids + (size_t)b * s;
+  const size_t srow = (size_t)blockIdx.y * s;
+
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&full[i], 1);
+    mbar_init(res, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma_prefetch_map(&maps.q);
+    tma_prefetch_map(&maps.dout);
+    mbar_expect_tx(res, 2 * resident_bytes<WGS>(k0, s));
+    load_resident<WGS>(sK, &maps.k, res, k0, s, h, b);
+    load_resident<WGS>(sV, &maps.v, res, k0, s, h, b);
+  }
+  tile_intervals(ids, s, nt, sIv);
+  __syncthreads();
+  if (warp == 0) needed_tiles<WGS>(sIv, nt, sList, sCount);
+  __syncthreads();
+  const int cnt = *sCount;
+  const int2 mine = own_interval<WGS>(sIv, nt, wg);
+
+  auto load_stage = [&](int i) {  // entry i of the list into stage i % NS
+    const int st = i % NS, q0 = sList[i] * BT;
+    mbar_expect_tx(&full[st], 2 * TILE_BYTES);
+    tma_load_4d(sQ + st * TILE, &maps.q, &full[st], 0, h, q0, b);
+    tma_load_4d(sDO + st * TILE, &maps.dout, &full[st], 0, h, q0, b);
+  };
+  // a query past s: id -1 matches no key, so its p is 0. Threads 0-63 carry
+  // m and 1 / l of query row tid of entry i, threads 64-127 di and the id of
+  // row tid - 64.
+  auto row_data = [&](int i, float& x, float& y) {
+    const int r = tid & (BT - 1), row = sList[i] * BT + r;
+    const bool live = row < s;
+    if (tid < BT) {
+      x = live ? p.m[srow + row] * LOG2E : 0.f;
+      y = live ? 1.f / p.l[srow + row] : 0.f;
+    } else {
+      x = live ? p.di[srow + row] : 0.f;
+      y = __int_as_float(live ? ids[row] : -1);
+    }
+  };
+  auto store_row_data = [&](int i, float x, float y) {
+    const int at = (i % NS) * BT + (tid & (BT - 1));
+    if (tid < BT) {
+      sM[at] = x;
+      sIL[at] = y;
+    } else {
+      sDi[at] = x;
+      sQid[at] = __float_as_int(y);
+    }
+  };
+  const int ahead0 = min(NS - 1, cnt);
+  if (tid == 0)
+    for (int i = 0; i < ahead0; ++i) load_stage(i);
+  if (tid < 2 * BT) {
+    for (int i = 0; i < ahead0; ++i) {
+      float x, y;
+      row_data(i, x, y);
+      store_row_data(i, x, y);
+    }
+  }
+
+  // this thread's two key rows of its warpgroup's 64 (a key past s is never
+  // stored; id 0 as the zero keys of the pad)
+  const int rl = wg * BT + (warp & 3) * 16 + g;
+  const int kr_lo = k0 + rl, kr_hi = kr_lo + 8;
+  const int kid_lo = kr_lo < s ? ids[kr_lo] : 0;
+  const int kid_hi = kr_hi < s ? ids[kr_hi] : 0;
+  const float scale = p.sm_scale * LOG2E;
+  const uint64_t k_a = sw128_desc(sK + wg * TILE), v_a = sw128_desc(sV + wg * TILE);
+  __syncthreads();  // the first stages' row data
+  mbar_wait(res, 0);
+
+  float dk[32], dv[32], sc[16], dp[16];
+  zero(dk);
+  zero(dv);
+  zero(sc);
+  zero(dp);
+  for (int i = 0; i < cnt; ++i) {
+    const int st = i % NS, ahead = i + NS - 1;
+    float nx = 0.f, ny = 0.f;
+    if (ahead < cnt) {
+      if (tid == 0) load_stage(ahead);  // into the stage freed at the end of i - 1
+      if (tid < 2 * BT) row_data(ahead, nx, ny);
+    }
+    if (meets(sIv[sList[i]], mine)) {
+      mbar_wait(&full[st], (i / NS) & 1);
+      // the 64 queries of the stage in two halves of 32, which keeps the
+      // score tiles to 16 registers each
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const __nv_bfloat16* qt = sQ + st * TILE + half * 32 * D;
+        const __nv_bfloat16* dot = sDO + st * TILE + half * 32 * D;
+        const uint64_t q_b = sw128_desc(qt), do_b = sw128_desc(dot);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_n32<0>(sc, k_a + kk * DESC_K_STEP, q_b + kk * DESC_K_STEP, kk);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_n32<0>(dp, v_a + kk * DESC_K_STEP, do_b + kk * DESC_K_STEP, kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T: 64 keys x 32 queries
+        fence_acc(sc);
+        const int c0 = st * BT + half * 32;
+        const float* m2 = sM + c0;
+        const float* il = sIL + c0;
+        const float* dd = sDi + c0;
+        const int* qid = sQid + c0;
+        // this thread's columns 8 j + 2 tig and 8 j + 2 tig + 1 as pairs
+        auto pair = [&](const float* v, int j) { return *reinterpret_cast<const float2*>(v + 8 * j + 2 * tig); };
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 mm = pair(m2, j), ll = pair(il, j);
+          const int2 qq = *reinterpret_cast<const int2*>(qid + 8 * j + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool hit = (e & 1 ? qq.y : qq.x) == (e < 2 ? kid_lo : kid_hi);
+            const float x = hit ? sc[4 * j + e] * scale : MASK_VALUE;
+            sc[4 * j + e] = exp2_ftz(x - (e & 1 ? mm.y : mm.x)) * (e & 1 ? ll.y : ll.x);
+          }
+        }
+        uint32_t a[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) acc_to_a(a[kk], sc, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) wgmma_rs<1>(dv, a[kk], do_b + kk * DESC_MN_STEP, 1);  // dV += p^T do
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T
+        fence_acc(dp);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 d2 = pair(dd, j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = (dp[4 * j + e] - (e & 1 ? d2.y : d2.x)) * sc[4 * j + e] * p.sm_scale;
+        }
+        uint32_t c[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) acc_to_a(c[kk], dp, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) wgmma_rs<1>(dk, c[kk], q_b + kk * DESC_MN_STEP, 1);  // dK += ds^T q
+        wgmma_commit();  // the second half's first wait retires the first half's updates
+      }
+      wgmma_wait<0>();
+      fence_acc(dv);
+      fence_acc(dk);
+    }
+    if (ahead < cnt && tid < 2 * BT) store_row_data(ahead, nx, ny);
+    __syncthreads();  // stage i read by every warpgroup before it is refilled
+  }
+
+  store_rows(base<__nv_bfloat16>(p, p.dk, DK), p.st[DK][1], dk, kr_lo, s, tig);
+  store_rows(base<__nv_bfloat16>(p, p.dv, DV), p.st[DV][1], dv, kr_lo, s, tig);
 }
 
 // --------------------------------------------------------------- float32
 
+constexpr int FB = 64;      // rows (threads) of a float32 block
 constexpr int FT = 16;      // streamed rows per step of the scalar kernels
 constexpr int FLD = D + 1;  // padded stride of the per-thread rows
 
 // K4 in float32: thread t owns key k0 + t; query tiles of FT rows are
 // streamed through shared memory
-__global__ void __launch_bounds__(BT) flash_bwd_dkv_f32(Params p) {
-  __shared__ float sK[BT * FLD], sV[BT * FLD];
+__global__ void __launch_bounds__(FB) flash_bwd_dkv_f32(Params p) {
+  __shared__ float sK[FB * FLD], sV[FB * FLD];
   __shared__ float sQ[FT][D], sO[FT][D];
   __shared__ float sM[FT], sL[FT], sD[FT];
   __shared__ int sId[FT];
 
   const int tid = threadIdx.x;
-  const int key = blockIdx.x * BT + tid;
+  const int key = blockIdx.x * FB + tid;
   const float* Qp = base<const float>(p, p.q, Q);
   const float* Kp = base<const float>(p, p.k, K);
   const float* Vp = base<const float>(p, p.v, V);
@@ -391,7 +653,7 @@ __global__ void __launch_bounds__(BT) flash_bwd_dkv_f32(Params p) {
 
   for (int q0 = 0; q0 < p.s; q0 += FT) {
     __syncthreads();
-    for (int i = tid; i < FT * D; i += BT) {
+    for (int i = tid; i < FT * D; i += FB) {
       const int r = i / D, c = i % D, row = q0 + r;
       sQ[r][c] = row < p.s ? Qp[(size_t)row * p.st[Q][1] + c] : 0.f;
       sO[r][c] = row < p.s ? Op[(size_t)row * p.st[DO][1] + c] : 0.f;
@@ -433,38 +695,42 @@ __global__ void __launch_bounds__(BT) flash_bwd_dkv_f32(Params p) {
   }
 }
 
-// K5 in float32: thread t owns query q0 + t; key tiles of FT rows are
-// streamed through shared memory
-__global__ void __launch_bounds__(BT) flash_bwd_dq_f32(Params p) {
-  __shared__ float sQ[BT * FLD], sO[BT * FLD];
+// K5 in float32: thread t owns query q0 + t (and writes its di); key tiles
+// of FT rows are streamed through shared memory
+__global__ void __launch_bounds__(FB) flash_bwd_dq_f32(Params p) {
+  __shared__ float sQ[FB * FLD], sO[FB * FLD];
   __shared__ float sK[FT][D], sV[FT][D];
   __shared__ int sId[FT];
 
   const int tid = threadIdx.x;
-  const int row = blockIdx.x * BT + tid;
+  const int row = blockIdx.x * FB + tid;
   const float* Qp = base<const float>(p, p.q, Q);
   const float* Kp = base<const float>(p, p.k, K);
   const float* Vp = base<const float>(p, p.v, V);
   const float* Op = base<const float>(p, p.dout, DO);
+  const float* Outp = base<const float>(p, p.o, O);
   const int* ids = p.ids + (size_t)(blockIdx.y / p.nh) * p.s;
   const size_t srow = (size_t)blockIdx.y * p.s;
   const bool live = row < p.s;
+  float di = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     sQ[tid * FLD + d] = live ? Qp[(size_t)row * p.st[Q][1] + d] : 0.f;
-    sO[tid * FLD + d] = live ? Op[(size_t)row * p.st[DO][1] + d] : 0.f;
+    const float g = live ? Op[(size_t)row * p.st[DO][1] + d] : 0.f;
+    sO[tid * FLD + d] = g;
+    di = fmaf(live ? Outp[(size_t)row * p.st[O][1] + d] : 0.f, g, di);
   }
+  if (live) p.di[srow + row] = di;
   const int qid = live ? ids[row] : -2;
   const float m = live ? p.m[srow + row] : 0.f;
   const float il = live ? 1.f / p.l[srow + row] : 0.f;
-  const float di = live ? p.di[srow + row] : 0.f;
   float dq[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) dq[d] = 0.f;
 
   for (int k0 = 0; k0 < p.s; k0 += FT) {
     __syncthreads();
-    for (int i = tid; i < FT * D; i += BT) {
+    for (int i = tid; i < FT * D; i += FB) {
       const int r = i / D, c = i % D, key = k0 + r;
       sK[r][c] = key < p.s ? Kp[(size_t)key * p.st[K][1] + c] : 0.f;
       sV[r][c] = key < p.s ? Vp[(size_t)key * p.st[V][1] + c] : 0.f;
@@ -492,57 +758,125 @@ __global__ void __launch_bounds__(BT) flash_bwd_dq_f32(Params p) {
   }
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* dout, const int* ids,
-                   const float* m, const float* l, const float* di, void* dq, void* dk, void* dv,
-                   int s, int nh, const long long* strides, float sm_scale) {
-  Params p{q, k, v, dout, ids, m, l, di, dq, dk, dv, s, nh, {}, sm_scale};
-  for (int t = 0; t < 7; ++t)
+// ------------------------------------------------------------------ host
+
+Params make_params(const void* q, const void* k, const void* v, const void* dout, const void* o, const int* ids,
+                   const float* m, const float* l, float* di, void* dq, void* dk, void* dv, int s, int nh,
+                   const long long* strides, float sm_scale) {
+  Params p{q, k, v, dout, o, ids, m, l, di, dq, dk, dv, s, nh, {}, sm_scale};
+  for (int t = 0; t < 8; ++t)
     for (int i = 0; i < 3; ++i) p.st[t][i] = strides[3 * t + i];
   return p;
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's cuTensorMapEncodeTiled, reached through the
+// runtime so that the library needs no -lcuda; null if it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of a (n, s, nh, 64) bf16 view with (batch, seq, head) strides
+// `st` in elements: the 4-D tensor (64, nh, s, n), a box of 64 rows of one
+// head, 128-byte swizzle, zeros past s
+bool make_map(CUtensorMap* map, const void* ptr, int n, int s, int nh, const long long* st) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || ptr == nullptr) return false;
+  const cuuint64_t dims[4] = {D, (cuuint64_t)nh, (cuuint64_t)s, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {D, 1, BT, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the maps of q, k, v, do and, for K5, o
+bool make_maps(Maps* maps, const Params& p, int n, bool with_o) {
+  return make_map(&maps->q, p.q, n, p.s, p.nh, p.st[Q]) && make_map(&maps->k, p.k, n, p.s, p.nh, p.st[K]) &&
+         make_map(&maps->v, p.v, n, p.s, p.nh, p.st[V]) && make_map(&maps->dout, p.dout, n, p.s, p.nh, p.st[DO]) &&
+         (!with_o || make_map(&maps->o, p.o, n, p.s, p.nh, p.st[O]));
+}
+
+constexpr size_t MAX_SMEM = 232448;  // what a block of this card can have
+
+template <int WGS, typename Kernel>
+int launch_bf16(Kernel kernel, size_t smem, bool with_o, const Params& p, int n, cudaStream_t st) {
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  // a runtime call first: it makes the device's context current in this
+  // thread, which cuTensorMapEncodeTiled needs (autograd runs the
+  // backward in a thread of its own that may not have made it current yet)
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  Maps maps;
+  if (!make_maps(&maps, p, n, with_o)) return (int)cudaErrorInvalidValue;
+  dim3 grid((p.s + WGS * BT - 1) / (WGS * BT), n * p.nh);
+  kernel<<<grid, 128 * WGS, smem, st>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+// K5 and K4 at a block shape (see DQ_SHAPE)
+template <int SHAPE>
+int launch_dq(const Params& p, int n, cudaStream_t st) {
+  constexpr int wgs = SHAPE / 100, blocks = SHAPE / 10 % 10, stages = SHAPE % 10;
+  const size_t smem = dq_smem_bytes(wgs * BT, stages, (p.s + BT - 1) / BT);
+  return launch_bf16<wgs>(flash_bwd_dq_bf16<wgs, blocks, stages>, smem, true, p, n, st);
+}
+template <int SHAPE>
+int launch_dkv(const Params& p, int n, cudaStream_t st) {
+  constexpr int wgs = SHAPE / 100, blocks = SHAPE / 10 % 10, stages = SHAPE % 10;
+  const size_t smem = dkv_smem_bytes(wgs * BT, stages, (p.s + BT - 1) / BT);
+  return launch_bf16<wgs>(flash_bwd_dkv_bf16<wgs, blocks, stages>, smem, false, p, n, st);
+}
+
 }  // namespace
 
-// q, k, v, dout (the output gradient) and dq, dk, dv: (n, s, nh, 64) with
-// the (batch, seq, head) strides in elements given in that order, 21 values
-// (the last stride is 1; for bf16 every base pointer is 16-byte aligned and
-// every stride a multiple of 8; the outputs a kernel does not write may be
+// q, k, v, dout (the output gradient), o (the forward's output) and dq, dk,
+// dv: (n, s, nh, 64) with the (batch, seq, head) strides in elements given
+// in that order, 24 values (the last stride is 1; for bf16 every base
+// pointer is 16-byte aligned and every stride a positive multiple of 8, as
+// TMA needs; the outputs a kernel does not write, and o for K4, may be
 // null); ids (n, s) int32 contiguous; m, l, di float32 (n, nh, s)
-// contiguous. dtype: 0 = float32, 1 = bfloat16. Each returns the
-// cudaError_t of its launch.
-#define FLASH_BWD_ARGS                                                                           \
-  const void *q, const void *k, const void *v, const void *dout, const int *ids, const float *m, \
-      const float *l, const float *di, void *dq, void *dk, void *dv, int n, int s, int nh,       \
+// contiguous: K5 writes di, K4 reads it, so K5 runs first. dtype: 0 =
+// float32, 1 = bfloat16. Each returns the cudaError_t of its launch.
+#define FLASH_BWD_ARGS                                                                                     \
+  const void *q, const void *k, const void *v, const void *dout, const void *o, const int *ids,           \
+      const float *m, const float *l, float *di, void *dq, void *dk, void *dv, int n, int s, int nh,      \
       const long long *strides, float sm_scale, int dtype, void *stream
+
+// K5: dq and di
+extern "C" int flash_attention_backward_dq(FLASH_BWD_ARGS) {
+  if (n == 0 || s == 0 || nh == 0) return 0;
+  const Params p = make_params(q, k, v, dout, o, ids, m, l, di, dq, dk, dv, s, nh, strides, sm_scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_dq<DQ_SHAPE>(p, n, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  flash_bwd_dq_f32<<<dim3((s + FB - 1) / FB, n * nh), FB, 0, st>>>(p);
+  return (int)cudaGetLastError();
+}
 
 // K4: dk and dv
 extern "C" int flash_attention_backward_dkv(FLASH_BWD_ARGS) {
   if (n == 0 || s == 0 || nh == 0) return 0;
-  const Params p = make_params(q, k, v, dout, ids, m, l, di, dq, dk, dv, s, nh, strides, sm_scale);
+  const Params p = make_params(q, k, v, dout, o, ids, m, l, di, dq, dk, dv, s, nh, strides, sm_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((s + BT - 1) / BT, n * nh);
-  if (dtype == 1) {
-    flash_bwd_dkv_bf16<<<grid, 128, 0, st>>>(p);
-  } else if (dtype == 0) {
-    flash_bwd_dkv_f32<<<grid, BT, 0, st>>>(p);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// K5: dq
-extern "C" int flash_attention_backward_dq(FLASH_BWD_ARGS) {
-  if (n == 0 || s == 0 || nh == 0) return 0;
-  const Params p = make_params(q, k, v, dout, ids, m, l, di, dq, dk, dv, s, nh, strides, sm_scale);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((s + BT - 1) / BT, n * nh);
-  if (dtype == 1) {
-    flash_bwd_dq_bf16<<<grid, 128, 0, st>>>(p);
-  } else if (dtype == 0) {
-    flash_bwd_dq_f32<<<grid, BT, 0, st>>>(p);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 1) return launch_dkv<DKV_SHAPE>(p, n, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  flash_bwd_dkv_f32<<<dim3((s + FB - 1) / FB, n * nh), FB, 0, st>>>(p);
   return (int)cudaGetLastError();
 }

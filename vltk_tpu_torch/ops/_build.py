@@ -108,6 +108,43 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def _kernel_name(mangled: str) -> str:
+    """The function's own name in an Itanium-mangled symbol: the last
+    length-prefixed segment of a nested name (``_ZN...``) before its
+    template arguments, the first of a plain one (``_Z``; the segments
+    after it name parameter types); an unmangled name as it is."""
+    if not mangled.startswith("_Z"):
+        return mangled
+    nested = mangled.startswith("_ZN")
+    i, name = (3 if nested else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        size = int(mangled[i:j])
+        name, i = mangled[j:j + size], j + size
+        if not nested:
+            break
+    return name
+
+
+def ptxas_lines(out: str) -> List[str]:
+    """The ``-Xptxas -v`` lines of a build's output that say what a kernel
+    costs (registers, shared memory, stack and spills) or where ptxas gave
+    up performance, each prefixed with its kernel's name."""
+    lines, kernel = [], None
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            kernel = _kernel_name(line.split("'")[1] if "'" in line else line.split()[-1])
+            continue
+        text = line.replace("ptxas info    :", "").strip()
+        if "Performance Loss" in line:
+            lines.append(text)
+        elif kernel and ("registers" in line or "spill" in line):
+            lines.append(f"{kernel}: {text}")
+    return lines
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:

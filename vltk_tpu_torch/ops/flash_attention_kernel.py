@@ -3,10 +3,10 @@ plain versions (``ops/flash_attention.py``) for tensors on the CPU.
 
 Counterpart of ``vltk_tpu/models/lxmert.py:_flash_self_attention``, which
 calls the Pallas TPU kernel and, under ``jax.grad``, its custom VJP. On the
-card the forward is K3 (``csrc/flash_attention.cu``) and the backward is K4
-(dk, dv) then K5 (dq) (``csrc/flash_attention_bwd.cu``), joined by
-``FlashAttentionFunction``; ``di = sum(o * do)`` between them is a plain
-PyTorch reduction, as JAX computes it outside Pallas.
+card the forward is K3 (``csrc/flash_attention.cu``) and the backward is K5
+(dq, and ``di = sum(o * do)``, which JAX computes outside Pallas) then K4
+(dk, dv, reading K5's di) (``csrc/flash_attention_bwd.cu``), joined by
+``FlashAttentionFunction``.
 
 Launch counters (CPU calls do not count): ``flash_attention_auto.launches``
 for K3, ``flash_attention_dkv_cuda.launches`` for K4,
@@ -40,10 +40,15 @@ def _lib() -> ctypes.CDLL:
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_bwd")
+    return bind_bwd(_build.load("flash_attention_bwd"))
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of ``csrc/flash_attention_bwd.cu``
+    (``tools/sweep_flash_backward.py`` binds builds of other block shapes)."""
     for fn in (lib.flash_attention_backward_dkv, lib.flash_attention_backward_dq):
         fn.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+            [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -51,12 +56,13 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernel can read it through strides (unit last
-    stride; for bf16 16-byte aligned rows for cp.async), else a contiguous
+    """``x`` itself when the kernels can read it through strides (unit last
+    stride; for bf16 a 16-byte aligned base and strides that are positive
+    multiples of 8 elements, for cp.async and TMA), else a contiguous
     copy."""
     ok = x.stride(-1) == 1
     if x.dtype == torch.bfloat16:
-        ok = ok and x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:-1])
+        ok = ok and x.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0 for st in x.stride()[:-1])
     return x if ok else x.contiguous()
 
 
@@ -139,56 +145,59 @@ def flash_attention_fwd_residuals_cuda(
     return _forward(q, k, v, _segment_ids(mask, q), residuals=True)
 
 
-def _backward_launch(fn_name: str, q, k, v, do, ids, stats: Stats, di, dq, dk, dv) -> None:
-    """One of the two backward entry points; the outputs it does not write
+def _backward_launch(fn_name: str, q, k, v, do, o, ids, stats: Stats, di, dq, dk, dv) -> None:
+    """One of the two backward entry points; the tensors it does not take
     are None."""
     n, s, nh, _ = q.shape
     dev = q.device
     m, l = stats  # noqa: E741
-    views = (q, k, v, do, dq, dk, dv)
-    strides = (ctypes.c_longlong * 21)(
+    views = (q, k, v, do, o, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(
         *[st for t in views for st in (t.stride()[:3] if t is not None else (0, 0, 0))]
     )
     with torch.cuda.device(dev):
         err = getattr(_bwd_lib(), fn_name)(
-            *[None if t is None else t.data_ptr() for t in views[:4]],
+            *[None if t is None else t.data_ptr() for t in views[:5]],
             ids.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr(),
-            *[None if t is None else t.data_ptr() for t in views[4:]],
+            *[None if t is None else t.data_ptr() for t in views[5:]],
             n, s, nh, strides, 1.0 / float(HEAD_DIM) ** 0.5, _DTYPE_CODE[q.dtype], _stream(dev),
         )
     _build.check(err, f"{fn_name} launch")
 
 
+def flash_attention_dq_cuda(q, k, v, do, ids, stats: Stats, o) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5: (dq, di) from q, k, v, do and the forward's output o (n, s,
+    nh, 64, kernel views), ids (n, s) int32 and stats (m, l) float32 (n, nh,
+    s) contiguous. di = sum(o * do) float32 (n, nh, s) is what K4 reads."""
+    n, s, nh, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    di = torch.empty((n, nh, s), dtype=torch.float32, device=q.device)
+    _backward_launch("flash_attention_backward_dq", q, k, v, do, o, ids, stats, di, dq, None, None)
+    flash_attention_dq_cuda.launches += 1
+    return dq, di
+
+
 def flash_attention_dkv_cuda(q, k, v, do, ids, stats: Stats, di) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4: (dk, dv) from q, k, v, do (n, s, nh, 64, kernel views),
-    ids (n, s) int32, stats (m, l) and di float32 (n, nh, s) contiguous."""
+    """Launch K4: (dk, dv) from the inputs K5 takes but o, and K5's di."""
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _backward_launch("flash_attention_backward_dkv", q, k, v, do, ids, stats, di, None, dk, dv)
+    _backward_launch("flash_attention_backward_dkv", q, k, v, do, None, ids, stats, di, None, dk, dv)
     flash_attention_dkv_cuda.launches += 1
     return dk, dv
 
 
-def flash_attention_dq_cuda(q, k, v, do, ids, stats: Stats, di) -> torch.Tensor:
-    """Launch K5: dq, from the inputs K4 takes."""
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _backward_launch("flash_attention_backward_dq", q, k, v, do, ids, stats, di, dq, None, None)
-    flash_attention_dq_cuda.launches += 1
-    return dq
-
-
 def _backward(q, k, v, ids, o, stats: Stats, do):
-    """di (a plain reduction), then K4, then K5."""
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(
-            f"flash attention backward: output gradient {tuple(do.shape)} {do.dtype} on "
-            f"{do.device}; want {tuple(q.shape)} {q.dtype} on {q.device}"
-        )
+    """K5 (dq and di), then K4 (dk, dv)."""
+    for name, t in (("output gradient", do), ("output", o)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"flash attention backward: {name} {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}; want {tuple(q.shape)} {q.dtype} on {q.device}"
+            )
     m, l = (t.contiguous() for t in stats)  # noqa: E741
-    q, k, v, do = (_kernel_view(t) for t in (q, k, v, do))
-    di = (o.float() * do.float()).sum(-1).permute(0, 2, 1).contiguous()
+    q, k, v, do, o = (_kernel_view(t) for t in (q, k, v, do, o))
+    dq, di = flash_attention_dq_cuda(q, k, v, do, ids, (m, l), o)
     dk, dv = flash_attention_dkv_cuda(q, k, v, do, ids, (m, l), di)
-    dq = flash_attention_dq_cuda(q, k, v, do, ids, (m, l), di)
     return dq, dk, dv
 
 

@@ -75,9 +75,19 @@ def roi_pool_auto(
     spatial_scale: float = 1.0 / 16,
 ) -> torch.Tensor:
     """Batched RoIPool: (B, H, W, C), (B, P, 4) -> (B, P, S, S, C). The
-    kernel on CUDA tensors (or an error), the plain version on CPU ones."""
+    kernel on CUDA tensors (or an error), the plain version on CPU ones.
+
+    The kernel has no backward yet (ROADMAP A.12), and its output carries
+    no ``grad_fn``: on the card, features that require a gradient while
+    grad is enabled raise rather than lose it silently."""
     if features.device.type == "cpu":
         return roi_pool(features, boxes, output_size, spatial_scale)
+    if torch.is_grad_enabled() and features.requires_grad:
+        raise RuntimeError(
+            "roi_pool on the card: the CUDA kernel has no backward yet (ROADMAP A.12), so it would cut "
+            "the gradient to the features; call it under torch.no_grad() or torch.inference_mode(), "
+            "or with features that do not require grad"
+        )
     return roi_pool_cuda(features, boxes, output_size, spatial_scale)
 
 
