@@ -25,11 +25,18 @@ package):
 5. holds the greedy-NMS kernel K2 against its plain version, exact keep
    indices, at the RPN shape (B, 6000) -> 300 and the detection shape
    (B*3, 300) -> 36 for B=8 and B=16, and times both;
-6. holds the flash-attention kernel K3 against its plain version at every
-   position: bf16 at the serving shape (32, 1024, 12, 64) with rows padded
-   to other lengths, bf16 at s=197, f32 at a small shape; times the kernel,
-   the plain version and ``scaled_dot_product_attention`` with the same
-   boolean mask (the yardstick; the port never calls it);
+6. prints K3's registers and spills, and holds the flash-attention kernel
+   K3 against its plain version at every position, with its row
+   statistics (1e-5) and two calls bitwise equal: bf16 at the serving
+   shape (32, 1024, 12, 64) with rows padded to other lengths, bf16 at
+   s=197, f32 at a small shape, and masks whose whole key tiles K3 skips
+   (alternating blocks of 64 and of 128 real and pad positions,
+   real-pad-real, a row of one real token) at s = 256, 1000 and 1024 in
+   bf16 and f32; times the kernel, the plain version and
+   ``scaled_dot_product_attention`` with the same boolean mask (the
+   yardstick; the port never calls it) and without it on all-real rows,
+   then the kernel on the padded serving rows and, with its statistics, at
+   the training inputs;
 7. runs the 36-box extraction (``adapters.frcnn.setup(preset="parity_300")``:
    R-101-C4, 1600 classes, 400 attributes, bf16) at full width on the
    832x1344 canvas with seeded random weights, tamed so activations stay
@@ -111,20 +118,42 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+# clock cycles the card sleeps before a timed span (~20 ms at the H100's
+# 1.98 GHz), time for the host to queue every call of the span
+QUEUE_AHEAD_CYCLES = 40_000_000
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2, ahead: bool = True) -> float:
     """Mean device time of ``fn`` in ms, by CUDA events over ``reps``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls. With ``ahead`` the card
+    sleeps first, so that the host has queued the calls before the first
+    event fires: the span holds the card's time alone, not the host's time
+    per call (a kernel shorter than its wrapper's host work reads the
+    latter without it). A ``fn`` that waits for the card is timed with its
+    host gaps either way."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def spread_ms(fn, reps: int = 20, runs: int = 5):
+    """``runs`` readings of ``cuda_ms(fn, reps)``, sorted: the spread of
+    repeated timings; the median stands for the kernel."""
+    return sorted(cuda_ms(fn, reps) for _ in range(runs))
+
+
+def show(times) -> str:
+    return f"{times[len(times) // 2]:.4f} ms (runs {', '.join(f'{x:.4f}' for x in times)})"
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
@@ -490,19 +519,43 @@ def flash_work(ids: torch.Tensor, nh: int, dh: int, itemsize: int):
     return 4 * n * s * nh * dh * itemsize + ids.numel() * 4, 4 * dh * nh * pairs
 
 
-def phase_flash(dev) -> dict:
-    from vltk_tpu_torch.ops.flash_attention import flash_self_attention
-    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_cuda
+def alternating_rows(n: int, s: int, width: int = 64):
+    """Masks of blocks of one id: alternating blocks of ``width`` real and
+    ``width`` pad positions (starting real, then starting pad), and a row
+    real on [0, 192) and [s - 320, s) (on every position where s <= 512)."""
+    rows = [[(j, j + width) for j in range(0, s, 2 * width)], [(j, j + width) for j in range(width, s, 2 * width)],
+            [(0, 192), (s - 320, s)]]
+    return (rows * n)[:n]
 
+
+def phase_flash(dev, ptxas) -> dict:
+    from vltk_tpu_torch.ops.flash_attention import flash_self_attention, flash_self_attention_fwd_residuals
+    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_cuda, flash_attention_fwd_residuals_cuda
+
+    print("flash_attention ptxas: " + ("; ".join(ptxas) if ptxas else "cached build"))
     gen = torch.Generator().manual_seed(4)
     n, s, nh, dh = FLASH_SHAPE
     main_lengths = [1024, 700, 129, 1] + torch.randint(1, s + 1, (n - 4,), generator=gen).tolist()
-    cases = (
+    # masks of whole 64-row tiles of one id. The bf16 kernel skips a key
+    # tile that no query of its block (128 rows) shares an id with: with
+    # alternating 128-row blocks, real-pad-real (at s = 1000 and 1024) and
+    # a row real on [0, 128) only (block 0 reads its own two tiles and no
+    # other) or pad there only; alternating 64-row blocks and one real token put both ids in
+    # every block, so nothing is skipped there, but every tile is masked
+    # for half its rows, or for all but one row
+    skips = [("alternating 64-row blocks", alternating_rows), ("alternating 128-row blocks",
+             lambda n, s: alternating_rows(n, s, 128)), ("one real token", lambda n, s: [1, [(s // 2, s // 2 + 1)], s, 7]),
+             ("real on [0, 128) only, or pad there only", lambda n, s: [128, [(128, s)], 1, s])]
+    cases = [
         ("serving shape, padded rows", FLASH_SHAPE, main_lengths, torch.bfloat16, True),
         ("s=197", (4, 197, nh, dh), [197, 150, 1, 197], torch.bfloat16, True),
         ("s=197, mask=None", (4, 197, nh, dh), [197] * 4, torch.bfloat16, False),
         ("f32", (2, 256, 2, dh), [256, 100], torch.float32, True),
-    )
+    ] + [
+        (f"{name}, s={length}", (4, length, nh, dh) if dtype == torch.bfloat16 else (4, length, 2, dh),
+         rows(4, length), dtype, True)
+        for name, rows in skips for length in (256, 1000, 1024) for dtype in (torch.bfloat16, torch.float32)
+    ]
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 plain version in full f32
     worst = 0.0
@@ -511,37 +564,70 @@ def phase_flash(dev) -> dict:
             q, k, v, mask = flash_case(gen, shape, lengths, dtype, dev)
             m = mask if use_mask else None
             got = flash_attention_cuda(q, k, v, m, dh)
+            again = flash_attention_cuda(q, k, v, m, dh)
+            got_r, stats_k = flash_attention_fwd_residuals_cuda(q, k, v, m, dh)
             torch.cuda.synchronize()
-            want = flash_self_attention(q, k, v, m, dh)
+            want, stats = flash_self_attention_fwd_residuals(q, k, v, m, dh)
             err = float((got.float() - want.float()).abs().max())
+            stat_err = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(stats_k, stats))
+            same = bitwise_equal(got, again) and bitwise_equal(got, got_r)
             ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dtype]
-            print(f"flash_attention {name} {tuple(shape)} {dtype}: max_abs_err={err} (tol {FLASH_TOL[dtype]})")
+            print(f"flash_attention {name} {tuple(shape)} {dtype}: max_abs_err={err} (tol {FLASH_TOL[dtype]}); "
+                  f"stats rel err {stat_err:.2e} (1e-5); bitwise repeatable {same}")
             check(ok, f"flash attention kernel != plain ({name})")
+            check(stat_err <= 1e-5, f"K3 row statistics != plain ({name}): {stat_err}")
+            check(same, f"flash attention kernel not deterministic ({name})")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
 
-    # timed at bench.py's inputs: every row real
+    # timed at bench.py's inputs: every row real. Each time is the median
+    # of five readings of 20 calls queued ahead (``cuda_ms``)
     q, k, v, mask = flash_case(gen, FLASH_SHAPE, [s] * n, torch.bfloat16, dev)
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, mask, dh), reps=20)
+    runs = spread_ms(lambda: flash_attention_cuda(q, k, v, mask, dh))
+    ms = runs[2]
     plain_ms = cuda_ms(lambda: flash_self_attention(q, k, v, mask, dh), reps=3, warmup=1)
     ids = mask.to(torch.int32)
     same = ids[:, None, :, None] == ids[:, None, None, :]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=same), reps=20)
+    sdpa_runs = spread_ms(lambda: sdpa(qt, kt, vt, attn_mask=same))
+    library_ms = sdpa_runs[2]
     # the same function on these all-real rows, without the mask: PyTorch's
     # own flash backend, what a tuned kernel reaches on this card
-    unmasked_ms = cuda_ms(lambda: sdpa(qt, kt, vt), reps=20)
+    unmasked_runs = spread_ms(lambda: sdpa(qt, kt, vt))
+    unmasked_ms = unmasked_runs[2]
     nbytes, nops = flash_work(ids, nh, dh, 2)
     bound_ms, bound_by = bound(nbytes, nops, BF16_OPS_PER_S)
     print(
-        f"flash_attention timing {FLASH_SHAPE} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA with the boolean mask {library_ms:.4f} ms (without it {unmasked_ms:.4f} ms), "
+        f"flash_attention timing {FLASH_SHAPE} bf16: kernel {show(runs)}, plain {plain_ms:.4f} ms, "
+        f"SDPA with the boolean mask {show(sdpa_runs)}, without it {show(unmasked_runs)}, "
         f"bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nops:.3e} operations, {nbytes:.3e} bytes; {n * nh * s * s:.2e} exponentials)"
+        f"{nops:.3e} operations, {nbytes:.3e} bytes; {n * nh * s * s:.2e} exponentials), "
+        f"{ms / bound_ms:.2f}x the bound, {library_ms / ms:.2f}x faster than SDPA with the mask"
     )
+    # where skipping applies: the serving smoke's padded rows
+    q, k, v, mask = flash_case(gen, FLASH_SHAPE, main_lengths, torch.bfloat16, dev)
+    padded_runs = spread_ms(lambda: flash_attention_cuda(q, k, v, mask, dh))
+    p_bytes, p_ops = flash_work(mask.to(torch.int32), nh, dh, 2)
+    p_bound, _ = bound(p_bytes, p_ops, BF16_OPS_PER_S)
+    print(f"flash_attention timing {FLASH_SHAPE} bf16, the padded rows of the correctness case: kernel "
+          f"{show(padded_runs)}, bound {p_bound:.4f} ms ({p_ops:.3e} operations)")
+    # with the row statistics, at the training inputs: every row 819 real
+    tn, ts = TRAIN_FLASH_SHAPE[0], TRAIN_FLASH_SHAPE[1]
+    q, k, v, mask = flash_case(gen, TRAIN_FLASH_SHAPE, [int(ts * 0.8)] * tn, torch.bfloat16, dev)
+    stats_runs = spread_ms(lambda: flash_attention_fwd_residuals_cuda(q, k, v, mask, dh))
+    # the same calls with the host's time per call in the span, as the
+    # training step meets them (the kernel is shorter than its wrapper)
+    host_runs = sorted(
+        cuda_ms(lambda: flash_attention_fwd_residuals_cuda(q, k, v, mask, dh), reps=20, ahead=False) for _ in range(5)
+    )
+    t_bytes, t_ops = flash_work(mask.to(torch.int32), nh, dh, 2)
+    t_bound, _ = bound(t_bytes + 2 * tn * nh * ts * 4, t_ops, BF16_OPS_PER_S)
+    print(f"flash_attention timing {TRAIN_FLASH_SHAPE} bf16 with statistics, 819 real of 1024: kernel "
+          f"{show(stats_runs)}, bound {t_bound:.4f} ms ({t_ops:.3e} operations); back to back without the "
+          f"queue ahead, host gaps included: {show(host_runs)}")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -553,6 +639,11 @@ def phase_flash(dev) -> dict:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        # SDPA on the same all-real rows without the mask: PyTorch's own
+        # flash backend, beside the masked call above
+        "library_unmasked_ms": unmasked_ms,
+        "padded_ms": padded_runs[2],
+        "train_stats_ms": stats_runs[2],
     }
 
 
@@ -582,15 +673,6 @@ def backward_work(ids: torch.Tensor, nh: int, dh: int, itemsize: int, products: 
     pairs = sum(float((row.unique(return_counts=True)[1].double() ** 2).sum()) for row in ids)
     nbytes = (inputs + outputs) * n * s * nh * dh * itemsize + ids.numel() * 4 + 3 * n * nh * s * 4
     return nbytes, 2 * products * dh * nh * pairs
-
-
-def alternating_rows(n: int, s: int):
-    """Masks whose whole 64-row tiles share no id: alternating blocks of 64
-    real and 64 pad positions (starting real, then starting pad), and a
-    real block, a pad block and a real block again."""
-    rows = [[(j, j + 64) for j in range(0, s, 128)], [(j, j + 64) for j in range(64, s, 128)],
-            [(0, 192), (s - 320, s)]]
-    return (rows * n)[:n]
 
 
 def phase_flash_backward(dev):
@@ -1186,7 +1268,7 @@ def main() -> int:
     ablation = phase_roi_ablation(dev)
     entries.append(phase_nms(dev, batch=8))
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
-    entries.append(phase_flash(dev))
+    entries.append(phase_flash(dev, _build.ptxas_lines(outputs.get("flash_attention", ""))))
     entries += phase_flash_backward(dev)
 
     bundle, info = setup(

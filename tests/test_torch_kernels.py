@@ -9,7 +9,8 @@ They sweep shapes that ``chip_smoke.py`` (which checks the main paths'
 shapes) does not: channel counts that are not a multiple of the block,
 candidate counts around the 64-bit mask words, budgets larger than the
 candidate count, rows with no candidate; sequence lengths around the
-64-key tile and the 128 pad block, padded rows down to length 1; for the
+64-key tile and the 128 pad block, padded rows down to length 1, masks
+whose whole key tiles K3 skips, its statistics and its determinism; for the
 backward kernels K5 and K4 also masks whose whole 64-row tiles share no id
 (the tiles the kernels skip), K5's fused di, strided output gradients,
 determinism, and the gradients that a training step on the card hands the
@@ -163,6 +164,92 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, s, padded):
         assert got.shape == want.shape == q.shape and got.dtype == dtype
         err = (got.float() - want.float()).abs().max().item()
         assert err <= FLASH_TOL[dtype], err
+
+
+def _fwd_mask(kind: str, n: int, s: int) -> torch.Tensor:
+    """Masks of 64-row blocks of one id. The bf16 kernel skips a key tile
+    that no query of its 128-row block shares an id with, which happens in
+    "alternating-128" (blocks of real and pad, starting real in row 0, pad
+    in row 1, real again in row 2), "real-pad-real" (row 0 and 1 real, pad
+    on [64, 192), real after; row 2 pad on [0, 192)) and "real-128" (row 0
+    real on [0, 128) only, so its block 0 reads its own two tiles and no
+    other; row 1 pad there only). "alternating-64" and "one-real" (a row of
+    one real token, one real token in the middle of a pad row, an all-real
+    row) put both ids in every block: nothing is skipped, every tile is
+    masked for half its rows or for all but one."""
+    mask = torch.ones(n, s)
+    if kind.startswith("alternating"):
+        width = int(kind.split("-")[1])
+        block = (torch.arange(s) // width) % 2
+        mask[0], mask[1], mask[2] = 1 - block, block, 1 - block
+    elif kind == "real-pad-real":
+        mask[:, 64:192] = 0
+        mask[2, 0:128] = 0
+    elif kind == "real-128":
+        mask[0, 128:] = 0
+        mask[1, :128] = 0
+    elif kind == "one-real":
+        mask[0, 1:] = 0
+        mask[1] = 0
+        mask[1, s // 2] = 1
+    return mask
+
+
+def _stats_err(got, want) -> float:
+    return max(((a - b).abs() / b.abs().clamp(min=1.0)).max().item() for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [256, 1000, 1024])
+@pytest.mark.parametrize("kind", ["alternating-64", "alternating-128", "real-pad-real", "real-128", "one-real"])
+def test_flash_attention_skips_tiles_exactly(dev, dtype, s, kind):
+    """K3 on masks of whole tiles of one id, on some of which it skips
+    tiles (``_fwd_mask``): the output matches the plain version at every
+    position, and the row statistics within 1e-5 (the float32 kernel, which
+    skips nothing, too)."""
+    gen = torch.Generator().manual_seed(s + len(kind))
+    q, k, v = (torch.randn(3, s, 2, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    mask = _fwd_mask(kind, 3, s).to(dev)
+    got = flash_attention_cuda(q, k, v, mask, 64)
+    o_k, stats_k = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+    torch.cuda.synchronize()
+    want, stats = flash_self_attention_fwd_residuals(q, k, v, mask, 64)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype]
+    assert torch.equal(_bits(got), _bits(o_k))
+    assert _stats_err(stats_k, stats) <= 1e-5, _stats_err(stats_k, stats)
+
+
+@pytest.mark.parametrize("s", [1, 197])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_short_and_ragged(dev, s, dtype):
+    """s = 1 (one real key and 127 zero keys of the pad) and s = 197 (a
+    ragged last tile): output and statistics, with the mask and without."""
+    gen = torch.Generator().manual_seed(s)
+    q, k, v = (torch.randn(3, s, 2, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    mask = torch.ones(3, s)
+    mask[1, s // 2:] = 0
+    mask[2] = 0
+    for m in (mask.to(dev), None):
+        o_k, stats_k = flash_attention_fwd_residuals_cuda(q, k, v, m, 64)
+        torch.cuda.synchronize()
+        want, stats = flash_self_attention_fwd_residuals(q, k, v, m, 64)
+        assert (o_k.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype]
+        assert _stats_err(stats_k, stats) <= 1e-5, _stats_err(stats_k, stats)
+
+
+def test_flash_attention_is_bitwise_repeatable(dev):
+    """No atomics: two calls on the same inputs give the same bits, with
+    and without the statistics."""
+    gen = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(4, 1024, 3, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    mask = _fwd_mask("real-pad-real", 4, 1024).to(dev)
+    a = flash_attention_cuda(q, k, v, mask, 64)
+    b = flash_attention_cuda(q, k, v, mask, 64)
+    (c, (m1, l1)), (d, (m2, l2)) = (flash_attention_fwd_residuals_cuda(q, k, v, mask, 64) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(c), _bits(d)) and torch.equal(_bits(a), _bits(c))
+    assert torch.equal(_bits(m1), _bits(m2)) and torch.equal(_bits(l1), _bits(l2))
 
 
 def test_flash_attention_reads_strided_views(dev):

@@ -101,17 +101,41 @@ def hidden(rng, n=2, s=S, h=128):
 class TestFlashPlainVersion:
     @staticmethod
     def _qkv(rng, s, pad):
+        """q, k, v (2, s, 2, 64) and a mask: row 1 with a pad tail of
+        ``pad`` positions; or, whole 64-row blocks of one id, "alternating"
+        (64 real, 64 pad, ... in row 0, the reverse in row 1) or
+        "real-pad-real" (positions 64-191 pad in both rows); or, for a list
+        of (start, stop) spans, row 1 real on those spans only."""
         q, k, v = (rng.normal(size=(2, s, 2, 64)).astype(np.float32) for _ in range(3))
         mask = np.ones((2, s), np.float32)
-        if pad:
+        if pad == "alternating":
+            block = (np.arange(s) // 64) % 2
+            mask[0], mask[1] = 1 - block, block
+        elif pad == "real-pad-real":
+            mask[:, 64:192] = 0.0
+        elif isinstance(pad, list):
+            mask[1] = 0.0
+            for start, stop in pad:
+                mask[1, start:stop] = 1.0
+        elif pad:
             mask[1, s - pad:] = 0.0
         return q, k, v, mask
 
-    @pytest.mark.parametrize("s,pad,use_mask", [(128, 40, True), (197, 13, True), (197, 0, False)])
+    @pytest.mark.parametrize("s,pad,use_mask", [
+        (128, 40, True), (197, 13, True), (197, 0, False),
+        (256, "alternating", True), (256, "real-pad-real", True), (384, [(0, 96), (160, 384)], True),
+        (256, [(0, 128)], True),
+    ])
     def test_matches_pallas_interpret_at_every_position(self, rng, s, pad, use_mask):
         """s = 128 with a padded tail, s = 197 (padded to 256 inside), and
         ``mask=None`` at s = 197, where an all-ones mask is synthesised
-        before padding so real queries never see the zero tail."""
+        before padding so real queries never see the zero tail; then masks
+        of 64-row blocks of one id (alternating, real-pad-real), spans off
+        the 128 boundaries at s = 384, and a row real on [0, 128) only. The
+        card's kernel skips a key tile that no query of its 128-row block
+        shares an id with: in the last case, block 0 of row 1 reads its own
+        two tiles and block 1 the other two; in the others every key tile
+        meets every block."""
         import jax.experimental.pallas.tpu as pltpu
 
         q, k, v, mask = self._qkv(rng, s, pad)

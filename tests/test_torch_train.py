@@ -217,6 +217,22 @@ class TestSweepTool:
         with pytest.raises(SystemExit, match="no CUDA device"):
             sweep.main(["--shapes", "223:133"])
 
+    def test_parses_forward_shapes_and_needs_the_card(self, monkeypatch):
+        """``--forward`` reads K3's four-digit block shapes (warpgroups,
+        blocks an SM, stages, key tile in 64-row units), refuses one the
+        kernel cannot take, and exits with a message without a CUDA
+        device."""
+        from vltk_tpu_torch.tools import sweep_flash_backward as sweep
+
+        assert sweep.parse_fwd_shapes("2231,1232") == [2231, 1232]
+        assert 2231 in sweep.parse_fwd_shapes(sweep.DEFAULT_FWD_SHAPES)
+        for bad in ("3231", "2201", "2213", "223", "2211"):
+            with pytest.raises(ValueError):
+                sweep.parse_fwd_shapes(bad)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            sweep.main(["--forward", "--shapes", "2231", "--variant", "flash_attention_copy.cu"])
+
     def test_ptxas_lines_name_each_kernel(self):
         """``_build.ptxas_lines`` keeps the register, spill and performance
         lines of ``-Xptxas -v`` and names each kernel: a nested (anonymous

@@ -138,19 +138,6 @@ __device__ __forceinline__ T* base(const Params& p, const void* ptr, int which) 
 
 // ------------------------------------------------------ bf16 shared helpers
 
-// 2^x on the MUFU unit, subnormal results flushed to zero (a p below
-// 2^-126 adds nothing at bf16 precision); one instruction where exp2f spends
-// four on the subnormal range
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ int2 empty_interval() { return make_int2(INT_MAX, INT_MIN); }
-
-__device__ __forceinline__ bool meets(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
-
 // [min, max] of the ids of each 64-row tile's rows below s (the empty
 // interval for none), one warp per tile
 __device__ __forceinline__ void tile_intervals(const int* ids, int s, int nt, int2* iv) {
@@ -214,16 +201,6 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long ss, con
       *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r_hi * ss + col) =
           __floats2bfloat162_rn(c[4 * j + 2], c[4 * j + 3]);
   }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i] = 0.f;
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
-  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
 }
 
 // the resident rows of a block, 64 per warpgroup from row0, into `dst`; a
@@ -769,48 +746,12 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   return p;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the CUDA driver API's cuTensorMapEncodeTiled, reached through the
-// runtime so that the library needs no -lcuda; null if it is missing
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
-                                                                       : nullptr;
-  }();
-  return fn;
-}
-
-// the TMA map of a (n, s, nh, 64) bf16 view with (batch, seq, head) strides
-// `st` in elements: the 4-D tensor (64, nh, s, n), a box of 64 rows of one
-// head, 128-byte swizzle, zeros past s
-bool make_map(CUtensorMap* map, const void* ptr, int n, int s, int nh, const long long* st) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || ptr == nullptr) return false;
-  const cuuint64_t dims[4] = {D, (cuuint64_t)nh, (cuuint64_t)s, (cuuint64_t)n};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {D, 1, BT, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // the maps of q, k, v, do and, for K5, o
 bool make_maps(Maps* maps, const Params& p, int n, bool with_o) {
-  return make_map(&maps->q, p.q, n, p.s, p.nh, p.st[Q]) && make_map(&maps->k, p.k, n, p.s, p.nh, p.st[K]) &&
-         make_map(&maps->v, p.v, n, p.s, p.nh, p.st[V]) && make_map(&maps->dout, p.dout, n, p.s, p.nh, p.st[DO]) &&
-         (!with_o || make_map(&maps->o, p.o, n, p.s, p.nh, p.st[O]));
+  return make_map(&maps->q, p.q, n, p.s, p.nh, p.st[Q], BT) && make_map(&maps->k, p.k, n, p.s, p.nh, p.st[K], BT) &&
+         make_map(&maps->v, p.v, n, p.s, p.nh, p.st[V], BT) &&
+         make_map(&maps->dout, p.dout, n, p.s, p.nh, p.st[DO], BT) &&
+         (!with_o || make_map(&maps->o, p.o, n, p.s, p.nh, p.st[O], BT));
 }
 
 constexpr size_t MAX_SMEM = 232448;  // what a block of this card can have
@@ -818,9 +759,7 @@ constexpr size_t MAX_SMEM = 232448;  // what a block of this card can have
 template <int WGS, typename Kernel>
 int launch_bf16(Kernel kernel, size_t smem, bool with_o, const Params& p, int n, cudaStream_t st) {
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  // a runtime call first: it makes the device's context current in this
-  // thread, which cuTensorMapEncodeTiled needs (autograd runs the
-  // backward in a thread of its own that may not have made it current yet)
+  // a runtime call first, as make_map needs
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   Maps maps;

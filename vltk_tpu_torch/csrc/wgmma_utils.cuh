@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// TMA tile loads into 128-byte-swizzled shared memory, completed on
-// mbarriers, and the warpgroup product wgmma.mma_async m64n64k16 bf16 -> f32
-// with A from shared memory or from registers, as inline PTX.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): TMA tile loads into
+// 128-byte-swizzled shared memory, completed on mbarriers, and TMA tile
+// stores back; the warpgroup product wgmma.mma_async m64n64k16 bf16 -> f32
+// with A from shared memory or from registers, as inline PTX; and, on the
+// host, the encoder of the TMA maps of a (n, s, nh, 64) bf16 view.
 //
 // Tile layout: R rows of 64 bf16 (128 bytes a row), as TMA writes a box
 // with CU_TENSOR_MAP_SWIZZLE_128B: row r at byte r * 128, its 16-byte chunk
@@ -13,11 +15,48 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "mma_utils.cuh"
-
 namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------------- helpers
+
+// 2^x on the MUFU unit, subnormal results flushed to zero (a p below
+// 2^-126 adds nothing at bf16 precision); one instruction where exp2f spends
+// four on the subnormal range
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// id intervals [x, y] of the tile skipping; the empty one meets none
+__device__ __forceinline__ int2 empty_interval() { return make_int2(INT_MAX, INT_MIN); }
+
+__device__ __forceinline__ bool meets(int2 a, int2 b) { return a.x <= b.y && b.x <= a.y; }
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i] = 0.f;
+}
+
+// the first 1024-byte boundary at or after `raw` (dynamic shared memory
+// has room for it)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
 
 // ----------------------------------------------------------- mbarriers
 
@@ -71,6 +110,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// the box at `src` in shared memory to coordinates (c0, c1, c2, c3) of a
+// 4-D tensor map; elements past the tensor's edge are not written. The
+// writers of `src` run fence_proxy_async() and a barrier first; the issuing
+// thread commits and waits (tma_store_wait) before shared memory may go.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// makes this thread's ordinary writes to shared memory visible to TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// commits the issued stores and waits until their shared memory was read
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
@@ -184,6 +247,49 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N], 
   a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// ---------------------------------------------------------- host: maps
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the CUDA driver API's cuTensorMapEncodeTiled, reached through the
+// runtime so that the library needs no -lcuda; null if it is missing
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(ptr)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// the TMA map of a (n, s, nh, 64) bf16 view with (batch, seq, head) strides
+// `st` in elements: the 4-D tensor (64, nh, s, n), a box of `rows` rows of
+// one head, 128-byte swizzle, zeros read past s (and nothing written
+// there). The caller makes a runtime call first (cudaFuncSetAttribute
+// does): it makes the device's context current in this thread, which the
+// encode needs (autograd runs the backward in a thread of its own that may
+// not have made it current yet).
+inline bool make_map(CUtensorMap* map, const void* ptr, int n, int s, int nh, const long long* st, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || ptr == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)nh, (cuuint64_t)s, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -29,7 +29,13 @@ Stats = Tuple[torch.Tensor, torch.Tensor]
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+    return bind_fwd(_build.load("flash_attention"))
+
+
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of a build of ``csrc/flash_attention.cu``
+    (``tools/sweep_flash_backward.py --forward`` binds builds of other
+    block shapes)."""
     fn = lib.flash_attention_forward
     fn.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 12
@@ -58,8 +64,7 @@ def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _kernel_view(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when the kernels can read it through strides (unit last
     stride; for bf16 a 16-byte aligned base and strides that are positive
-    multiples of 8 elements, for cp.async and TMA), else a contiguous
-    copy."""
+    multiples of 8 elements, for TMA), else a contiguous copy."""
     ok = x.stride(-1) == 1
     if x.dtype == torch.bfloat16:
         ok = ok and x.data_ptr() % 16 == 0 and all(st > 0 and st % 8 == 0 for st in x.stride()[:-1])
