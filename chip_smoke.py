@@ -10,9 +10,13 @@ package):
 2. builds every CUDA kernel of the four main paths from ``csrc/`` (one
    nvcc per source, started together) and prints the build time and each
    kernel's registers and spills (``-Xptxas -v``);
-3. holds the RoIPool kernel K1 against its plain PyTorch version, bitwise,
-   in float32 and bf16, at the extraction shapes of B=8 and B=16, and times
-   both;
+3. prints K1's block shape and its registers and spills, and holds the
+   RoIPool kernel K1 against its plain PyTorch version, bitwise, in float32
+   and bf16, at the extraction shapes of B=8 and B=16, on both of its
+   paths (16-byte vectors on the aligned map, one element a thread on a
+   copy one element into its storage; the wrapper's per-path counts show
+   which ran); times both paths and the plain version at both step shapes
+   (the median of five readings of 20 calls queued ahead, with the spread);
 4. holds the RoIPool ablation kernels K6-K9 (``pool``, ``pool_contig``,
    ``pool_grouped``, ``pool_grouped_v3``) against their plain versions,
    bitwise, every mode, at (2, 52, 84, 1024) float32 and (8, 52, 84, 1024)
@@ -24,7 +28,8 @@ package):
    counts set to 0 and checks that K6-K9 were launched there;
 5. holds the greedy-NMS kernel K2 against its plain version, exact keep
    indices, at the RPN shape (B, 6000) -> 300 and the detection shape
-   (B*3, 300) -> 36 for B=8 and B=16, and times both;
+   (B*3, 300) -> 36 for B=8 and B=16, and times both (each call's median
+   of five readings, with the spread);
 6. prints K3's registers and spills, and holds the flash-attention kernel
    K3 against its plain version at every position, with its row
    statistics (1e-5) and two calls bitwise equal: bf16 at the serving
@@ -41,7 +46,9 @@ package):
    R-101-C4, 1600 classes, 400 attributes, bf16) at full width on the
    832x1344 canvas with seeded random weights, tamed so activations stay
    finite; checks the packed output and that K1 and K2 were launched on
-   that run, and prints images/s at B=8 and B=16;
+   that run, and prints images/s at B=8 and B=16; then times K1 on the
+   features and proposals that the B=8 step handed it (kept by a hook on
+   the RoI heads), checked bitwise there too;
 8. runs a small f32 FRCNN on the card and on the CPU with the same weights
    and compares them key by key (the CPU path is the one the test suite
    holds against the JAX package);
@@ -198,14 +205,46 @@ def roi_pool_ops(boxes: torch.Tensor, c: int) -> float:
     return float(cells.sum()) * c
 
 
-def phase_roi_pool(dev) -> dict:
-    from vltk_tpu_torch.ops.roi_pool import roi_pool
+def roi_pool_bytes_requested(boxes: torch.Tensor, c: int, itemsize: int):
+    """(direct, separable): a model of the bytes K1 requests from the
+    feature map on these boxes, counted on the host, not read from a
+    counter on the card. Direct: every bin's cells; separable (K1's order):
+    every map row of a RoI once times the cells of all its column bins
+    (consecutive bin rows overlap, so a RoI's rows are the one span
+    [hstart of bin 0, hend of the last bin))."""
+    from vltk_tpu_torch.ops.roi_pool import roi_bin_edges
+
+    hs, he, ws, we = roi_bin_edges(boxes, 1.0 / 16, FEAT_HW[0], FEAT_HW[1], 14)
+    rows, cols = (he - hs).clamp(min=0).double(), (we - ws).clamp(min=0).double()
+    direct = float((rows.sum(-1) * cols.sum(-1)).sum())
+    separable = float(((he[..., -1] - hs[..., 0]).clamp(min=0).double() * cols.sum(-1)).sum())
+    return direct * c * itemsize, separable * c * itemsize
+
+
+def roi_pool_path_run(feat, boxes, want_path: str):
+    """K1 once, through ``roi_pool_cuda``; checks the path it took by the
+    wrapper's per-path counts."""
     from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto, roi_pool_cuda
 
+    before = dict(roi_pool_auto.path_launches)
+    got = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+    took = [k for k, v in roi_pool_auto.path_launches.items() if v != before[k]]
+    check(took == [want_path], f"roi_pool took the {took} path, want {want_path}")
+    return got
+
+
+def phase_roi_pool(dev, ptxas) -> dict:
+    from vltk_tpu_torch.ops.roi_pool import roi_pool
+    from vltk_tpu_torch.ops.roi_pool_kernel import _lib, roi_pool_auto, roi_pool_cuda
+    from vltk_tpu_torch.tools.variants import unaligned
+
+    print(f"roi_pool K1_SHAPE={_lib().roi_pool_shape():04d} ptxas: " + ("; ".join(ptxas) if ptxas else "cached build"))
     gen = torch.Generator().manual_seed(1)
     c = C_RES4
     # the last two cases are the shapes of the extraction step: one launch
-    # over 300 RoIs at B=8, two over 150 RoIs each at B=16 (roi_chunk 2400)
+    # over 300 RoIs at B=8, two over 150 RoIs each at B=16 (roi_chunk 2400).
+    # Every case runs both paths: the vector path on the aligned map, the
+    # scalar path on a copy one element into its storage
     timed, worst = [], 0.0
     for b, p, dtype in ((2, N_ROI, torch.float32), (2, N_ROI, torch.bfloat16),
                         (8, N_ROI, torch.bfloat16), (16, N_ROI // 2, torch.bfloat16)):
@@ -214,25 +253,36 @@ def phase_roi_pool(dev) -> dict:
         # of negative values
         feat[:, :4, :4] = -torch.rand(b, 4, 4, c, generator=gen).to(dev, dtype)
         boxes = roi_boxes(gen, b, p, dev)
-        got = roi_pool_cuda(feat, boxes, 14, 1 / 16)
-        torch.cuda.synchronize()
         want = roi_pool(feat, boxes, 14, 1 / 16)
-        eq = bitwise_equal(got, want)
-        err = float((got.float() - want.float()).abs().max())
-        worst = max(worst, err)
-        print(f"roi_pool {tuple(feat.shape)} {dtype} x {p} boxes: bitwise_equal={eq} max_abs_err={err}")
-        check(eq, f"roi_pool kernel != plain at {tuple(feat.shape)} {dtype}")
+        scalar_feat = unaligned(feat)
+        for path, f in (("vector", feat), ("scalar", scalar_feat)):
+            got = roi_pool_path_run(f, boxes, path)
+            torch.cuda.synchronize()
+            eq = bitwise_equal(got, want)
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            print(f"roi_pool {tuple(feat.shape)} {dtype} x {p} boxes, {path} path: bitwise_equal={eq} "
+                  f"max_abs_err={err}")
+            check(eq, f"roi_pool kernel ({path} path) != plain at {tuple(feat.shape)} {dtype}")
+            del got
         if b < 8:
             continue
-        ms = cuda_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16), reps=20)
+        # the median of five readings of 20 calls queued ahead, as for K3
+        runs = spread_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16))
+        scalar_runs = spread_ms(lambda: roi_pool_cuda(scalar_feat, boxes, 14, 1 / 16), reps=5, runs=3)
         plain_ms = cuda_ms(lambda: roi_pool(feat, boxes, 14, 1 / 16), reps=2, warmup=1)
-        nbytes = feat.numel() * 2 + boxes.numel() * 4 + got.numel() * 2
+        nbytes = feat.numel() * 2 + boxes.numel() * 4 + want.numel() * 2
         bound_ms, bound_by = bound(nbytes, roi_pool_ops(boxes, c))
+        direct, separable = roi_pool_bytes_requested(boxes, c, 2)
         print(
-            f"roi_pool timing {tuple(feat.shape)} bf16 x {p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes RoIPool"
+            f"roi_pool timing {tuple(feat.shape)} bf16 x {p}: kernel {show(runs)}, scalar path {show(scalar_runs)}, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), {runs[2] / bound_ms:.2f}x the bound; "
+            f"modelled bytes requested {separable / 1e9:.3f} GB in K1's separable order ({direct / 1e9:.3f} GB direct); "
+            f"no single PyTorch call computes RoIPool"
         )
-        timed.append((ms, plain_ms, bound_ms, bound_by))
+        timed.append((runs, scalar_runs, plain_ms, bound_ms, bound_by))
+        del want, scalar_feat
+        torch.cuda.empty_cache()
     # ROADMAP C.1: the kernel has no backward yet, so the dispatcher refuses
     # features that want a gradient instead of cutting it
     before = roi_pool_auto.launches
@@ -244,19 +294,59 @@ def phase_roi_pool(dev) -> dict:
     check(raised and roi_pool_auto.launches == before, "roi_pool_auto cut the gradient instead of raising")
     print("roi_pool grad guard: features that require grad raise on the card, nothing launched (ROADMAP C.1)")
     # the kernels line reports the B=8 step's shape
-    ms, plain_ms, bound_ms, bound_by = timed[0]
+    runs, scalar_runs, plain_ms, bound_ms, bound_by = timed[0]
     return {
         "name": "roi_pool",
         "route": "cuda",
         "source": "vltk_tpu_torch/csrc/roi_pool.cu",
         "replaces": "vltk_tpu/ops/pallas_kernels.py:187",
         "max_abs_err": worst,
-        "ms": ms,
+        "ms": runs[2],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        "ms_runs": runs,
+        "scalar_ms": scalar_runs[1],
     }
+
+
+def capture_roi_inputs(model):
+    """A forward pre-hook on the RoI heads that keeps the (features, boxes)
+    of the last call: what the extraction step hands K1. Returns the store
+    and the hook's handle."""
+    store = {}
+
+    def hook(_module, args):
+        store["features"], store["boxes"] = args[0], args[1]
+
+    return store, model.roi_heads.register_forward_pre_hook(hook)
+
+
+def time_roi_pool_on_proposals(entry: dict, store: dict) -> None:
+    """K1 timed on the features and proposals of the B=8 extraction step,
+    checked bitwise against the plain version there; adds
+    ``proposals_ms`` and its bound to the K1 entry."""
+    from vltk_tpu_torch.ops.roi_pool import roi_pool
+    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
+
+    feat, boxes = store["features"], store["boxes"].contiguous()
+    check(tuple(feat.shape) == (8, *FEAT_HW, C_RES4) and tuple(boxes.shape) == (8, N_ROI, 4),
+          f"captured K1 inputs {tuple(feat.shape)}, {tuple(boxes.shape)}")
+    got = roi_pool_path_run(feat, boxes, "vector")
+    torch.cuda.synchronize()
+    eq = bitwise_equal(got, roi_pool(feat, boxes, 14, 1 / 16))
+    check(eq, "roi_pool kernel != plain on the extraction step's proposals")
+    runs = spread_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16))
+    nbytes = (feat.numel() + got.numel()) * feat.element_size() + boxes.numel() * 4
+    bound_ms, bound_by = bound(nbytes, roi_pool_ops(boxes, C_RES4))
+    direct, separable = roi_pool_bytes_requested(boxes, C_RES4, feat.element_size())
+    print(f"roi_pool timing on the B=8 step's proposals {tuple(feat.shape)} {feat.dtype} x {N_ROI}: "
+          f"bitwise_equal={eq}, kernel {show(runs)}, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{runs[2] / bound_ms:.2f}x the bound; modelled bytes requested {separable / 1e9:.3f} GB in K1's "
+          f"separable order ({direct / 1e9:.3f} GB direct)")
+    entry["proposals_ms"] = runs[2]
+    entry["proposals_bound_ms"] = bound_ms
 
 
 # ----------------------------------------------------------------- K6-K9
@@ -462,13 +552,16 @@ def phase_nms(dev, batch: int) -> dict:
         check(eq, f"nms kernel != plain on the {name} shape")
         check(kept > 0, f"nms {name}: nothing kept")
         err = max(err, float((got.long() - want.long()).abs().max()))
-        t_k = cuda_ms(lambda: nms_fixed_cuda(boxes, scores, thr_d, max_out, valid), reps=20)
+        # the median of five readings of 20 calls queued ahead, with the
+        # spread: the RPN call's time varied from run to run before
+        runs_k = spread_ms(lambda: nms_fixed_cuda(boxes, scores, thr_d, max_out, valid))
+        t_k = runs_k[2]
         t_p = cuda_ms(lambda: nms_fixed(boxes, scores, thr_d, max_out, valid), reps=2, warmup=1)
         call_bytes = boxes.numel() * 4 + scores.numel() * 4 + valid.numel() + got.numel() * 4
         # ~15 float32 operations and one compare per IoU
         call_ops = nms_pairs(got, boxes, scores, valid) * 16
         b_ms, _ = bound(call_bytes, call_ops)
-        print(f"nms timing {name} ({rows}, {k}): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound {b_ms:.6f} ms")
+        print(f"nms timing {name} ({rows}, {k}): kernel {show(runs_k)}, plain {t_p:.4f} ms, bound {b_ms:.6f} ms")
         ms, plain_ms = ms + t_k, plain_ms + t_p
         nbytes, nops = nbytes + call_bytes, nops + call_ops
     bound_ms, bound_by = bound(nbytes, nops)
@@ -814,6 +907,8 @@ def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
     sizes = torch.tensor([RAW_HW] * batch, dtype=torch.int32, device=dev)
     for w in wrappers.values():
         w.launches = 0
+    paths = wrappers["roi_pool"].path_launches
+    paths.update(dict.fromkeys(paths, 0))
     packed = step(raw, sizes)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -823,6 +918,10 @@ def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
     dt = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     runs = steps + 1
+    # K1 once a step at B=8, twice at B=16 (one launch per roi_chunk of
+    # 2400 RoIs), all on the vector path
+    check(launches["roi_pool"] == runs * -(-batch * N_ROI // bundle["cfg"].roi_chunk) and paths["scalar"] == 0,
+          f"K1 launched {launches['roi_pool']} times ({paths}) over {runs} steps at B={batch}")
     check(tuple(packed.shape) == (batch, 36, 2048 + 6), f"packed shape {tuple(packed.shape)}")
     check(bool(torch.isfinite(packed).all()), "packed output is not finite")
     preds = (packed[..., -2] >= 0).sum(dim=1)
@@ -836,6 +935,7 @@ def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
         "images_per_s": batch * steps / dt,
         "step_ms": dt / steps * 1e3,
         "launches": launches,
+        "roi_pool_paths": dict(paths),
         "launches_per_step": {k: v / runs for k, v in launches.items()},
         "preds_per_image": preds.tolist(),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1264,7 +1364,7 @@ def main() -> int:
         for line in _build.ptxas_lines(out):
             print(f"  {name}: {line}")
 
-    entries = [phase_roi_pool(dev)]
+    entries = [phase_roi_pool(dev, _build.ptxas_lines(outputs.get("roi_pool", "")))]
     ablation = phase_roi_ablation(dev)
     entries.append(phase_nms(dev, batch=8))
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
@@ -1285,7 +1385,11 @@ def main() -> int:
     runs = {}
     for batch, steps in ((8, 5), (16, 3)):
         torch.cuda.reset_peak_memory_stats()
+        if batch == 8:
+            proposals, hook = capture_roi_inputs(bundle["model"])
         runs[batch] = r = run_extraction(bundle, batch, steps, KERNEL_WRAPPERS)
+        if batch == 8:
+            hook.remove()
         print(
             f"extraction parity_300 B={batch} canvas {CANVAS[0]}x{CANVAS[1]} bf16: "
             f"{r['images_per_s']:.2f} images/s ({r['step_ms']:.2f} ms/step) on {smi}; "
@@ -1293,6 +1397,8 @@ def main() -> int:
             f"preds/image {r['preds_per_image']}"
         )
     print("extraction_runs " + json.dumps(runs))
+    time_roi_pool_on_proposals(entries[0], proposals)
+    del proposals
 
     phase_small_reference(dev)
     del bundle

@@ -14,7 +14,9 @@ whose whole key tiles K3 skips, its statistics and its determinism; for the
 backward kernels K5 and K4 also masks whose whole 64-row tiles share no id
 (the tiles the kernels skip), K5's fused di, strided output gradients,
 determinism, and the gradients that a training step on the card hands the
-q/k/v projections; K1's refusal to cut a gradient;
+q/k/v projections; K1's refusal to cut a gradient, both of its paths
+(16-byte vectors and one element a thread), bins wider than its unrolled
+group, an unaligned base, NaN and infinite cells;
 for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
 multiple of the kernel's chunk, and groups of RoIs.
@@ -75,21 +77,111 @@ def _boxes(gen, b, p, h, w):
     return boxes
 
 
+def _expected_path(x: torch.Tensor) -> str:
+    """The K1 path for contiguous features: 16-byte vectors where C is a
+    multiple of 8 bf16 or 4 float32 channels and the base is aligned."""
+    per_vector = 16 // x.element_size()
+    return "vector" if x.shape[-1] % per_vector == 0 and x.data_ptr() % 16 == 0 else "scalar"
+
+
+def _roi_pool_checked(feat, boxes, s):
+    """K1 on the inputs: bitwise equal to the plain version, through the
+    path that C and the alignment pick (counted on the wrapper)."""
+    path = _expected_path(feat)
+    before = dict(roi_pool_auto.path_launches)
+    got = roi_pool_cuda(feat, boxes, s, 1 / 16)
+    torch.cuda.synchronize()
+    after = roi_pool_auto.path_launches
+    assert {k: after[k] - before[k] for k in after} == {k: int(k == path) for k in after}
+    want = roi_pool(feat, boxes, s, 1 / 16)
+    assert got.shape == want.shape == (*boxes.shape[:2], s, s, feat.shape[-1])
+    assert torch.equal(_bits(got), _bits(want))
+    return got, path
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b,h,w,c,p,s",
-    [(1, 5, 7, 3, 4, 2), (2, 20, 24, 8, 6, 7), (3, 52, 84, 300, 50, 14), (1, 16, 16, 513, 9, 14)],
+    [(1, 5, 7, 3, 4, 2), (2, 20, 24, 8, 6, 7), (3, 52, 84, 300, 50, 14), (1, 16, 16, 513, 9, 14),
+     (2, 52, 84, 1024, 40, 14), (1, 20, 24, 2048, 8, 7)],
 )
 def test_roi_pool_kernel_bitwise(dev, dtype, b, h, w, c, p, s):
-    """Bitwise equal to the plain version (max is exact in both types)."""
+    """Bitwise equal to the plain version (max is exact in both types), on
+    the vector path (C a multiple of 16 bytes' worth) and the scalar one."""
     gen = torch.Generator().manual_seed(b * 1000 + c)
     feat = torch.randn(b, h, w, c, generator=gen).to(dev, dtype)
     boxes = _boxes(gen, b, p, h, w).to(dev)
-    got = roi_pool_cuda(feat, boxes, s, 1 / 16)
+    _roi_pool_checked(feat, boxes, s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [7, 14])
+def test_roi_pool_bins_wider_than_the_unroll(dev, dtype, s):
+    """Boxes that span a (1, 200, 240, 64) map: bins of up to 36 columns
+    and 30 rows, far past the kernel's unrolled group of columns."""
+    gen = torch.Generator().manual_seed(s)
+    feat = torch.randn(1, 200, 240, 64, generator=gen).to(dev, dtype)
+    boxes = torch.tensor([[[0.0, 0.0, 240 * 16 - 1, 200 * 16 - 1], [-300.0, -100.0, 240 * 16 + 500, 200 * 16 + 50],
+                           [100.0, 50.0, 3000.0, 3100.0], [16.0, 1600.0, 3800.0, 1700.0]]])
+    _, path = _roi_pool_checked(feat, boxes.to(dev), s)
+    assert path == "vector"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_pool_unaligned_base_takes_the_scalar_path(dev, dtype):
+    """A view one element into its storage is not 16-byte aligned: the
+    scalar path, bitwise equal to the plain version and to the vector
+    path on an aligned copy."""
+    gen = torch.Generator().manual_seed(3)
+    b, h, w, c = 2, 52, 84, 256
+    flat = torch.randn(b * h * w * c + 1, generator=gen).to(dev, dtype)
+    feat = flat[1:].view(b, h, w, c)
+    boxes = _boxes(gen, b, 30, h, w).to(dev)
+    got, path = _roi_pool_checked(feat, boxes, 14)
+    assert path == "scalar"
+    aligned, path = _roi_pool_checked(feat.clone(), boxes, 14)
+    assert path == "vector" and torch.equal(_bits(got), _bits(aligned))
+
+
+def test_roi_pool_b16_step_shape(dev):
+    """One of the two launches of the B=16 extraction step: (16, 52, 84,
+    1024) bf16 x 150 RoIs, on the vector path."""
+    gen = torch.Generator().manual_seed(16)
+    feat = torch.relu(torch.randn(16, 52, 84, 1024, generator=gen)).to(dev, torch.bfloat16)
+    boxes = _boxes(gen, 16, 150, 52, 84).to(dev)
+    _, path = _roi_pool_checked(feat, boxes, 14)
+    assert path == "vector"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1024, 300])
+def test_roi_pool_nonfinite_cells(dev, dtype, c):
+    """NaN, +inf and -inf cells, and a corner of -inf that one box covers
+    alone: NaN in the same places as the plain version, bitwise equal
+    everywhere else; two calls bitwise equal."""
+    gen = torch.Generator().manual_seed(c)
+    b, h, w, p = 2, 52, 84, 40
+    feat = torch.randn(b, h, w, c, generator=gen)
+    feat[0, 10, 20, : c // 2] = float("nan")
+    feat[1, 30, 40, 7] = float("nan")
+    feat[0, 30, 60, 1] = float("inf")
+    feat[1, 5, 60, :] = float("inf")
+    feat[0, 40, 70, 3] = float("-inf")
+    feat[1, :4, :4] = float("-inf")
+    feat = feat.to(dev, dtype)
+    boxes = _boxes(gen, b, p, h, w)
+    boxes[1, 1] = torch.tensor([0.0, 0.0, 40.0, 40.0])  # the -inf corner alone
+    boxes[0, 2] = torch.tensor([0.0, 0.0, 84 * 16 - 1.0, 52 * 16 - 1.0])  # every special cell of image 0
+    boxes = boxes.to(dev)
+    got = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+    again = roi_pool_cuda(feat, boxes, 14, 1 / 16)
     torch.cuda.synchronize()
-    want = roi_pool(feat, boxes, s, 1 / 16)
-    assert got.shape == want.shape == (b, p, s, s, c)
-    assert torch.equal(_bits(got), _bits(want))
+    want = roi_pool(feat, boxes, 14, 1 / 16)
+    nan = torch.isnan(want)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+    assert bool((got[1, 1] == float("-inf")).all()) and bool((got == float("inf")).any())
+    assert torch.equal(_bits(got), _bits(again))
 
 
 def test_roi_pool_rejects_what_it_does_not_take(dev):

@@ -192,6 +192,50 @@ class TestRoIPool:
         got = pt_roi.roi_pool(t(feat_np), t(boxes), 14, 1 / 16)
         np.testing.assert_array_equal(got.numpy(), want)
 
+    @staticmethod
+    def _nonfinite_case(rng):
+        """f32 features with NaN, +inf and -inf cells, and a 4 x 4 corner
+        of -inf that the first box of image 1 covers alone, so that its
+        bins' maxima are -inf."""
+        feat_j, feat, boxes = roi_case(rng, 2, 20, 24, 8, 8, "float32")
+        feat[0, 2, 3, :3] = np.nan
+        feat[0, 9, 11, 5] = np.nan
+        feat[0, 5, 5, 0] = np.inf
+        feat[1, 7, 4, 2] = np.inf
+        feat[0, 12, 8, 1] = -np.inf
+        feat[1, :4, :4, :] = -np.inf
+        boxes[1, 3] = [0, 0, 40, 40]  # cells 0..3: every bin -inf
+        return jnp.asarray(feat), feat, boxes
+
+    def test_roi_pool_nonfinite_matches_xla(self, rng):
+        """NaN propagates, and +inf and -inf are values like any other, as
+        in JAX's XLA formulation: NaN in the same places, equal elsewhere
+        (f32)."""
+        feat_j, feat, boxes = self._nonfinite_case(rng)
+        want = np.asarray(_roi_pool_xla(feat_j, jnp.asarray(boxes), 7, 1 / 16))
+        got = pt_roi.roi_pool(t(feat), t(boxes), 7, 1 / 16).numpy()
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        finite = ~np.isnan(want)
+        np.testing.assert_array_equal(got[finite], want[finite])
+        assert np.isnan(got).any() and np.isposinf(got).any()
+        assert (got[1, 3] == -np.inf).all()
+
+    def test_roi_pool_pallas_zeroes_a_bin_whose_max_is_neg_inf(self, rng):
+        """A known difference (ROADMAP, Pinned): the Pallas kernel takes a
+        bin whose max is <= -5e29 for empty and gives 0
+        (``pallas_kernels.py``, its ``m <= _NEG / 2`` test), where the
+        port and the XLA formulation give -inf. Everywhere else, NaN
+        included, the three agree."""
+        feat_j, feat, boxes = self._nonfinite_case(rng)
+        pallas = np.asarray(roi_pool_pallas(feat_j, jnp.asarray(boxes), 7, 1 / 16, interpret=True))
+        got = pt_roi.roi_pool(t(feat), t(boxes), 7, 1 / 16).numpy()
+        neg = got == -np.inf
+        assert neg[1, 3].all()
+        np.testing.assert_array_equal(pallas[neg], 0.0)
+        np.testing.assert_array_equal(np.isnan(pallas), np.isnan(got))
+        rest = ~neg & ~np.isnan(got)
+        np.testing.assert_array_equal(pallas[rest], got[rest])
+
     def test_round_half_away_from_zero(self):
         s = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 0.49, -0.49])
         np.testing.assert_array_equal(

@@ -263,3 +263,26 @@ def test_bench_times_the_plain_version_on_the_cpu():
         bench_roipool.main(small + ["--kernels", "xla"])
     with pytest.raises(ValueError):  # the kernel takes CUDA tensors only
         bench_roipool.main(small + ["--kernels", "cuda"])
+
+
+def test_bench_parses_k1_block_shapes():
+    """``--shapes`` takes K1's digits "bb u t": column bins 01-14, nonzero
+    unroll and thread count; the order of the maxima is not a digit."""
+    from vltk_tpu_torch.tools import bench_roipool
+
+    assert bench_roipool.parse_shapes("222,1411,0111") == [222, 1411, 111]
+    for bad in ("22", "1522", "202", "220", "10222"):
+        with pytest.raises(ValueError):
+            bench_roipool.parse_shapes(bad)
+
+
+def test_unaligned_copy_takes_the_scalar_path():
+    """``tools.variants.unaligned`` keeps the values and moves the base off
+    the 16-byte boundary, which sends RoIPool to its scalar path."""
+    from vltk_tpu_torch.ops.roi_pool_kernel import kernel_path
+    from vltk_tpu_torch.tools.variants import unaligned
+
+    feat = torch.randn(2, 5, 6, 16).to(torch.bfloat16)
+    moved = unaligned(feat)
+    assert torch.equal(moved, feat) and moved.data_ptr() % 16 != 0
+    assert kernel_path(feat.clone()) == "vector" and kernel_path(moved) == "scalar"

@@ -37,13 +37,13 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
 
 import torch
 
 from vltk_tpu_torch.ops import _build
 from vltk_tpu_torch.ops import flash_attention_kernel as FK
 from vltk_tpu_torch.ops.flash_attention import flash_self_attention, flash_self_attention_backward
+from vltk_tpu_torch.tools.variants import card_name, compile_variant, queued_ms
 
 DEFAULT_SHAPES = "133:133,223:133,222:124,213:213"
 DEFAULT_FWD_SHAPES = "2231,2241,2131,1321,1331,1232"
@@ -77,17 +77,6 @@ def parse_fwd_shapes(text: str):
     return shapes
 
 
-def _compile(src: str, name: str, defines, tag: str):
-    """Starts nvcc on ``src`` (a path, or a name under ``csrc/``, whose
-    headers a copy elsewhere finds through ``-I``)."""
-    out_dir = os.path.join(_build.BUILD_DIR, "sweep")
-    os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, f"lib{name}_{tag}.so")
-    cmd = [_build.nvcc_path(), *_build._flags(name), "-I", _build.CSRC, *defines, "-o", so,
-           os.path.join(_build.CSRC, src)]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
 def _label(key) -> str:
     shape, src = key
     return str(shape) if src is None else f"{shape} {os.path.basename(src)}"
@@ -101,7 +90,7 @@ def build_fwd(shapes, variants=()):
     for src in (None, *variants):
         for x in shapes:
             tag = f"{x}" if src is None else f"{x}_{len(procs)}"
-            procs[(x, src)] = _compile(src or "flash_attention.cu", "flash_attention", [f"-DFWD_SHAPE={x}"], tag)
+            procs[(x, src)] = compile_variant(src or "flash_attention.cu", "flash_attention", [f"-DFWD_SHAPE={x}"], tag)
     libs = {}
     for key, (so, proc) in procs.items():
         out, _ = proc.communicate()
@@ -116,7 +105,7 @@ def build_fwd(shapes, variants=()):
 def build(pairs):
     """One library per (K5, K4) shape pair; returns {pair: bound library}."""
     procs = {
-        (dq, dkv): _compile("flash_attention_bwd.cu", "flash_attention_bwd",
+        (dq, dkv): compile_variant("flash_attention_bwd.cu", "flash_attention_bwd",
                             [f"-DDQ_SHAPE={dq}", f"-DDKV_SHAPE={dkv}"], f"{dq}_{dkv}")
         for dq, dkv in pairs
     }
@@ -131,28 +120,6 @@ def build(pairs):
     return libs
 
 
-def _ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` calls, queued while
-    the card sleeps (~20 ms) so that the host's time per call stays out of
-    the span."""
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _where() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def sweep_forward(shapes, n: int, s: int, real: int, iters: int, dev, variants=()) -> dict:
     """K3 at each forward shape, from the shipped source and each variant:
     checked (a variant's error only printed), then timed without and with
@@ -165,7 +132,7 @@ def sweep_forward(shapes, n: int, s: int, real: int, iters: int, dev, variants=(
     mask[:, :real] = 1
     want = flash_self_attention(q, k, v, mask, FK.HEAD_DIM)
     libs = build_fwd(shapes, variants)
-    where = _where()
+    where = card_name()
     default = FK._lib
     keys = list(libs)
     times = {key: [] for key in keys}
@@ -176,8 +143,8 @@ def sweep_forward(shapes, n: int, s: int, real: int, iters: int, dev, variants=(
             err = float((got.float() - want.float()).abs().max())
             if key[1] is None and err > TOL:
                 raise SystemExit(f"sweep_flash_backward: forward shape {key[0]} differs from the plain version: {err}")
-            ms = _ms(lambda: FK.flash_attention_cuda(q, k, v, mask, FK.HEAD_DIM), iters)
-            stats_ms = _ms(lambda: FK.flash_attention_fwd_residuals_cuda(q, k, v, mask, FK.HEAD_DIM), iters)
+            ms = queued_ms(lambda: FK.flash_attention_cuda(q, k, v, mask, FK.HEAD_DIM), iters)
+            stats_ms = queued_ms(lambda: FK.flash_attention_fwd_residuals_cuda(q, k, v, mask, FK.HEAD_DIM), iters)
             times[key].append((ms, stats_ms))
             print(f"K3 {_label(key)} {ms:.4f} ms, with statistics {stats_ms:.4f} ms at {shape} bf16, {real} real of {s}, "
                   f"on {where}; max abs err {err:.2e}")
@@ -218,7 +185,7 @@ def main(argv=None) -> dict:
     o, stats = FK.flash_attention_fwd_residuals_cuda(q, k, v, mask, FK.HEAD_DIM)
     want = flash_self_attention_backward(q, k, v, mask, o, stats, do, FK.HEAD_DIM)
     libs = build(pairs)
-    where = _where()
+    where = card_name()
     default = FK._bwd_lib
     times = {pair: [] for pair in pairs}
     try:
@@ -229,8 +196,8 @@ def main(argv=None) -> dict:
             if err > TOL:
                 raise SystemExit(f"sweep_flash_backward: shapes {pair} differ from the plain backward: {err}")
             di = FK.flash_attention_dq_cuda(q, k, v, do, ids, stats, o)[1]
-            k5 = _ms(lambda: FK.flash_attention_dq_cuda(q, k, v, do, ids, stats, o), args.iters)
-            k4 = _ms(lambda: FK.flash_attention_dkv_cuda(q, k, v, do, ids, stats, di), args.iters)
+            k5 = queued_ms(lambda: FK.flash_attention_dq_cuda(q, k, v, do, ids, stats, o), args.iters)
+            k4 = queued_ms(lambda: FK.flash_attention_dkv_cuda(q, k, v, do, ids, stats, di), args.iters)
             times[pair].append((k5, k4))
             print(f"K5 {pair[0]} {k5:.4f} ms, K4 {pair[1]} {k4:.4f} ms, sum {k5 + k4:.4f} ms at {shape} bf16, "
                   f"{real} real of {args.s}, on {where}; max rel err {err:.2e}")

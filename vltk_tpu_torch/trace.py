@@ -53,7 +53,7 @@ _CLASSES = (
     ("flash_fwd", "flash attention kernel"),
     ("flash_bwd_dkv", "flash dk/dv kernel (K4)"),
     ("flash_bwd_dq", "flash dq kernel (K5)"),
-    ("roi_pool_kernel", "roi_pool kernel"),
+    ("roi_pool_", "roi_pool kernel"),  # K1: roi_pool_{bf16,f32}_{vector,scalar}
     ("nms_", "nms kernels"),
     ("sort", "sort"),
     ("radix", "sort"),
