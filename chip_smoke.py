@@ -26,10 +26,13 @@ package):
    the probe's path (``tools.probe_roipool_ablation.run``: every variant
    timed and checked against K1 on the probe's inputs) with the launch
    counts set to 0 and checks that K6-K9 were launched there;
-5. holds the greedy-NMS kernel K2 against its plain version, exact keep
-   indices, at the RPN shape (B, 6000) -> 300 and the detection shape
-   (B*3, 300) -> 36 for B=8 and B=16, and times both (each call's median
-   of five readings, with the spread);
+5. prints K2's registers and spills, holds the greedy-NMS kernel K2
+   against its plain version, exact keep indices and masks, at the RPN
+   shape (B, 6000) -> 300 and the detection shape (B*3, 300) -> 36 for B=8
+   and B=16, at the cluster size the wrapper picks and at every other one,
+   and on rows with a NaN coordinate and a NaN score (JAX's keeps); times
+   both calls (each call's median of five readings, with the spread), with
+   how far the greedy sweep reaches;
 6. prints K3's registers and spills, and holds the flash-attention kernel
    K3 against its plain version at every position, with its row
    statistics (1e-5) and two calls bitwise equal: bf16 at the serving
@@ -46,9 +49,11 @@ package):
    R-101-C4, 1600 classes, 400 attributes, bf16) at full width on the
    832x1344 canvas with seeded random weights, tamed so activations stay
    finite; checks the packed output and that K1 and K2 were launched on
-   that run, and prints images/s at B=8 and B=16; then times K1 on the
-   features and proposals that the B=8 step handed it (kept by a hook on
-   the RoI heads), checked bitwise there too;
+   that run (K2 twice a step), and prints images/s at B=8 and B=16; then
+   times K1 on the features and proposals that the B=8 step handed it
+   (kept by a hook on the RoI heads), checked bitwise there too, and K2 on
+   the two calls of one more B=8 step (recorded at their call sites), held
+   exactly at every cluster size there too;
 8. runs a small f32 FRCNN on the card and on the CPU with the same weights
    and compares them key by key (the CPU path is the one the test suite
    holds against the JAX package);
@@ -495,74 +500,94 @@ def phase_roi_ablation(dev) -> list:
 # --------------------------------------------------------------------- K2
 
 
-def nms_case(gen: torch.Generator, rows: int, k: int, dev):
-    """Clustered, heavily overlapping boxes (as proposals are), with score
-    ties, zero-area boxes, invalid entries and one row with no candidate."""
-    centers = torch.rand(rows, max(k // 40, 1), 2, generator=gen) * torch.tensor([1000.0, 760.0])
-    pick = torch.randint(0, centers.shape[1], (rows, k), generator=gen)
-    ctr = torch.gather(centers, 1, pick[..., None].expand(rows, k, 2))
-    ctr = ctr + torch.randn(rows, k, 2, generator=gen) * 12
-    wh = 20 + torch.rand(rows, k, 2, generator=gen) * 200
-    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
-    scores = torch.randn(rows, k, generator=gen)
-    scores[:, : k // 10] = torch.round(scores[:, : k // 10] * 4) / 4  # ties
-    boxes[:, 5, 2] = boxes[:, 5, 0]  # zero area
-    boxes[:, 6] = boxes[:, 5]
-    valid = torch.rand(rows, k, generator=gen) > 0.05
-    valid[-1] = False
-    return boxes.to(dev), scores.to(dev), valid.to(dev)
+# JAX's nms_fixed on the rows of tests/test_torch_ops.py::TestNMSAgainstJAX:
+# a NaN coordinate gives its box IoU 0 with every box; a valid NaN score
+# leaves its row empty
+NAN_BOXES = [[0, 0, 10, 10], [1, 1, 11, 11], [0, 0, float("nan"), 10], [2, 2, 12, 12]]
+NAN_ROWS = (([0.9, 0.8, 0.95, 0.7], [2, 0, 3, -1]), ([0.9, float("nan"), 0.95, 0.7], [-1, -1, -1, -1]))
 
 
-def nms_pairs(keep: torch.Tensor, boxes, scores, valid) -> float:
-    """IoU pairs greedy NMS needs on this data: each kept box against the
-    candidates that come after it in score order."""
-    from vltk_tpu_torch.ops.nms import NEG_INF
+def nms_bound(call: dict, keep: torch.Tensor):
+    """(bytes, operations) that greedy needs on this call's data
+    (``tools.bench_nms.sweep_pairs``): every score and validity flag read
+    once, the boxes of the candidates the sweep reads (16 bytes each: up to
+    the last keep, or all when the budget is not reached), the keeps (int32)
+    and their validity (bool) written once; ~15 float32 operations and one
+    compare per IoU that greedy needs."""
+    from vltk_tpu_torch.tools.bench_nms import sweep_pairs
 
-    live = torch.where(valid, scores.float(), torch.full_like(scores.float(), NEG_INF))
-    s, order = torch.sort(live, dim=1, descending=True, stable=True)
-    n_cand = (s > NEG_INF / 2).sum(1)
-    rank = torch.empty_like(order)
-    rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
-    k = keep.clamp(min=0).long()
-    kept_rank = torch.gather(rank, 1, k)
-    later = (n_cand[:, None] - kept_rank - 1).clamp(min=0) * (keep >= 0)
-    return float(later.sum())
+    greedy, _, _, read, replay = sweep_pairs(call["boxes"], call["scores"], call["valid"], call["thresh"],
+                                             call["max_out"])
+    check(torch.equal(replay, keep.cpu()), "the CPU replay of K2's word loop disagrees with its keeps")
+    nbytes = read * 16 + call["scores"].numel() * 4 + keep.numel() * 5
+    if call["valid"] is not None:
+        nbytes += call["valid"].numel()
+    return nbytes, greedy * 16
 
 
-def phase_nms(dev, batch: int) -> dict:
+def keep_err(got: torch.Tensor, want) -> float:
+    """max |got - want| over two keep-index tensors (0 where equal)."""
+    want = torch.as_tensor(want, device=got.device)
+    return float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
+
+
+def nms_held(call: dict, what: str):
+    """K2 at every cluster size and at the wrapper's pick against the plain
+    version, exact keep indices and masks; returns the plain keeps and the
+    largest |kernel - plain| over the keep indices of every launch."""
     from vltk_tpu_torch.ops.nms import nms_fixed
-    from vltk_tpu_torch.ops.nms_kernel import nms_fixed_cuda
+    from vltk_tpu_torch.ops.nms_kernel import CLUSTERS, nms_fixed_cuda
 
-    gen = torch.Generator().manual_seed(2)
-    ms = plain_ms = nbytes = nops = 0.0
+    args = (call["boxes"], call["scores"], call["thresh"], call["max_out"], call["valid"])
+    want, want_v = nms_fixed(*args)
     err = 0.0
-    shapes = (
-        ("rpn", batch, 6000, 300, 0.7),
-        ("detections", batch * 3, 300, 36, torch.tensor([0.5, 1.0, 0.1]).repeat(batch)),
-    )
-    for name, rows, k, max_out, thr in shapes:
-        boxes, scores, valid = nms_case(gen, rows, k, dev)
-        thr_d = thr.to(dev) if torch.is_tensor(thr) else thr
-        got, got_v = nms_fixed_cuda(boxes, scores, thr_d, max_out, valid)
+    for cl in (None, *CLUSTERS):
+        got, got_v = nms_fixed_cuda(*args, _cluster=cl)
         torch.cuda.synchronize()
-        want, want_v = nms_fixed(boxes, scores, thr_d, max_out, valid)
-        eq = torch.equal(got, want) and torch.equal(got_v, want_v)
-        kept = int(got_v.sum())
-        print(f"nms {name} ({rows}, {k}) -> {max_out}: exact_keep={eq} kept={kept}")
-        check(eq, f"nms kernel != plain on the {name} shape")
-        check(kept > 0, f"nms {name}: nothing kept")
-        err = max(err, float((got.long() - want.long()).abs().max()))
-        # the median of five readings of 20 calls queued ahead, with the
-        # spread: the RPN call's time varied from run to run before
-        runs_k = spread_ms(lambda: nms_fixed_cuda(boxes, scores, thr_d, max_out, valid))
-        t_k = runs_k[2]
-        t_p = cuda_ms(lambda: nms_fixed(boxes, scores, thr_d, max_out, valid), reps=2, warmup=1)
-        call_bytes = boxes.numel() * 4 + scores.numel() * 4 + valid.numel() + got.numel() * 4
-        # ~15 float32 operations and one compare per IoU
-        call_ops = nms_pairs(got, boxes, scores, valid) * 16
-        b_ms, _ = bound(call_bytes, call_ops)
-        print(f"nms timing {name} ({rows}, {k}): kernel {show(runs_k)}, plain {t_p:.4f} ms, bound {b_ms:.6f} ms")
-        ms, plain_ms = ms + t_k, plain_ms + t_p
+        err = max(err, keep_err(got, want))
+        check(torch.equal(got, want) and torch.equal(got_v, want_v),
+              f"nms kernel != plain on {what} at cluster {cl or 'picked'}")
+    return want, err
+
+
+def phase_nms(dev, batch: int, ptxas=()) -> dict:
+    """K2 held against the plain version on chip_smoke's rows at the two
+    call shapes of a B-image step (every cluster size) and on the NaN rows;
+    timed at both shapes."""
+    from vltk_tpu_torch.ops.nms import nms_fixed
+    from vltk_tpu_torch.ops.nms_kernel import nms_fixed_cuda, plan
+    from vltk_tpu_torch.tools.bench_nms import reach, smoke_calls
+
+    if ptxas:
+        print("nms ptxas: " + "; ".join(ptxas))
+    err = 0.0
+    for scores, want in NAN_ROWS:
+        for cl in (None, 1, 2):
+            got, _ = nms_fixed_cuda(torch.tensor(NAN_BOXES, device=dev), torch.tensor(scores, device=dev),
+                                    0.5, 4, _cluster=cl)
+            err = max(err, keep_err(got, want))
+            check(got.tolist() == want, f"nms NaN row {scores}: kernel {got.tolist()}, JAX {want}")
+    print(f"nms NaN rows: the kernel gives JAX's keeps {[w for _, w in NAN_ROWS]} at every cluster size tried")
+    ms = plain_ms = nbytes = nops = 0.0
+    for call in smoke_calls(batch, dev):
+        rows, k = call["scores"].shape
+        what = f"{call['name']} ({rows}, {k}) -> {call['max_out']}"
+        want, call_err = nms_held(call, f"the smoke {what} rows")
+        err = max(err, call_err)
+        last = [x for x in reach(want, call["scores"], call["valid"])[0] if x >= 0]
+        cl, smem = plan(k, call["max_out"])
+        print(f"nms {what}: exact_keep=True at every cluster size, kept={int((want >= 0).sum())}, "
+              f"last-keep sorted rank {min(last)}-{max(last)} in the rows with a keep; the wrapper's "
+              f"cluster {cl}, {smem} bytes of dynamic shared memory a CTA")
+        check(bool((want >= 0).any()), f"nms {what}: nothing kept")
+        args = (call["boxes"], call["scores"], call["thresh"], call["max_out"], call["valid"])
+        # the median of five readings of 20 calls queued ahead, with the spread
+        runs_k = spread_ms(lambda: nms_fixed_cuda(*args))
+        t_p = cuda_ms(lambda: nms_fixed(*args), reps=2, warmup=1)
+        call_bytes, call_ops = nms_bound(call, want)
+        b_ms, b_by = bound(call_bytes, call_ops)
+        print(f"nms timing {what}: kernel {show(runs_k)}, plain {t_p:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
+        ms, plain_ms = ms + runs_k[2], plain_ms + t_p
         nbytes, nops = nbytes + call_bytes, nops + call_ops
     bound_ms, bound_by = bound(nbytes, nops)
     return {
@@ -577,6 +602,33 @@ def phase_nms(dev, batch: int) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+def time_nms_on_step(entry: dict, calls: list) -> None:
+    """K2 held (every cluster size) and timed on the two calls of one B=8
+    extraction step, as ``tools.bench_nms.step_calls`` records them; adds
+    ``step_ms`` and its bound to the K2 entry and folds the step's keep
+    errors into its ``max_abs_err``."""
+    from vltk_tpu_torch.ops.nms_kernel import nms_fixed_cuda
+    from vltk_tpu_torch.tools.bench_nms import reach
+
+    total = nbytes = nops = 0.0
+    for call in calls:
+        rows, k = call["scores"].shape
+        what = f"{call['name']} ({rows}, {k}) -> {call['max_out']}"
+        want, err = nms_held(call, f"the B=8 step's {what} call")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        check(torch.equal(want, call["keep"]), f"the step's {what} keeps differ from the plain version's")
+        last, live = reach(want, call["scores"], call["valid"])
+        args = (call["boxes"], call["scores"], call["thresh"], call["max_out"], call["valid"])
+        runs = spread_ms(lambda: nms_fixed_cuda(*args))
+        call_bytes, call_ops = nms_bound(call, want)
+        b_ms, b_by = bound(call_bytes, call_ops)
+        print(f"nms on the B=8 step's {what} inputs: exact_keep=True at every cluster size, kernel {show(runs)}, "
+              f"bound {b_ms:.6f} ms ({b_by}); last-keep sorted rank {min(last)}-{max(last)} of {min(live)}-{max(live)} live")
+        total, nbytes, nops = total + runs[2], nbytes + call_bytes, nops + call_ops
+    entry["step_ms"] = total
+    entry["step_bound_ms"] = bound(nbytes, nops)[0]
 
 
 # --------------------------------------------------------------------- K3
@@ -897,14 +949,18 @@ def phase_flash_backward(dev):
 # ----------------------------------------------------------- the main path
 
 
+def step_images(dev, batch: int):
+    """The extraction step's seeded raw images and their sizes."""
+    rng = np.random.default_rng(0)
+    raw = torch.from_numpy(rng.integers(0, 256, (batch, *RAW_CANVAS, 3), dtype=np.uint8)).to(dev)
+    return raw, torch.tensor([RAW_HW] * batch, dtype=torch.int32, device=dev)
+
+
 def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
     """Drives the extraction step with every launch count set to 0 first;
     K1 and K2 must have launched, K3 must not."""
     step = bundle["step"]
-    dev = bundle["device"]
-    rng = np.random.default_rng(0)
-    raw = torch.from_numpy(rng.integers(0, 256, (batch, *RAW_CANVAS, 3), dtype=np.uint8)).to(dev)
-    sizes = torch.tensor([RAW_HW] * batch, dtype=torch.int32, device=dev)
+    raw, sizes = step_images(bundle["device"], batch)
     for w in wrappers.values():
         w.launches = 0
     paths = wrappers["roi_pool"].path_launches
@@ -922,6 +978,8 @@ def run_extraction(bundle, batch: int, steps: int, wrappers) -> dict:
     # 2400 RoIs), all on the vector path
     check(launches["roi_pool"] == runs * -(-batch * N_ROI // bundle["cfg"].roi_chunk) and paths["scalar"] == 0,
           f"K1 launched {launches['roi_pool']} times ({paths}) over {runs} steps at B={batch}")
+    # K2 once for the RPN and once for the detection selection
+    check(launches["nms"] == 2 * runs, f"K2 launched {launches['nms']} times over {runs} steps at B={batch}")
     check(tuple(packed.shape) == (batch, 36, 2048 + 6), f"packed shape {tuple(packed.shape)}")
     check(bool(torch.isfinite(packed).all()), "packed output is not finite")
     preds = (packed[..., -2] >= 0).sum(dim=1)
@@ -1348,6 +1406,7 @@ def main() -> int:
     check(os.path.dirname(pkg) == HERE, f"vltk_tpu_torch is not this checkout's ({pkg})")
     from vltk_tpu_torch.adapters.frcnn import setup, tame_random_weights
     from vltk_tpu_torch.ops import KERNEL_WRAPPERS, _build
+    from vltk_tpu_torch.tools.bench_nms import step_calls
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1366,7 +1425,7 @@ def main() -> int:
 
     entries = [phase_roi_pool(dev, _build.ptxas_lines(outputs.get("roi_pool", "")))]
     ablation = phase_roi_ablation(dev)
-    entries.append(phase_nms(dev, batch=8))
+    entries.append(phase_nms(dev, batch=8, ptxas=_build.ptxas_lines(outputs.get("nms", ""))))
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
     entries.append(phase_flash(dev, _build.ptxas_lines(outputs.get("flash_attention", ""))))
     entries += phase_flash_backward(dev)
@@ -1390,6 +1449,9 @@ def main() -> int:
         runs[batch] = r = run_extraction(bundle, batch, steps, KERNEL_WRAPPERS)
         if batch == 8:
             hook.remove()
+            # K2's inputs: one more B=8 step with its two calls recorded,
+            # after the launch counts were read
+            nms_calls = step_calls(bundle, *step_images(dev, 8))
         print(
             f"extraction parity_300 B={batch} canvas {CANVAS[0]}x{CANVAS[1]} bf16: "
             f"{r['images_per_s']:.2f} images/s ({r['step_ms']:.2f} ms/step) on {smi}; "
@@ -1398,7 +1460,8 @@ def main() -> int:
         )
     print("extraction_runs " + json.dumps(runs))
     time_roi_pool_on_proposals(entries[0], proposals)
-    del proposals
+    time_nms_on_step(next(e for e in entries if e["name"] == "nms_fixed"), nms_calls)
+    del proposals, nms_calls
 
     phase_small_reference(dev)
     del bundle

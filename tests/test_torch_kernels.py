@@ -8,7 +8,11 @@ skip without a CUDA device. On a machine with the card:
 They sweep shapes that ``chip_smoke.py`` (which checks the main paths'
 shapes) does not: channel counts that are not a multiple of the block,
 candidate counts around the 64-bit mask words, budgets larger than the
-candidate count, rows with no candidate; sequence lengths around the
+candidate count, rows with no candidate, every cluster size K2 takes
+(one thread-block cluster a row) at the RPN shape and at K = 64 * CL +- 1,
+each of its two sort paths and the row length beyond them that it refuses,
+a sweep to the last candidate, negative thresholds, identical boxes, NaN
+coordinates and scores, one launch a call; sequence lengths around the
 64-key tile and the 128 pad block, padded rows down to length 1, masks
 whose whole key tiles K3 skips, its statistics and its determinism; for the
 backward kernels K5 and K4 also masks whose whole 64-row tiles share no id
@@ -21,6 +25,8 @@ for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
 multiple of the kernel's chunk, and groups of RoIs.
 """
+
+import functools
 
 import pytest
 import torch
@@ -39,7 +45,7 @@ from vltk_tpu_torch.ops.flash_attention_kernel import (
     flash_attention_fwd_residuals_cuda,
 )
 from vltk_tpu_torch.ops.nms import nms_fixed
-from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto, nms_fixed_cuda
+from vltk_tpu_torch.ops.nms_kernel import CLUSTERS, MAX_CANDIDATES, nms_fixed_auto, nms_fixed_cuda
 from vltk_tpu_torch.ops import roi_pool_ablation as ablation
 from vltk_tpu_torch.ops.roi_pool import roi_pool
 from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
@@ -54,6 +60,7 @@ from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
     pool_grouped_v3_cuda,
 )
 from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto, roi_pool_cuda
+from vltk_tpu_torch.tools.bench_nms import nms_case
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +235,138 @@ def test_nms_per_row_thresholds_and_single_row(dev):
     assert torch.equal(got[0], want[0])
     one = nms_fixed_cuda(boxes[0], scores[0], 0.5, 36)
     assert torch.equal(one[0], want[0][0])
+
+
+# NaN rows: JAX's nms_fixed gives these keeps (tests/test_torch_ops.py
+# holds the plain version to it on the CPU). A NaN coordinate makes every
+# IoU of its box 0; a valid NaN score is taken first by argmax and is no
+# candidate, so nothing in its row is kept.
+NAN_BOXES = [[0, 0, 10, 10], [1, 1, 11, 11], [0, 0, float("nan"), 10], [2, 2, 12, 12]]
+NAN_SCORES = [0.9, 0.8, 0.95, 0.7]
+NAN_COORD_KEEP = [2, 0, 3, -1]
+NAN_SCORE_KEEP = [-1, -1, -1, -1]
+
+
+@functools.lru_cache(maxsize=None)
+def _rpn_rows(max_out: int):
+    """chip_smoke.py's RPN rows (8, 6000) at 0.7 and the plain keeps."""
+    boxes, scores, valid = nms_case(torch.Generator().manual_seed(2), 8, 6000, "cuda")
+    return boxes, scores, valid, nms_fixed(boxes, scores, 0.7, max_out, valid)
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("max_out", [300, 1000])
+def test_nms_every_cluster_size_keeps_the_same(dev, cluster, max_out):
+    boxes, scores, valid, want = _rpn_rows(max_out)
+    got = nms_fixed_cuda(boxes, scores, 0.7, max_out, valid, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [512, 513, 6144])
+def test_nms_every_sort_path(dev, k):
+    """K2 sorts a row by counting ranks up to 512 candidates, with CUB's
+    block radix sort up to 6144; ties among the scores keep the lower index
+    first on each path."""
+    boxes, scores, valid = nms_case(torch.Generator().manual_seed(k), 3, k, dev)
+    for max_out in (300, k):
+        got = nms_fixed_cuda(boxes, scores, 0.6, max_out, valid)
+        torch.cuda.synchronize()
+        want = nms_fixed(boxes, scores, 0.6, max_out, valid)
+        assert torch.equal(got[0], want[0]), max_out
+
+
+def test_nms_refuses_rows_beyond_its_sort(dev):
+    """A row longer than MAX_CANDIDATES (6144) raises on the card."""
+    boxes, scores, valid = nms_case(torch.Generator().manual_seed(1), 1, MAX_CANDIDATES + 1, dev)
+    with pytest.raises(ValueError, match="at most 6144"):
+        nms_fixed_cuda(boxes, scores, 0.6, 300, valid)
+
+
+@pytest.mark.parametrize("cluster", [None, 1, 4, 8])
+def test_nms_sweep_runs_to_the_last_candidate(dev, cluster):
+    """t = 1.0 removes only boxes with IoU above 1: every live candidate is
+    kept, duplicates too, and the budget exceeds the live count."""
+    gen = torch.Generator().manual_seed(11)
+    xy = torch.rand(3, 700, 2, generator=gen) * 500
+    boxes = torch.cat([xy, xy + 5 + torch.rand(3, 700, 2, generator=gen) * 100], dim=-1)
+    boxes[:, 1] = boxes[:, 0]
+    scores = torch.rand(3, 700, generator=gen)
+    valid = torch.rand(3, 700, generator=gen) > 0.2
+    boxes, scores, valid = boxes.to(dev), scores.to(dev), valid.to(dev)
+    got = nms_fixed_cuda(boxes, scores, 1.0, 720, valid, _cluster=cluster)
+    torch.cuda.synchronize()
+    want = nms_fixed(boxes, scores, 1.0, 720, valid)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].sum(1), valid.sum(1).to(torch.int64))
+
+
+@pytest.mark.parametrize("cluster", [None, 2])
+def test_nms_negative_threshold_takes_no_early_out(dev, cluster):
+    """Below 0 every pair suppresses, boxes that do not overlap and boxes
+    with a NaN coordinate too (IoU 0 > t); -0.0 and 0.0 keep the early-out."""
+    gen = torch.Generator().manual_seed(12)
+    xy = torch.rand(4, 200, 2, generator=gen) * 1000
+    boxes = torch.cat([xy, xy + 10], dim=-1)
+    boxes[:, 3, 2] = float("nan")
+    scores = torch.rand(4, 200, generator=gen)
+    thr = torch.tensor([-0.5, -1e-30, -0.0, 0.0])
+    boxes, scores, thr = boxes.to(dev), scores.to(dev), thr.to(dev)
+    got = nms_fixed_cuda(boxes, scores, thr, 50, _cluster=cluster)
+    torch.cuda.synchronize()
+    want = nms_fixed(boxes, scores, thr, 50)
+    assert torch.equal(got[0], want[0])
+    assert got[1][:2].sum(1).tolist() == [1, 1]
+
+
+def test_nms_identical_boxes_keep_one(dev):
+    boxes = torch.tensor([[5.0, 5.0, 50.0, 40.0]]).expand(2, 300, 4).contiguous().to(dev)
+    scores = torch.rand(2, 300, generator=torch.Generator().manual_seed(13)).to(dev)
+    got = nms_fixed_cuda(boxes, scores, 0.5, 36)
+    torch.cuda.synchronize()
+    want = nms_fixed(boxes, scores, 0.5, 36)
+    assert torch.equal(got[0], want[0]) and got[1].sum(1).tolist() == [1, 1]
+
+
+@pytest.mark.parametrize("delta", [-1, 1])
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_nms_candidates_around_whole_cluster_words(dev, cluster, delta):
+    """K = 64 * CL +- 1: the last CTA holds one candidate more than whole
+    words, or one word is one short."""
+    k = 64 * cluster + delta
+    gen = torch.Generator().manual_seed(k)
+    xy = torch.rand(3, k, 2, generator=gen) * 200
+    boxes = torch.cat([xy, xy + torch.rand(3, k, 2, generator=gen) * 80], dim=-1).to(dev)
+    scores = (torch.round(torch.randn(3, k, generator=gen) * 3) / 3).to(dev)
+    for max_out in (10, k):
+        got = nms_fixed_cuda(boxes, scores, 0.3, max_out, _cluster=cluster)
+        torch.cuda.synchronize()
+        want = nms_fixed(boxes, scores, 0.3, max_out)
+        assert torch.equal(got[0], want[0]), max_out
+
+
+@pytest.mark.parametrize("cluster", [None, 2])
+def test_nms_nan_rows_match_jax(dev, cluster):
+    boxes = torch.tensor([NAN_BOXES, NAN_BOXES, [[0, 0, 10, 10]] * 4], device=dev)
+    scores = torch.tensor([NAN_SCORES, [0.9, float("nan"), 0.95, 0.7], NAN_SCORES], device=dev)
+    valid = torch.tensor([[True] * 4, [True] * 4, [True, False, True, True]], device=dev)
+    scores[2, 1] = float("nan")  # an invalid NaN score is no NaN candidate
+    got, got_valid = nms_fixed_cuda(boxes, scores, 0.5, 4, valid, _cluster=cluster)
+    torch.cuda.synchronize()
+    assert got[0].tolist() == NAN_COORD_KEEP
+    assert got[1].tolist() == NAN_SCORE_KEEP
+    want = nms_fixed(boxes, scores, 0.5, 4, valid)
+    assert torch.equal(got, want[0]) and torch.equal(got_valid, want[1])
+
+
+def test_nms_one_launch_per_call(dev):
+    boxes, scores, valid, _ = _rpn_rows(300)
+    before = nms_fixed_auto.launches
+    for n in range(1, 4):
+        nms_fixed_auto(boxes, scores, 0.7, 300, valid)
+        assert nms_fixed_auto.launches == before + n
+    nms_fixed_auto(boxes[0, :300], scores[0, :300], 0.5, 36)
+    assert nms_fixed_auto.launches == before + 4
 
 
 # bf16: 2 ulps at |x| ~ 1 (the kernel rounds p to bf16 after an online

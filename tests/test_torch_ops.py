@@ -296,3 +296,82 @@ class TestNMS:
             )
             np.testing.assert_array_equal(keep[i].numpy(), single.numpy())
             np.testing.assert_array_equal(single.numpy(), np.asarray(want))
+
+
+# a NaN coordinate gives its box IoU 0 with every box (maximum and minimum
+# carry the NaN into the union, and the union test fails); a valid NaN score
+# is argmax's first pick and no candidate, so its row keeps nothing
+NAN_BOXES = np.array([[0, 0, 10, 10], [1, 1, 11, 11], [0, 0, np.nan, 10], [2, 2, 12, 12]], np.float32)
+
+
+def clustered_rows(rng, rows, k):
+    """Proposal-like rows: boxes clustered around k // 40 centres, logits
+    with ties, a few invalid entries."""
+    centers = rng.uniform(0, 1, (rows, k // 40, 2)) * [1000.0, 760.0]
+    pick = rng.integers(0, k // 40, (rows, k))
+    ctr = np.take_along_axis(centers, pick[..., None], 1) + rng.normal(0, 12, (rows, k, 2))
+    wh = 20 + rng.uniform(0, 200, (rows, k, 2))
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(np.float32)
+    scores = rng.normal(0, 1, (rows, k)).astype(np.float32)
+    scores[:, : k // 10] = np.round(scores[:, : k // 10] * 4) / 4
+    valid = rng.uniform(0, 1, (rows, k)) > 0.05
+    return boxes, scores, valid
+
+
+class TestNMSAgainstJAX:
+    @pytest.mark.parametrize(
+        "scores,want",
+        [([0.9, 0.8, 0.95, 0.7], [2, 0, 3, -1]), ([0.9, np.nan, 0.95, 0.7], [-1, -1, -1, -1])],
+        ids=["nan_coordinate", "nan_score"],
+    )
+    def test_nan_rows(self, scores, want):
+        """Exact keeps against nms_fixed and nms_fixed_blocked, one row and
+        in a batch beside a row without NaN."""
+        scores = np.array(scores, np.float32)
+        for fn in (jx_nms.nms_fixed, lambda *a: jx_nms.nms_fixed_blocked(*a, block=2)):
+            jk, jv = fn(jnp.asarray(NAN_BOXES), jnp.asarray(scores), 0.5, 4)
+            np.testing.assert_array_equal(np.asarray(jk), want)
+        keep, kv = nms_fixed_auto(t(NAN_BOXES), t(scores), 0.5, 4)
+        assert keep.tolist() == want and kv.tolist() == [w >= 0 for w in want]
+        other = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+        keep2, _ = pt_nms.nms_fixed(t(np.stack([NAN_BOXES] * 2)), t(np.stack([scores, other])), 0.5, 4)
+        want_other, _ = jx_nms.nms_fixed(jnp.asarray(NAN_BOXES), jnp.asarray(other), 0.5, 4)
+        assert keep2[0].tolist() == want
+        np.testing.assert_array_equal(keep2[1].numpy(), np.asarray(want_other))
+
+    def test_rpn_scale_row(self):
+        """(1, 6000) -> 300 at 0.7, the RPN's call per image, against the
+        JAX scan."""
+        boxes, scores, valid = clustered_rows(np.random.default_rng(9), 1, 6000)
+        keep, kv = nms_fixed_auto(t(boxes), t(scores), 0.7, 300, valid=t(valid))
+        jk, jv = jx_nms.nms_fixed(jnp.asarray(boxes[0]), jnp.asarray(scores[0]), 0.7, 300,
+                                  valid=jnp.asarray(valid[0]))
+        np.testing.assert_array_equal(keep[0].numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(kv[0].numpy(), np.asarray(jv))
+        assert int(kv.sum()) == 300
+
+    def test_retry_nms_shape(self):
+        """3 rows of 300 -> 36 at 0.5 / 1.0 / 0.1 (the detection selection
+        of one image), against nms_fixed and nms_fixed_blocked called
+        directly."""
+        boxes, scores, valid = clustered_rows(np.random.default_rng(10), 1, 300)
+        thr = [0.5, 1.0, 0.1]
+        keep, _ = nms_fixed_auto(t(np.repeat(boxes, 3, 0)), t(np.repeat(scores, 3, 0)),
+                                 torch.tensor(thr), 36, valid=t(np.repeat(valid, 3, 0)))
+        args = (jnp.asarray(boxes[0]), jnp.asarray(scores[0]))
+        for i, th in enumerate(thr):
+            for jk, _ in (jx_nms.nms_fixed(*args, th, 36, valid=jnp.asarray(valid[0])),
+                          jx_nms.nms_fixed_blocked(*args, th, 36, valid=jnp.asarray(valid[0]), block=64)):
+                np.testing.assert_array_equal(keep[i].numpy(), np.asarray(jk))
+
+    def test_bench_nms_replay_on_the_cpu(self):
+        """tools.bench_nms --device cpu: its CPU replay of K2's word loop
+        keeps what the plain version keeps on the smoke rows (it raises
+        otherwise), and greedy's pair count is at most K2's."""
+        from vltk_tpu_torch.tools import bench_nms
+
+        out = bench_nms.main(["--device", "cpu", "--batch", "2"])
+        for case in ("smoke rpn", "smoke detections"):
+            assert 0 < out[case]["greedy_pairs"] <= out[case]["kernel_pairs"] < out[case]["mask_pairs"]
+            assert out[case]["words"] > 0
+        assert out["smoke rpn"]["last_keep_rank"][1] == -1  # the empty row

@@ -3,10 +3,12 @@ the card, the plain version (``ops/nms.py:nms_fixed``) for tensors on the
 CPU. Same contract either way: (R, max_out) int32 keep indices in greedy
 order, -1 padded, plus a validity mask.
 
-The wrapper does the part that is no kernel's business: it masks invalid
-candidates, sorts each row by score with a stable descending sort (equal
-scores keep the lower index first, the order argmax-greedy visits them)
-and allocates the outputs and the IoU bit-mask scratch.
+The kernel masks, sorts and gathers the rows itself and needs no scratch:
+the wrapper checks its inputs, picks the cluster size (CTAs a row) and
+allocates the output, so a call is one launch. The kernel sorts a row in
+one CTA's shared memory, which caps it at ``MAX_CANDIDATES`` (6144)
+candidates a row (every configuration's ``pre_nms_topk`` is at most 6000);
+a longer row raises ``ValueError`` on the card.
 ``nms_fixed_auto.launches`` counts kernel launches (CPU calls do not).
 """
 
@@ -18,15 +20,91 @@ from typing import Optional, Tuple, Union
 import torch
 
 from vltk_tpu_torch.ops import _build
-from vltk_tpu_torch.ops.nms import NEG_INF, nms_fixed, row_thresholds
+from vltk_tpu_torch.ops.nms import nms_fixed, row_thresholds
+
+#: cluster sizes the kernel takes (up to the portable maximum, 8)
+CLUSTERS = (1, 2, 4, 8)
+# CTAs a row the wrapper picks for rows above SPLIT_ABOVE candidates: the
+# pull of a word against the keeps so far splits over them. On the card
+# (tools.bench_nms --clusters) 4 was the fastest for the RPN's 6000-candidate
+# rows and 1 for the detection rows' 300
+SPLIT_CLUSTER, SPLIT_ABOVE = 4, 1024
+#: the most candidates a row the kernel takes: its block radix sort holds
+#: 12 keys in each of 512 threads (``csrc/nms.cu:kMaxK``)
+MAX_CANDIDATES = 6144
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("nms")
-    fn = lib.nms_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    return bind(_build.load("nms"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C entry points' argument types on a loaded library of
+    ``csrc/nms.cu`` (or of an edited copy)."""
+    lib.nms_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.nms_forward.restype = ctypes.c_int
+    lib.nms_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.nms_smem_bytes.restype = ctypes.c_longlong
     return lib
+
+
+def plan(k: int, max_out: int, cluster: Optional[int] = None, lib: Optional[ctypes.CDLL] = None):
+    """(cluster size, dynamic shared memory a CTA) of a launch over rows of
+    ``k`` candidates with a budget of ``max_out``: the given cluster size,
+    else ``SPLIT_CLUSTER`` CTAs a row above ``SPLIT_ABOVE`` candidates and
+    one below. Every row the kernel takes fits one CTA (``csrc/nms.cu``
+    asserts it when it is built)."""
+    cl = cluster or (SPLIT_CLUSTER if k > SPLIT_ABOVE else 1)
+    return cl, (lib or _lib()).nms_smem_bytes(k, max_out, cl)
+
+
+def prepare(boxes, scores, iou_threshold, valid=None):
+    """What the wrapper hands the kernel, on (R, K, 4) boxes and (R, K)
+    scores on one CUDA device: float32 boxes and scores, the validity mask
+    (or None), and the threshold as a per-row tensor or a number. It copies
+    only what is not float32 and contiguous already (the RPN's scores are a
+    slice of its sorted logits) and sends no number to the card."""
+    dev = boxes.device
+    if valid is not None:
+        valid = valid.to(dev, torch.bool).contiguous()
+    if torch.is_tensor(iou_threshold):
+        thr, value = row_thresholds(iou_threshold.to(dev), scores.shape[0], dev), 0.0
+    else:
+        thr, value = None, float(iou_threshold)
+    return (boxes.to(torch.float32).contiguous(), scores.to(torch.float32).contiguous(),
+            valid, thr, value)
+
+
+def launch(prep, max_out: int, cluster: Optional[int] = None, lib: Optional[ctypes.CDLL] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on prepared inputs, one launch: (R, max_out) int32 keep
+    and its (R, max_out) bool validity.
+    ``cluster`` overrides the cluster size the wrapper picks; ``lib`` is
+    another build of the kernel (``bind``; ``tools.bench_nms``)."""
+    boxes, scores, valid, thr, value = prep
+    dev = boxes.device
+    r, k = scores.shape
+    if k > MAX_CANDIDATES:
+        raise ValueError(f"nms kernel: {k} candidates a row, it takes at most {MAX_CANDIDATES}")
+    if cluster is not None and cluster not in CLUSTERS:
+        raise ValueError(f"nms kernel: cluster size {cluster}, want one of {CLUSTERS}")
+    keep = torch.empty((r, max_out), dtype=torch.int32, device=dev)
+    kept = torch.empty((r, max_out), dtype=torch.bool, device=dev)
+    if r == 0 or max_out == 0:
+        return keep, kept
+    lib = lib or _lib()
+    cl, _ = plan(k, max_out, cluster, lib)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.nms_forward(
+            boxes.data_ptr(), scores.data_ptr(), None if valid is None else valid.data_ptr(),
+            None if thr is None else thr.data_ptr(), value, keep.data_ptr(), kept.data_ptr(),
+            r, k, max_out, cl, stream,
+        )
+    _build.check(err, "nms_forward launch")
+    nms_fixed_auto.launches += 1
+    return keep, kept
 
 
 def nms_fixed_cuda(
@@ -35,9 +113,12 @@ def nms_fixed_cuda(
     iou_threshold: Union[float, torch.Tensor],
     max_out: int,
     valid: Optional[torch.Tensor] = None,
+    *,
+    _cluster: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on (R, K, 4) boxes and (R, K) scores on one CUDA
-    device (or (K, 4) and (K,) for one row)."""
+    device (or (K, 4) and (K,) for one row), K at most ``MAX_CANDIDATES``.
+    ``_cluster`` (tests only) overrides the cluster size."""
     single = boxes.dim() == 2
     if single:
         boxes, scores = boxes[None], scores[None]
@@ -47,35 +128,15 @@ def nms_fixed_cuda(
             f"nms: want boxes (R,K,4) and scores (R,K), got "
             f"{tuple(boxes.shape)} and {tuple(scores.shape)}"
         )
+    if valid is not None and valid.shape != scores.shape:
+        raise ValueError(f"nms: valid {tuple(valid.shape)} != scores {tuple(scores.shape)}")
     dev = boxes.device
     if dev.type != "cuda" or scores.device != dev:
         raise ValueError("nms kernel: boxes and scores must share a CUDA device")
-    r, k = scores.shape
-    live = scores.to(torch.float32)
-    if valid is not None:
-        live = torch.where(valid.to(dev), live, torch.full_like(live, NEG_INF))
-    sorted_live, order = torch.sort(live, dim=1, descending=True, stable=True)
-    n_cand = (sorted_live > NEG_INF / 2).sum(dim=1, dtype=torch.int32)
-    sboxes = torch.gather(
-        boxes.to(torch.float32), 1, order[..., None].expand(r, k, 4)
-    ).contiguous()
-    order = order.contiguous()
-    thr = row_thresholds(iou_threshold, r, dev)
-    nwords = -(-k // 64)
-    mask = torch.empty((r, k, nwords), dtype=torch.int64, device=dev)
-    keep = torch.empty((r, max_out), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().nms_forward(
-            sboxes.data_ptr(), order.data_ptr(), n_cand.data_ptr(),
-            thr.data_ptr(), mask.data_ptr(), keep.data_ptr(),
-            r, k, max_out, stream,
-        )
-    _build.check(err, "nms_forward launch")
-    nms_fixed_auto.launches += 1
+    keep, kept = launch(prepare(boxes, scores, iou_threshold, valid), max_out, _cluster)
     if single:
-        keep = keep[0]
-    return keep, keep >= 0
+        return keep[0], kept[0]
+    return keep, kept
 
 
 def nms_fixed_auto(
