@@ -17,15 +17,23 @@ package):
    copy one element into its storage; the wrapper's per-path counts show
    which ran); times both paths and the plain version at both step shapes
    (the median of five readings of 20 calls queued ahead, with the spread);
-4. holds the RoIPool ablation kernels K6-K9 (``pool``, ``pool_contig``,
+4. prints the block shape of the ablation kernels K6 and K7 and the
+   registers, spills, shared memory and resident warps of K6, K7 and the
+   table build (the bf16 vector path must spill nothing and use under 4 KB
+   of shared memory); holds K6-K9 (``pool``, ``pool_contig``,
    ``pool_grouped``, ``pool_grouped_v3``) against their plain versions,
    bitwise, every mode, at (2, 52, 84, 1024) float32 and (8, 52, 84, 1024)
-   bf16 x 300 RoIs (K7 at cb 128, K8/K9 at G 4 and 12), and the RoIPool
-   modes against K1; times every mode, the table build alone and the
-   plain versions at the bf16 shape and prints the phase split; then runs
-   the probe's path (``tools.probe_roipool_ablation.run``: every variant
+   bf16 x 300 RoIs (K7 at cb 128, K8/K9 at G 4 and 12), K6 and K7 on both
+   paths (16-byte vectors; one element a thread on a copy one element
+   into its storage) and on a copy with NaN and -inf cells (NaN in the
+   same places), and the RoIPool modes against K1; times every mode and
+   the table build alone (the median of five readings queued ahead, with
+   the spread), K6's and K7's ``full`` on the scalar path, and the plain
+   versions at the bf16 shape, and prints the phase split; then runs the
+   probe's path (``tools.probe_roipool_ablation.run``: every variant
    timed and checked against K1 on the probe's inputs) with the launch
-   counts set to 0 and checks that K6-K9 were launched there;
+   counts set to 0 and checks that K6-K9 were launched there, K6 and K7
+   on the vector path;
 5. prints K2's registers and spills, holds the greedy-NMS kernel K2
    against its plain version, exact keep indices and masks, at the RPN
    shape (B, 6000) -> 300 and the detection shape (B*3, 300) -> 36 for B=8
@@ -101,6 +109,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -176,9 +185,12 @@ def bound(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bitwise_view(x: torch.Tensor) -> torch.Tensor:
+    return x.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[x.dtype])
+
+
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
-    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(bitwise_view(a), bitwise_view(b))
 
 
 # --------------------------------------------------------------------- K1
@@ -403,18 +415,91 @@ def ablation_work(label: str, feat: torch.Tensor, boxes: torch.Tensor, out: torc
     return nbytes, float((rows[..., :, None] * cols[..., None, :]).sum()) * c
 
 
-def phase_roi_ablation(dev) -> list:
+def nan_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN in the same places, every other value bitwise equal."""
+    nan = torch.isnan(want.float())
+    return (got.dtype == want.dtype and got.shape == want.shape and torch.equal(torch.isnan(got.float()), nan)
+            and torch.equal(bitwise_view(got)[~nan], bitwise_view(want)[~nan]))
+
+
+def with_nonfinite_cells(feat: torch.Tensor) -> torch.Tensor:
+    """A copy of the map with NaN cells, runs of -inf along a row, a column
+    and across channels (bins whose max is -inf, written as 0) and +inf
+    cells."""
+    f = feat.clone()
+    f[0, 10, :, :4] = float("nan")  # a row under 14: every mode reads it
+    f[-1, 30, 40, 7] = float("nan")
+    f[0, 3, :, 5] = float("-inf")
+    f[-1, :, 60, :] = float("-inf")
+    f[0, 20:26, 30:40] = float("-inf")
+    f[-1, 5, 70, 1] = float("inf")
+    return f
+
+
+def ablation_ptxas(lines, threads: int) -> None:
+    """Prints the ptxas lines of K6, K7 and the table build (registers,
+    spills, static shared memory; they launch with no dynamic shared
+    memory) with the warps an SM holds at their register counts in blocks
+    of ``threads``, and checks that the bf16 vector path spills nothing and
+    uses under 4 KB of shared memory a block."""
+    kernels = {}
+    for line in lines:
+        name, _, text = line.partition(": ")
+        if not name.startswith(("roi_ablation_pool_", "roi_ablation_contig_", "roi_ablation_build_")):
+            continue
+        k = kernels.setdefault(name, {"registers": 0, "spill_stores": 0, "smem": 0})
+        for key, pattern in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("smem", r"(\d+) bytes smem")):
+            m = re.search(pattern, text)
+            if m:
+                k[key] = int(m.group(1))
+    if not kernels:
+        print("roi_pool_ablation K6/K7 ptxas: cached build")
+        return
+    warps = threads // 32
+    for name, k in sorted(kernels.items()):
+        # registers are allocated in 256s a warp, 64K an SM; at most 64
+        # warps and 32 blocks an SM
+        per_warp = -(-k["registers"] * 32 // 256) * 256
+        k["warps_per_sm"] = min(65536 // max(per_warp, 1) // warps, 32, 64 // warps) * warps
+        print(f"roi_pool_ablation ptxas {name}: {k['registers']} registers, {k['spill_stores']} bytes spill stores, "
+              f"{k['smem']} bytes static shared memory, {k['warps_per_sm']} resident warps an SM (from the registers)")
+    vector = {n: k for n, k in kernels.items() if n.endswith("_bf16_vector")}
+    check(len(vector) == 10, f"ptxas lines of {len(vector)} bf16 vector K6/K7/build kernels, want 10")
+    check(all(k["spill_stores"] == 0 for k in vector.values()), "a K6/K7 bf16 vector kernel spills")
+    check(all(k["smem"] < 4096 for k in vector.values()), "a K6/K7 bf16 vector kernel uses 4 KB of shared memory")
+
+
+def phase_roi_ablation(dev, ptxas) -> list:
     """K6-K9 against their plain versions, bitwise, every mode, at the
     probe's map in float32 (B=2) and bf16 (B=8) x 300 RoIs on
-    ``roi_boxes``; the RoIPool modes also against K1. Times every mode, the
-    table build alone, K1 and the plain versions at the bf16 shape; then
-    runs the probe's path once and counts its launches. Returns the four
+    ``roi_boxes``; the RoIPool modes also against K1. K6 and K7 also on
+    their scalar path (an unaligned copy of the map) and on a copy with NaN
+    and -inf cells (NaN in the same places). Times every mode and the table
+    build (the median of five readings of 20 calls queued ahead), K1 and
+    the plain versions at the bf16 shape; then runs the probe's path once
+    and counts its launches, by path for K6 and K7. Returns the four
     kernels-line entries."""
     from vltk_tpu_torch.ops import KERNEL_WRAPPERS
     from vltk_tpu_torch.ops import roi_pool_ablation as plain
-    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import build_table_cuda
+    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import _lib, build_table_cuda, pool_auto, pool_contig_auto
     from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
     from vltk_tpu_torch.tools import probe_roipool_ablation as probe
+    from vltk_tpu_torch.tools.variants import unaligned
+
+    lib = _lib()
+    print(f"roi_pool_ablation K67_SHAPE={lib.roi_ablation_shape():04d} K67_SLAB={lib.roi_ablation_slab()}")
+    ablation_ptxas(ptxas, threads=128 * (lib.roi_ablation_shape() % 10))
+    path_counts = {"pool": pool_auto.path_launches, "pool_contig": pool_contig_auto.path_launches}
+
+    def run_on(name, kernel, feat, boxes, want_path):
+        before = dict(path_counts[name]) if name in path_counts else None
+        got = kernel(feat, boxes)
+        torch.cuda.synchronize()
+        if before is not None:
+            took = [k for k, v in path_counts[name].items() if v != before[k]]
+            check(took == [want_path], f"{name} took the {took} path, want {want_path}")
+        return got
 
     gen = torch.Generator().manual_seed(8)
     cases = ablation_cases()
@@ -423,40 +508,72 @@ def phase_roi_ablation(dev) -> list:
         feat = torch.randn(b, *FEAT_HW, C_RES4, generator=gen).to(dev, dtype)
         boxes = roi_boxes(gen, b, N_ROI, dev)
         k1 = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+        scalar_feat = unaligned(feat)
         for name, label, kernel, ref, is_roipool in cases:
-            got = kernel(feat, boxes)
-            torch.cuda.synchronize()
             want = ref(feat, boxes)
+            got = run_on(name, kernel, feat, boxes, "vector")
             eq = bitwise_equal(got, want)
             err = float((got.float() - want.float()).abs().max())
             worst[name] = max(worst.get(name, 0.0), err)
             same_k1 = None
             if is_roipool:
                 same_k1 = bitwise_equal(plain.from_contig(got) if name == "pool_contig" else got, k1)
+            del got
+            scalar_eq = None
+            if name in path_counts:
+                scalar_eq = bitwise_equal(run_on(name, kernel, scalar_feat, boxes, "scalar"), want)
             print(f"{label} {tuple(feat.shape)} {dtype} x {N_ROI}: bitwise_equal={eq} max_abs_err={err} "
-                  f"equal_to_K1={same_k1}")
+                  f"equal_to_K1={same_k1} scalar_path_bitwise_equal={scalar_eq}")
             check(eq, f"{label} kernel != plain at {tuple(feat.shape)} {dtype}")
+            check(scalar_eq is not False, f"{label} scalar path != plain at {tuple(feat.shape)} {dtype}")
             check(same_k1 is not False, f"{label} != K1 at {tuple(feat.shape)} {dtype}")
-            del got, want
+            del want
+        del scalar_feat
+        # NaN and -inf cells: K6 and K7 on both paths
+        special = with_nonfinite_cells(feat)
+        special_scalar = unaligned(special)
+        for name, label, kernel, ref, _ in cases:
+            if name not in path_counts:
+                continue
+            want = ref(special, boxes)
+            ok = [nan_equal(run_on(name, kernel, f, boxes, path), want)
+                  for f, path in ((special, "vector"), (special_scalar, "scalar"))]
+            n_nan = int(torch.isnan(want.float()).sum())
+            print(f"{label} {tuple(feat.shape)} {dtype} with NaN and -inf cells: {n_nan} NaN outputs; "
+                  f"vector path nan_equal={ok[0]}, scalar path nan_equal={ok[1]}")
+            check(all(ok), f"{label} != plain with NaN and -inf cells at {tuple(feat.shape)} {dtype}")
+            check(n_nan > 0 or label.endswith(("p1only", "zeroOut")), f"{label}: no NaN reached the output")
+            del want
+        del special, special_scalar
         torch.cuda.empty_cache()
 
-    # timed at the bf16 shape of the loop's last pass
+    # timed at the bf16 shape of the loop's last pass: the median of five
+    # readings of 20 calls queued ahead of a sleeping card, the range beside
     rows = {}
     k1_ms = cuda_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16), reps=20)
-    table_ms = cuda_ms(lambda: build_table_cuda(feat), reps=20)
+    table_runs = spread_ms(lambda: build_table_cuda(feat))
+    table_ms = table_runs[2]
     levels = plain.caps(*FEAT_HW)[0]
     t_bound, _ = bound(feat.numel() * 2 * (1 + levels), 0.0)
-    print(f"roi_pool_ablation table build {tuple(feat.shape)} bf16 ({levels} levels): {table_ms:.4f} ms, "
+    print(f"roi_pool_ablation table build {tuple(feat.shape)} bf16 ({levels} levels): {show(table_runs)}, "
           f"bound {t_bound:.4f} ms (bytes); K1 {k1_ms:.4f} ms")
     for name, label, kernel, ref, _ in cases:
         out = kernel(feat, boxes)
-        ms = cuda_ms(lambda: kernel(feat, boxes), reps=20)
+        runs = spread_ms(lambda: kernel(feat, boxes))
         plain_ms = cuda_ms(lambda: ref(feat, boxes), reps=2, warmup=1)
         bound_ms, bound_by = bound(*ablation_work(label, feat, boxes, out))
-        rows[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"{label} timing {tuple(feat.shape)} bf16 x {N_ROI}: kernel {ms:.4f} ms (table build included), "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        rows[label] = {"ms": runs[2], "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "ms_runs": runs}
+        print(f"{label} timing {tuple(feat.shape)} bf16 x {N_ROI}: kernel {show(runs)} (table build included), "
+              f"{runs[2] / bound_ms:.2f}x the bound; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         del out
+    scalar_feat = unaligned(feat)
+    for label, kernel in (("pool full", lambda f: pool_auto(f, boxes, "full")),
+                          ("pool_contig full", lambda f: pool_contig_auto(f, boxes, "full", 128))):
+        runs = spread_ms(lambda: kernel(scalar_feat), reps=5, runs=3)
+        rows[label]["scalar_ms"] = runs[1]
+        print(f"{label} timing on the scalar path (unaligned copy): {show(runs)}")
+    del scalar_feat
     r = {k: v["ms"] for k, v in rows.items()}
     print(
         f"roi_pool_ablation phase split (ms, bf16 {tuple(feat.shape)} x {N_ROI}): build {table_ms:.4f}; "
@@ -473,11 +590,15 @@ def phase_roi_ablation(dev) -> list:
     feat, boxes = probe.make_inputs(*probe.SHAPE, dev)
     for w in KERNEL_WRAPPERS.values():
         w.launches = 0
+    for counts in path_counts.values():
+        counts.update(vector=0, scalar=0)
     probe_rows = probe.run(feat, boxes, iters=5)
     launches = {name: KERNEL_WRAPPERS[name].launches for name in ("pool", "pool_contig", "pool_grouped", "pool_grouped_v3")}
+    by_path = {name: dict(counts) for name, counts in path_counts.items()}
     check(all(r["same_as_shipped"] is not False for r in probe_rows), "probe: a RoIPool variant != K1")
     check(all(n > 0 for n in launches.values()), f"probe path launched {launches}")
-    print("probe_run " + json.dumps({"launches": launches, "rows": probe_rows}))
+    check(all(by_path[n]["vector"] == launches[n] for n in by_path), f"probe path took the scalar path: {by_path}")
+    print("probe_run " + json.dumps({"launches": launches, "launches_by_path": by_path, "rows": probe_rows}))
     del feat, boxes
     torch.cuda.empty_cache()
 
@@ -1424,7 +1545,7 @@ def main() -> int:
             print(f"  {name}: {line}")
 
     entries = [phase_roi_pool(dev, _build.ptxas_lines(outputs.get("roi_pool", "")))]
-    ablation = phase_roi_ablation(dev)
+    ablation = phase_roi_ablation(dev, _build.ptxas_lines(outputs.get("roi_pool_ablation", "")))
     entries.append(phase_nms(dev, batch=8, ptxas=_build.ptxas_lines(outputs.get("nms", ""))))
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
     entries.append(phase_flash(dev, _build.ptxas_lines(outputs.get("flash_attention", ""))))

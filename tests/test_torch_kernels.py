@@ -23,7 +23,9 @@ q/k/v projections; K1's refusal to cut a gradient, both of its paths
 group, an unaligned base, NaN and infinite cells;
 for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
-multiple of the kernel's chunk, and groups of RoIs.
+multiple of the kernel's chunk, and groups of RoIs; K6 and K7 on both of
+their paths (16-byte vectors and one element a thread), with NaN and -inf
+cells, and their per-path launch counts.
 """
 
 import functools
@@ -813,8 +815,8 @@ def test_pool_grouped_kernels_bitwise(dev, dtype, shape, v3):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_contig_tile_of_an_odd_channel_block(dev, dtype):
-    """cb = 3: the 14 x 14 x cb tile is not a multiple of 16 bytes, so K7
-    stores it element by element."""
+    """cb = 3 (C = 9): not a multiple of the vector width, so K7 takes its
+    scalar path, one element a thread."""
     feat, boxes = _ablation_case(dev, dtype, 1, 20, 24, 9, 6)
     for mode in ablation.CONTIG_MODES:
         got = pool_contig_cuda(feat, boxes, mode, 3)
@@ -848,6 +850,104 @@ def test_ablation_roipool_modes_equal_k1_inside_the_map(dev):
     torch.cuda.synchronize()
     for got in outs:
         assert torch.equal(_bits(got), _bits(want))
+
+
+# (name, C, cb, K6's path, K7's path): an aligned map whose C and cb take
+# 16-byte vectors; an unaligned copy of it; C = 9 (cb = 3); cb = 6, which
+# sends K7 alone to the scalar path
+K67_PATH_CASES = [
+    ("aligned", 72, 8, "vector", "vector"),
+    ("unaligned", 72, 8, "scalar", "scalar"),
+    ("odd_c", 9, 3, "scalar", "scalar"),
+    ("odd_cb", 72, 6, "vector", "scalar"),
+]
+
+
+def _nan_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN in the same places, every other value bitwise equal."""
+    nan = torch.isnan(want.float())
+    return (got.shape == want.shape and torch.equal(torch.isnan(got.float()), nan)
+            and torch.equal(_bits(got)[~nan], _bits(want)[~nan]))
+
+
+def _with_nonfinite_cells(feat: torch.Tensor) -> torch.Tensor:
+    """A copy with NaN cells, a row and a column run of -inf (whole bins of
+    -inf, written as 0; noP2's and noBoth's raw copies keep them) and a
+    +inf cell."""
+    f = feat.float().cpu()
+    f[0, 3, :, :2] = float("nan")  # a row under 14: every mode reads it
+    f[-1, 9, 11, -1] = float("nan")
+    f[0, 6:9, 2:7] = float("-inf")
+    f[-1, :, 12] = float("-inf")
+    f[0, 0, :14, 1] = float("-inf")
+    f[-1, 15, 20, 0] = float("inf")
+    return f.to(feat.device, feat.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K67_PATH_CASES, ids=[c[0] for c in K67_PATH_CASES])
+@pytest.mark.parametrize("nonfinite", [False, True], ids=["finite", "nonfinite"])
+def test_k6_k7_paths_every_mode(dev, dtype, case, nonfinite):
+    """K6 and K7 on both paths, every mode: the wrapper picks the path
+    before launching, each call adds one to ``launches`` and to the count
+    of that path alone, and the result equals the plain version (NaN in the
+    same places, every other value bitwise), also on maps with NaN and
+    -inf cells."""
+    from vltk_tpu_torch.tools.variants import unaligned
+
+    name, c, cb, k6_path, k7_path = case
+    feat, boxes = _ablation_case(dev, dtype, 2, 20, 24, c, 12)
+    if nonfinite:
+        feat = _with_nonfinite_cells(feat)
+    if name == "unaligned":
+        feat = unaligned(feat)
+    calls = [(pool_auto, k6_path, mode, lambda f, b, m=mode: pool_cuda(f, b, m),
+              lambda f, b, m=mode: ablation.pool(f, b, m)) for mode in ablation.POOL_MODES]
+    calls += [(pool_contig_auto, k7_path, mode, lambda f, b, m=mode: pool_contig_cuda(f, b, m, cb),
+               lambda f, b, m=mode: ablation.pool_contig(f, b, m, cb)) for mode in ablation.CONTIG_MODES]
+    for wrapper, path, mode, kernel, ref in calls:
+        before, paths = wrapper.launches, dict(wrapper.path_launches)
+        got = kernel(feat, boxes)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, mode
+        assert wrapper.path_launches == {**paths, path: paths[path] + 1}, mode
+        want = ref(feat, boxes)
+        assert _nan_equal(got, want), (mode, path)
+        if nonfinite and mode not in ("p1only", "zeroOut"):
+            assert bool(torch.isnan(want.float()).any()), mode
+
+
+def test_k6_k7_nonfinite_at_the_probe_width(dev):
+    """bf16 (2, 52, 84, 1024) with NaN and -inf cells on the vector path,
+    every K6 and K7 mode (K7 at cb 128) against the plain version."""
+    gen = torch.Generator().manual_seed(52)
+    feat = _with_nonfinite_cells(torch.randn(2, 52, 84, 1024, generator=gen).to(dev, torch.bfloat16))
+    boxes = _boxes(gen, 2, 24, 52, 84).to(dev)
+    for mode in ablation.POOL_MODES:
+        got = pool_cuda(feat, boxes, mode)
+        torch.cuda.synchronize()
+        assert _nan_equal(got, ablation.pool(feat, boxes, mode)), mode
+    for mode in ablation.CONTIG_MODES:
+        got = pool_contig_cuda(feat, boxes, mode, 128)
+        torch.cuda.synchronize()
+        assert _nan_equal(got, ablation.pool_contig(feat, boxes, mode, 128)), mode
+
+
+def test_ablation_table_levels_on_both_paths(dev):
+    """The build's two paths give the same table, NaN and -inf cells
+    included; the unaligned copy takes the scalar path."""
+    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import kernel_path
+    from vltk_tpu_torch.tools.variants import unaligned
+
+    feat = _with_nonfinite_cells(torch.randn(2, 20, 24, 40, device=dev))
+    moved = unaligned(feat)
+    assert kernel_path(feat) == "vector" and kernel_path(moved) == "scalar"
+    vec, sca = build_table_cuda(feat), build_table_cuda(moved, "scalar")
+    torch.cuda.synchronize()
+    assert _nan_equal(vec, sca)
+    for lv in range(vec.shape[0]):
+        want = torch.stack([feat[:, y:y + lv + 1].amax(1) for y in range(20)], 1)
+        assert _nan_equal(vec[lv], want)
 
 
 def test_ablation_kernels_reject_what_they_do_not_take(dev):

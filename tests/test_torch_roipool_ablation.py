@@ -7,7 +7,9 @@ imported, which are put back. Its four functions run at (2, 16, 20, 128) x
 8 RoIs (W not a multiple of 8, H and W >= 14) with boxes that include a
 zero-size box, boxes off the map, a box far larger than the map and one
 wider than it in x only: the last two pin the bin-extent caps of the v2
-and v3 windows. The JAX outputs are computed once per module.
+and v3 windows. A copy of the map with NaN and -inf cells runs the RoIPool
+modes and the copies that keep raw values (noP1, noP2). The JAX outputs are
+computed once per module.
 """
 
 import importlib.util
@@ -51,10 +53,17 @@ def probe():
     return mod
 
 
-def make_case(dtype: str):
+def make_case(dtype: str, nonfinite: bool = False):
     b, h, w, c = SHAPE
     rng = np.random.default_rng(42)
     feat = rng.standard_normal(SHAPE).astype(np.float32)
+    if nonfinite:
+        feat[0, 3, :, :4] = np.nan  # a row under 14, which every mode reads
+        feat[1, 9, 11, 7] = np.nan
+        feat[0, 6:9, 2:7] = -np.inf  # whole bins of -inf: written as 0 where the max is taken
+        feat[1, :, 12] = -np.inf  # a column: noP2 copies -inf
+        feat[0, 0, :14, 1] = -np.inf
+        feat[1, 15, 19, 0] = np.inf
     xy = rng.uniform(0, [w * 16 - 2, h * 16 - 2], (b, N_BOX, 2))
     wh = rng.uniform(1, [w * 16, h * 16], (b, N_BOX, 2))
     boxes = np.concatenate([xy, np.minimum(xy + wh, [w * 16 - 1, h * 16 - 1])], -1).astype(np.float32)
@@ -141,6 +150,36 @@ def test_bf16_bitwise_equal_to_pallas(jax_outputs, fn, arg):
     got = _port_call(fn, arg, feat_t, boxes)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.equal(_bits(got), _bits(want))
+
+
+NONFINITE_CASES = [("pool", m) for m in ("full", "v3", "noP1", "noP2")] + [("contig", m) for m in ("full", "stackwrite")]
+
+
+@pytest.fixture(scope="module")
+def jax_nonfinite(probe):
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        feat_j, _, boxes = make_case(dtype, nonfinite=True)
+        for fn, mode in NONFINITE_CASES:
+            out[(dtype, fn, mode)] = _jax_call(probe, fn, mode, feat_j, boxes)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fn,mode", NONFINITE_CASES)
+def test_nonfinite_cells_match_pallas(jax_nonfinite, dtype, fn, mode):
+    """On a map with NaN and -inf cells the plain versions equal the Pallas
+    kernels: NaN in the same places, every other value bitwise (so the same
+    -inf cells, and 0 where a bin's max is -inf)."""
+    _, feat_t, boxes = make_case(dtype, nonfinite=True)
+    want = jax_nonfinite[(dtype, fn, mode)]
+    got = _port_call(fn, mode, feat_t, boxes)
+    nan = torch.isnan(want.float())
+    assert got.dtype == feat_t.dtype and got.shape == want.shape
+    assert bool(nan.any()) and torch.equal(torch.isnan(got.float()), nan)
+    assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
+    if mode == "noP2":
+        assert bool((got == float("-inf")).any())
 
 
 def test_noP2_keeps_the_raw_sentinel_of_an_empty_row_bin(jax_outputs):
@@ -274,6 +313,33 @@ def test_bench_parses_k1_block_shapes():
     for bad in ("22", "1522", "202", "220", "10222"):
         with pytest.raises(ValueError):
             bench_roipool.parse_shapes(bad)
+
+
+def test_ablation_kernels_pick_their_path_from_c_cb_and_alignment():
+    """K6 and K7 take 16-byte vectors where C (and K7's cb) hold whole
+    vectors, 8 bf16 or 4 float32 channels, and the base is aligned."""
+    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import kernel_path
+    from vltk_tpu_torch.tools.variants import unaligned
+
+    bf16 = torch.zeros(1, 4, 4, 72, dtype=torch.bfloat16)
+    assert kernel_path(bf16) == kernel_path(bf16, 8) == kernel_path(bf16, 72) == "vector"
+    assert kernel_path(bf16, 6) == kernel_path(bf16, 4) == kernel_path(unaligned(bf16)) == "scalar"
+    f32 = torch.zeros(1, 4, 4, 12)
+    assert kernel_path(f32) == kernel_path(f32, 4) == "vector"
+    assert kernel_path(f32, 6) == kernel_path(torch.zeros(1, 4, 4, 9)) == "scalar"
+
+
+def test_ablation_sweep_parses_its_builds_and_needs_the_card(monkeypatch):
+    from vltk_tpu_torch.tools import sweep_roipool_ablation as sweep
+
+    assert sweep.parse_slabs("0,256,128") == [0, 256, 128]
+    with pytest.raises(ValueError):
+        sweep.parse_slabs("256,-1")
+    with pytest.raises(ValueError):
+        sweep.main(["--shapes", "1522"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        sweep.main(["--shapes", "221", "--slabs", "0,256"])
 
 
 def test_unaligned_copy_takes_the_scalar_path():

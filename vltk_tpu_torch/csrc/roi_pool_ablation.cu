@@ -13,74 +13,79 @@
 // in image coordinates (scale 1/16, 14 x 14 bins) -> (B, P, 14, 14, C), or
 // (B, C/cb, P, 14, 14, cb) for K7.
 //
-// Phases, kept apart so that each mode removes on the card the work it
-// removed on the TPU:
-//   build   one launch over the whole batch: the row-range-max table
-//           T[l][b][y][x][c] = max(feat[b][y .. min(y + l, H - 1)][x][c]),
-//           l < max_bh, in a scratch the wrapper allocates. The TPU built it
-//           in VMEM at the first RoI of each (image, channel block) and
-//           carried it along its sequential grid; blocks on this card run in
-//           no order and share nothing, so the table goes through device
-//           memory (5 levels x 8.9 MB per image in bf16 at 52 x 84 x 1024).
-//   pass 1  per RoI and row bin i, one table row (level = the bin's row
-//           count - 1, capped at max_bh) over the RoI's own columns into a
-//           shared-memory rowmax [14][W][cc]; noP1/noBoth read feature row
-//           i instead (table level 0); noP2/noBoth load as many columns as
-//           the v2 mode, from column 0 (at least 14). The TPU filled all W
-//           columns; only the RoI's columns are read by pass 2.
-//   pass 2  per bin (i, j), a max over the capped column window of rowmax
-//           (v2: [ws, we) inside [clip(ws, 0, W - max_bw), + max_bw); v3:
-//           inside [8 * (ws / 8), + win)); noP2/noBoth copy rowmax[i][j].
-//   write   NHWC: each thread one channel, a warp one run of C per bin. K7
-//           stages the 14 x 14 x cb output tile in shared memory and writes
-//           it as one contiguous run of 16-byte stores.
-//   per-block cost: one block per (RoI, image, channel chunk) for K6 and K7;
-//           K8/K9 loop over G RoIs of one image in a block instead.
-//
-// Shared memory: the TPU rowmax (84, 14, 128) would be 301 KB in bf16, above
-// the 227 KB a block may use, so a block works on a channel chunk cc (64
-// channels in bf16, 32 in float32, 128 bytes a row; fewer if W is large):
-// rowmax 14 x 84 x 64 x 2 B = 150 KB. K7's block covers its cb channels in
-// chunks of cc and adds the 14 x 14 x cb tile (50 KB in bf16).
+// The table: one launch over the whole batch builds the row-range-max table
+// T[l][b][y][x][c] = max(feat[b][y .. min(y + l, H - 1)][x][c]), l < max_bh,
+// in a scratch the wrapper allocates (5 levels x 8.9 MB per image in bf16 at
+// 52 x 84 x 1024). The TPU built it in VMEM at the first RoI of each (image,
+// channel block) and carried it along its sequential grid; blocks on this
+// card run in no order and share nothing, so the table goes through device
+// memory. The build reads each cell's max_bh rows as one group of 16-byte
+// loads and writes the running maxima to the levels. K6-K9 all read it.
 //
 // Bound on this card: memory. At the probe shape (B=8, 52 x 84 x 1024 bf16,
 // P=300) the function reads a 71.6 MB map and writes 963 MB, ~0.31 ms at
 // 3.35 TB/s; the table adds 358 MB written and read back.
 //
-// Exactness: every value is a max or a copy of input values, done in float
-// on values of the features' type, so all modes agree bitwise with the
-// plain version. The sentinel -1e30 is rounded to the features' type; a bin
-// whose max is at or below -5e29 (in float) is written as 0, as the TPU
-// bodies do. NaN propagates as in torch.maximum.
+// K6 and K7: one register body, the output address a template parameter
+// (K1's design, csrc/roi_pool.cu, applied to the table).
+// - 16-byte vectors along C: a thread owns 8 bf16 or 4 float32 channels, so
+//   a warp loads and stores 512 contiguous bytes. bf16 maxima are taken on
+//   pairs with __hmax2_nan; float32 keeps the explicit NaN rule.
+// - A thread owns kBins column bins of one RoI (the edges walked as K1's
+//   BinWalk walks them) and all 14 row bins. For row bin i it loads the table
+//   row (level rows_i - 1, row hs_i) over the cells of its column bins as one
+//   unrolled group of predicated loads, takes the capped window maxima in
+//   registers and stores bins (i, j). No shared memory: the TPU's rowmax
+//   scratch (150 KB a block in the first port) is gone, so it no longer sets
+//   how many blocks an SM runs.
+// - Output: K6 writes bin (i, j) as C contiguous elements of
+//   (B, P, 14, 14, C); K7 writes into the contiguous (14, 14, cb) tile of
+//   (b, C/cb block, p): 16 threads x 8 channels cover cb = 128 of a bin.
+//   Evict-first stores (st.global.cs), so the 0.96 GB stream does not push
+//   the table out of L2.
+// - Image-major order: the image is the slowest index of the flat thread
+//   id, then (K67_SLAB, below) a slab of channels, then the RoI, so an
+//   image's table (44.7 MB in bf16) is read while it sits in L2.
+// - Modes, each removing on the card the work it removed on the TPU:
+//   noP1 reads feature row i (table level 0) in place of the table row;
+//   noP2 and noBoth issue as many column loads per bin as full (at least
+//   one, from column j) and copy the cell of column j instead of taking the
+//   window maximum; p1only does full's loads and writes zeros; zeroOut
+//   writes zeros alone; stackwrite (K7) loads the 14 row bins' cells of one
+//   column as one group before any max, where full goes row bin by row bin.
+//   A load whose result is otherwise dead is folded (bitwise OR) into a
+//   value stored only when ``observe`` is nonzero, which no launch sets: it
+//   keeps the load from being removed as dead code.
+// - A scalar path (one element a thread) takes what the vector path cannot:
+//   C (or K7's cb) not a multiple of the vector width, or features that are
+//   not 16-byte aligned. The wrapper picks the path before launching.
+//
+// K8 and K9 keep the first port's design: per (G RoIs, image, channel
+// chunk) a block fills a shared-memory rowmax [14][W][cc] from the table
+// (pass 1), then takes each bin's capped column window from it (pass 2).
+// The rowmax (84, 14, 128) of the TPU would be 301 KB in bf16, above the
+// 227 KB a block may use, so a block works on a channel chunk cc (64
+// channels in bf16, 32 in float32; fewer if W is large).
+//
+// Exactness: every value is a max or a copy of input values, so all modes
+// agree bitwise with the plain version (NaN in the same places). The
+// sentinel -1e30 is rounded to the features' type; a bin whose max is at or
+// below -5e29 (in float) is written as 0, as the TPU bodies do. NaN
+// propagates as in torch.maximum.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr int S = 14;          // output bins per side
-constexpr int THREADS = 256;
-constexpr int SMEM_LIMIT = 232448 - 1024;  // 227 KB a block may use, less the static Bins
 constexpr float NEG = -1e30f;
 constexpr float EMPTY_AT = -5e29f;  // NEG / 2
 
 enum Mode { FULL = 0, V3 = 1, NOP1 = 2, NOP2 = 3, NOBOTH = 4, STACK = 5, P1ONLY = 6, ZERO = 7 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// max as torch.maximum: NaN wins
-__device__ __forceinline__ float max_nan(float m, float v) {
-  if (isnan(m)) return m;
-  return (v > m || isnan(v)) ? v : m;
-}
 
 __device__ __forceinline__ int round_half_away(float box) {
   const float s = __fmul_rn(box, 0.0625f);  // == box / 16, exactly
@@ -89,6 +94,558 @@ __device__ __forceinline__ int round_half_away(float box) {
 
 __device__ __forceinline__ int clampl(long long v, int lo, int hi) {
   return (int)(v < lo ? lo : (v > hi ? hi : v));
+}
+
+// max as torch.maximum: NaN wins
+__device__ __forceinline__ float max_nan(float m, float v) {
+  return (v > m || isnan(v)) ? (isnan(m) ? m : v) : m;
+}
+
+// ============================================================ K6 and K7
+
+// Block shape of K6, K7 and the build, three or four digits "bb u t" as
+// K1's (221 is bb = 02):
+//   bb  column bins a thread owns (01-14)
+//   u   cells of a bin a thread loads in one unrolled, predicated group
+//   t   threads a block, in units of 128
+// and K67_SLAB, the channels of the table that one wave of blocks reads
+// (0: all C): the order is image, channel slab, RoI, so a smaller slab
+// reads less of an image's table at a time. tools/sweep_roipool_ablation.py
+// builds others and times them on the probe's inputs; PERF.md has the
+// ranking (221 with slabs of 256 channels came first).
+#ifndef K67_SHAPE
+#define K67_SHAPE 221
+#endif
+#ifndef K67_SLAB
+#define K67_SLAB 256
+#endif
+
+constexpr int kBins = K67_SHAPE / 100;
+constexpr int kUnroll = K67_SHAPE / 10 % 10;
+constexpr int kThreads = 128 * (K67_SHAPE % 10);
+static_assert(kBins >= 1 && kBins <= 14 && kUnroll >= 1 && kThreads >= 128,
+              "K67_SHAPE: want bb in 01-14, u >= 1, t >= 1");
+static_assert(K67_SLAB >= 0, "K67_SLAB: want channels >= 0");
+constexpr int kGroups = (S + kBins - 1) / kBins;
+constexpr int kBuildGroup = 8;  // table levels a build thread loads in one group
+
+template <typename To, typename From>
+__device__ __forceinline__ To bit_cast(const From& x) {
+  static_assert(sizeof(To) == sizeof(From), "bit_cast sizes");
+  To y;
+  memcpy(&y, &x, sizeof(To));
+  return y;
+}
+
+// One thread's channels of a cell: N elements, loaded through the read-only
+// path, stored evict-first (out) or normally (the table).
+template <typename T, int N>
+struct Cells;
+
+template <>
+struct Cells<__nv_bfloat16, 8> {
+  static constexpr int N = 8;
+  __nv_bfloat162 h[4];
+  static __device__ __forceinline__ Cells fill(__nv_bfloat16 x) {
+    Cells c;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) c.h[k] = __bfloat162bfloat162(x);
+    return c;
+  }
+  static __device__ __forceinline__ Cells neg() { return fill(__ushort_as_bfloat16(0xFF80)); }  // -inf
+  static __device__ __forceinline__ Cells zero() { return fill(__ushort_as_bfloat16(0)); }
+  static __device__ __forceinline__ Cells sentinel() { return fill(__float2bfloat16_rn(NEG)); }
+  static __device__ __forceinline__ Cells load(const __nv_bfloat16* p) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    Cells c;
+    c.h[0] = bit_cast<__nv_bfloat162>(u.x);
+    c.h[1] = bit_cast<__nv_bfloat162>(u.y);
+    c.h[2] = bit_cast<__nv_bfloat162>(u.z);
+    c.h[3] = bit_cast<__nv_bfloat162>(u.w);
+    return c;
+  }
+  __device__ __forceinline__ void max_with(const Cells& o) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = __hmax2_nan(h[k], o.h[k]);
+  }
+  __device__ __forceinline__ void fold(const Cells& o) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = bit_cast<__nv_bfloat162>(bit_cast<unsigned>(h[k]) | bit_cast<unsigned>(o.h[k]));
+  }
+  // the TPU bodies' rule: a max at or below -5e29 is written as 0
+  __device__ __forceinline__ void zero_low() {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      if (f.x <= EMPTY_AT) h[k].x = __ushort_as_bfloat16(0);
+      if (f.y <= EMPTY_AT) h[k].y = __ushort_as_bfloat16(0);
+    }
+  }
+  __device__ __forceinline__ uint4 bits() const {
+    return make_uint4(bit_cast<unsigned>(h[0]), bit_cast<unsigned>(h[1]), bit_cast<unsigned>(h[2]),
+                      bit_cast<unsigned>(h[3]));
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* p) const { __stcs(reinterpret_cast<uint4*>(p), bits()); }
+  __device__ __forceinline__ void store_keep(__nv_bfloat16* p) const { *reinterpret_cast<uint4*>(p) = bits(); }
+};
+
+template <>
+struct Cells<__nv_bfloat16, 1> {
+  static constexpr int N = 1;
+  __nv_bfloat16 h;
+  static __device__ __forceinline__ Cells fill(__nv_bfloat16 x) {
+    Cells c;
+    c.h = x;
+    return c;
+  }
+  static __device__ __forceinline__ Cells neg() { return fill(__ushort_as_bfloat16(0xFF80)); }
+  static __device__ __forceinline__ Cells zero() { return fill(__ushort_as_bfloat16(0)); }
+  static __device__ __forceinline__ Cells sentinel() { return fill(__float2bfloat16_rn(NEG)); }
+  static __device__ __forceinline__ Cells load(const __nv_bfloat16* p) {
+    return fill(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+  }
+  __device__ __forceinline__ void max_with(const Cells& o) { h = __hmax_nan(h, o.h); }
+  __device__ __forceinline__ void fold(const Cells& o) {
+    h = __ushort_as_bfloat16(__bfloat16_as_ushort(h) | __bfloat16_as_ushort(o.h));
+  }
+  __device__ __forceinline__ void zero_low() {
+    if (__bfloat162float(h) <= EMPTY_AT) h = __ushort_as_bfloat16(0);
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* p) const {
+    __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(h));
+  }
+  __device__ __forceinline__ void store_keep(__nv_bfloat16* p) const { *p = h; }
+};
+
+template <>
+struct Cells<float, 4> {
+  static constexpr int N = 4;
+  float4 v;
+  static __device__ __forceinline__ Cells fill(float x) {
+    Cells c;
+    c.v = make_float4(x, x, x, x);
+    return c;
+  }
+  static __device__ __forceinline__ Cells neg() { return fill(-INFINITY); }
+  static __device__ __forceinline__ Cells zero() { return fill(0.f); }
+  static __device__ __forceinline__ Cells sentinel() { return fill(NEG); }
+  static __device__ __forceinline__ Cells load(const float* p) {
+    Cells c;
+    c.v = __ldg(reinterpret_cast<const float4*>(p));
+    return c;
+  }
+  __device__ __forceinline__ void max_with(const Cells& o) {
+    v.x = max_nan(v.x, o.v.x);
+    v.y = max_nan(v.y, o.v.y);
+    v.z = max_nan(v.z, o.v.z);
+    v.w = max_nan(v.w, o.v.w);
+  }
+  __device__ __forceinline__ void fold(const Cells& o) {
+    v.x = __uint_as_float(__float_as_uint(v.x) | __float_as_uint(o.v.x));
+    v.y = __uint_as_float(__float_as_uint(v.y) | __float_as_uint(o.v.y));
+    v.z = __uint_as_float(__float_as_uint(v.z) | __float_as_uint(o.v.z));
+    v.w = __uint_as_float(__float_as_uint(v.w) | __float_as_uint(o.v.w));
+  }
+  __device__ __forceinline__ void zero_low() {
+    if (v.x <= EMPTY_AT) v.x = 0.f;
+    if (v.y <= EMPTY_AT) v.y = 0.f;
+    if (v.z <= EMPTY_AT) v.z = 0.f;
+    if (v.w <= EMPTY_AT) v.w = 0.f;
+  }
+  __device__ __forceinline__ void store(float* p) const { __stcs(reinterpret_cast<float4*>(p), v); }
+  __device__ __forceinline__ void store_keep(float* p) const { *reinterpret_cast<float4*>(p) = v; }
+};
+
+template <>
+struct Cells<float, 1> {
+  static constexpr int N = 1;
+  float v;
+  static __device__ __forceinline__ Cells fill(float x) {
+    Cells c;
+    c.v = x;
+    return c;
+  }
+  static __device__ __forceinline__ Cells neg() { return fill(-INFINITY); }
+  static __device__ __forceinline__ Cells zero() { return fill(0.f); }
+  static __device__ __forceinline__ Cells sentinel() { return fill(NEG); }
+  static __device__ __forceinline__ Cells load(const float* p) { return fill(__ldg(p)); }
+  __device__ __forceinline__ void max_with(const Cells& o) { v = max_nan(v, o.v); }
+  __device__ __forceinline__ void fold(const Cells& o) { v = __uint_as_float(__float_as_uint(v) | __float_as_uint(o.v)); }
+  __device__ __forceinline__ void zero_low() {
+    if (v <= EMPTY_AT) v = 0.f;
+  }
+  __device__ __forceinline__ void store(float* p) const { __stcs(p, v); }
+  __device__ __forceinline__ void store_keep(float* p) const { *p = v; }
+};
+
+// Walks i * r = q * S + m (0 <= m < S) one bin at a time, as K1 does: a
+// thread's bin edges take two 64-bit divisions (a box far off the map must
+// not overflow) instead of two a bin. Bin i spans [floor(i r / S),
+// ceil((i + 1) r / S)) from the corner.
+struct BinWalk {
+  long long q, dq;
+  int m, dm;
+  __device__ __forceinline__ BinWalk(int i, long long r) {
+    const long long n = i * r;
+    q = n / S;
+    m = (int)(n % S);
+    dq = r / S;
+    dm = (int)(r % S);
+  }
+  // [start, end) of the current bin, offset by lo and clipped to [0, n];
+  // moves on to the next bin
+  __device__ __forceinline__ void edges(int lo, int n, int& start, int& end) {
+    start = clampl(q + lo, 0, n);
+    q += dq;
+    m += dm;
+    if (m >= S) {
+      ++q;
+      m -= S;
+    }
+    end = clampl(q + (m > 0) + lo, 0, n);
+  }
+};
+
+// The thread's (channel vector, column-bin group, RoI, image) from its flat
+// id (((b * slabs + slab) * P + p) * groups + group) * vecs + vector in the
+// slab: the image is the slowest index, so the order is image-major, then
+// the channel slab (one slab of all C channels by default), then the RoI.
+template <typename I>
+__device__ __forceinline__ void decode(I t, I vecs, I slabs, I P, I& cv, I& g, I& roi, I& b) {
+  cv = t % vecs;
+  t /= vecs;
+  g = t % kGroups;
+  t /= kGroups;
+  const I p = t % P;
+  t /= P;
+  cv += t % slabs * vecs;
+  b = t / slabs;
+  roi = b * P + p;
+}
+
+// One thread: V::N channels of one RoI's kBins column bins, all 14 row
+// bins. CONTIG: the (B, C/cb, P, 14, 14, cb) layout of K7, else K6's NHWC.
+template <typename T, typename V, int MODE, bool CONTIG>
+__device__ __forceinline__ void ablation_body(const T* __restrict__ table, const float* __restrict__ boxes,
+                                              T* __restrict__ out, int B, int H, int W, int C, int P, int max_bh,
+                                              int max_bw, int cb, int slab, long long total, int observe) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  long long cv, g, roi, b;
+  if (total <= 0xffffffffLL) {
+    unsigned cv32, g32, roi32, b32;
+    decode<unsigned>((unsigned)t, slab / V::N, C / slab, P, cv32, g32, roi32, b32);
+    cv = cv32, g = g32, roi = roi32, b = b32;
+  } else {
+    decode<long long>(t, slab / V::N, C / slab, P, cv, g, roi, b);
+  }
+  const int c0 = (int)cv * V::N;
+  const int j0 = (int)g * kBins;
+
+  // bin (i, j) is written at o + (i * S + j) * step
+  T* o;
+  int step;
+  if (CONTIG) {
+    const int k = c0 / cb;
+    o = out + ((b * (C / cb) + k) * P + (roi - b * P)) * S * S * cb + (c0 - k * cb);
+    step = cb;
+  } else {
+    o = out + roi * S * S * C + c0;
+    step = C;
+  }
+  if (MODE == ZERO) {
+    for (int i = 0; i < S; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < kBins; ++jj)
+        if (j0 + jj < S) V::zero().store(o + (size_t)(i * S + j0 + jj) * step);
+    }
+    return;
+  }
+
+  const float* box = boxes + roi * 4;
+  const int x1 = round_half_away(box[0]);
+  const int y1 = round_half_away(box[1]);
+  const int x2 = round_half_away(box[2]);
+  const int y2 = round_half_away(box[3]);
+  const long long roi_w = max(x2 - x1 + 1, 1);
+  const long long roi_h = max(y2 - y1 + 1, 1);
+
+  // the cells each column bin loads: [lo, lo + n) of a row
+  int lo[kBins], n[kBins];
+  int widest = 0;
+  BinWalk cols(j0, roi_w);
+#pragma unroll
+  for (int jj = 0; jj < kBins; ++jj) {
+    lo[jj] = n[jj] = 0;
+    if (j0 + jj < S) {
+      int ws, we;
+      cols.edges(x1, W, ws, we);
+      // the capped window: v3 inside [8 (ws / 8), + win), else v2 inside
+      // [clip(ws, 0, W - max_bw), + max_bw) (ws >= 0 here)
+      const int end = MODE == V3 ? min(we, ws / 8 * 8 + 2 * ((max_bw + 7) / 8) * 8)
+                                 : min(we, min(ws, W - max_bw) + max_bw);
+      const int cnt = max(end - ws, 0);
+      if (MODE == NOP2 || MODE == NOBOTH) {
+        // as many loads as the v2 window, from column j (j < 14 <= W)
+        lo[jj] = j0 + jj;
+        n[jj] = min(max(cnt, 1), W - lo[jj]);
+      } else {
+        lo[jj] = ws;
+        n[jj] = cnt;
+      }
+    }
+    widest = max(widest, n[jj]);
+  }
+
+  const size_t plane = (size_t)H * W * C;  // one image of one table level
+  const size_t level_stride = (size_t)B * plane;
+  const T* tab = table + (size_t)b * plane + c0;
+  V sink = V::zero();  // loads whose result is otherwise dead
+  BinWalk rows(0, roi_h);
+
+  if (MODE == STACK) {
+    // the 14 row bins' table rows, then per column of a bin one group of
+    // 14 loads before any max
+    const T* rp[S];
+    unsigned live = 0;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      int hs, he;
+      rows.edges(y1, H, hs, he);
+      const int nr = min(max(he - hs, 0), max_bh);
+      rp[i] = tab;
+      if (nr > 0) {
+        rp[i] = tab + (size_t)(nr - 1) * level_stride + (size_t)hs * W * C;
+        live |= 1u << i;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kBins; ++jj) {
+      if (j0 + jj >= S) break;
+      V acc[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) acc[i] = V::neg();
+      for (int x = 0; x < n[jj]; ++x) {
+        V v[S];
+        const size_t col = (size_t)(lo[jj] + x) * C;
+#pragma unroll
+        for (int i = 0; i < S; ++i) v[i] = (live >> i & 1) ? V::load(rp[i] + col) : V::neg();
+#pragma unroll
+        for (int i = 0; i < S; ++i) acc[i].max_with(v[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        V r = V::zero();
+        if ((live >> i & 1) && n[jj] > 0) {
+          r = acc[i];
+          r.zero_low();
+        }
+        r.store(o + (size_t)(i * S + j0 + jj) * step);
+      }
+    }
+    return;
+  }
+
+  for (int i = 0; i < S; ++i) {
+    int hs, he;
+    rows.edges(y1, H, hs, he);
+    const int nr = min(max(he - hs, 0), max_bh);
+    // noP1 / noBoth read feature row i (H >= 14), the others the table row
+    // of the row bin: level nr - 1, row hs
+    constexpr bool fixed_row = MODE == NOP1 || MODE == NOBOTH;
+    const bool live = fixed_row || nr > 0;
+    V val[kBins];
+#pragma unroll
+    for (int jj = 0; jj < kBins; ++jj) val[jj] = V::neg();
+    if (live) {
+      const T* row = fixed_row ? tab + (size_t)i * W * C : tab + (size_t)(nr - 1) * level_stride + (size_t)hs * W * C;
+      for (int x0 = 0; x0 < widest; x0 += kUnroll) {
+        V v[kBins][kUnroll];
+#pragma unroll
+        for (int jj = 0; jj < kBins; ++jj) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            const int x = x0 + u;
+            v[jj][u] = x < n[jj] ? V::load(row + (size_t)(lo[jj] + x) * C) : V::neg();
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < kBins; ++jj) {
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u) {
+            if (MODE == FULL || MODE == V3 || MODE == NOP1) {
+              val[jj].max_with(v[jj][u]);
+            } else if (MODE == NOP2 || MODE == NOBOTH) {
+              if (x0 + u == 0)
+                val[jj] = v[jj][u];  // column j
+              else
+                sink.fold(v[jj][u]);
+            } else {  // P1ONLY
+              sink.fold(v[jj][u]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kBins; ++jj) {
+      if (j0 + jj >= S) continue;
+      V r = V::zero();
+      if (MODE == NOP2) {
+        r = live ? val[jj] : V::sentinel();  // the raw sentinel for an empty row bin
+      } else if (MODE == NOBOTH) {
+        r = val[jj];
+      } else if (MODE != P1ONLY && live && n[jj] > 0) {
+        r = val[jj];
+        r.zero_low();
+      }
+      r.store(o + (size_t)(i * S + j0 + jj) * step);
+    }
+  }
+  if ((MODE == NOP2 || MODE == NOBOTH || MODE == P1ONLY) && observe) sink.store(o);
+}
+
+// the table: thread per (image, row, column, channel vector); loads rows
+// y .. y + L - 1 of its cells (those inside the map) in groups, and writes
+// the running maxima to the L levels
+template <typename T, typename V>
+__device__ __forceinline__ void build_body(const T* __restrict__ feat, T* __restrict__ table, int H, int W, int C,
+                                           int L, long long total) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const size_t e = (size_t)t * V::N;  // element index in (B, H, W, C)
+  const size_t row = (size_t)W * C;
+  const int y = (int)((e / row) % H);
+  const size_t level = (size_t)total * V::N;
+  V m = V::neg();
+  for (int l0 = 0; l0 < L; l0 += kBuildGroup) {
+    V v[kBuildGroup];
+#pragma unroll
+    for (int u = 0; u < kBuildGroup; ++u) {
+      const int l = l0 + u;
+      v[u] = l < L && y + l < H ? V::load(feat + e + l * row) : V::neg();
+    }
+#pragma unroll
+    for (int u = 0; u < kBuildGroup; ++u) {
+      if (l0 + u < L) {
+        m.max_with(v[u]);
+        m.store_keep(table + (l0 + u) * level + e);
+      }
+    }
+  }
+}
+
+// one kernel per mode, layout, type and path, named so that -Xptxas -v
+// tells them apart
+#define ABL_KERNEL(name, T, n, MODE, CONTIG)                                                                  \
+  __global__ void __launch_bounds__(kThreads)                                                                \
+      name(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out, int B, int H,  \
+           int W, int C, int P, int max_bh, int max_bw, int cb, int slab, long long total, int observe) {   \
+    ablation_body<T, Cells<T, n>, MODE, CONTIG>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, slab,  \
+                                                total, observe);                                             \
+  }
+#define ABL_MODE(mode, MODE, CONTIG)                                        \
+  ABL_KERNEL(roi_ablation_##mode##_bf16_vector, __nv_bfloat16, 8, MODE, CONTIG) \
+  ABL_KERNEL(roi_ablation_##mode##_bf16_scalar, __nv_bfloat16, 1, MODE, CONTIG) \
+  ABL_KERNEL(roi_ablation_##mode##_f32_vector, float, 4, MODE, CONTIG)          \
+  ABL_KERNEL(roi_ablation_##mode##_f32_scalar, float, 1, MODE, CONTIG)
+ABL_MODE(pool_full, FULL, false)
+ABL_MODE(pool_v3, V3, false)
+ABL_MODE(pool_noP1, NOP1, false)
+ABL_MODE(pool_noP2, NOP2, false)
+ABL_MODE(pool_noBoth, NOBOTH, false)
+ABL_MODE(contig_full, FULL, true)
+ABL_MODE(contig_stackwrite, STACK, true)
+ABL_MODE(contig_p1only, P1ONLY, true)
+ABL_MODE(contig_zeroOut, ZERO, true)
+#undef ABL_MODE
+#undef ABL_KERNEL
+
+#define ABL_BUILD(name, T, n)                                                                               \
+  __global__ void __launch_bounds__(kThreads)                                                              \
+      name(const T* __restrict__ feat, T* __restrict__ table, int H, int W, int C, int L, long long total) { \
+    build_body<T, Cells<T, n>>(feat, table, H, W, C, L, total);                                            \
+  }
+ABL_BUILD(roi_ablation_build_bf16_vector, __nv_bfloat16, 8)
+ABL_BUILD(roi_ablation_build_bf16_scalar, __nv_bfloat16, 1)
+ABL_BUILD(roi_ablation_build_f32_vector, float, 4)
+ABL_BUILD(roi_ablation_build_f32_scalar, float, 1)
+#undef ABL_BUILD
+
+template <typename T>
+using AblationKernel = void (*)(const T*, const float*, T*, int, int, int, int, int, int, int, int, int, long long,
+                                int);
+
+template <typename T, int N>
+int launch_pool(AblationKernel<T> kernel, const void* table, const void* boxes, void* out, int B, int H, int W, int C,
+                int P, int max_bh, int max_bw, int cb, cudaStream_t stream) {
+  if (C % N || cb % N) return (int)cudaErrorInvalidValue;
+  // the channel slab of a wave: K67_SLAB where it divides C into whole
+  // vectors, else all of C
+  const int slab = K67_SLAB > 0 && K67_SLAB < C && C % K67_SLAB == 0 && K67_SLAB % N == 0 ? K67_SLAB : C;
+  const long long total = (long long)B * P * kGroups * (C / N);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(static_cast<const T*>(table), static_cast<const float*>(boxes),
+                                                    static_cast<T*>(out), B, H, W, C, P, max_bh, max_bw, cb, slab,
+                                                    total, 0);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int N>
+int launch_build(void (*kernel)(const T*, T*, int, int, int, int, long long), const void* feat, void* table, int B,
+                 int H, int W, int C, int L, cudaStream_t stream) {
+  if (C % N) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * H * W * (C / N);
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(static_cast<const T*>(feat), static_cast<T*>(table), H, W, C, L,
+                                                    total);
+  return (int)cudaGetLastError();
+}
+
+// the K6 / K7 kernel of a mode, for a type and path
+#define ABL_PICK(mode)                                                                                            \
+  return dtype == 0 ? (vector ? launch_pool<float, 4>(roi_ablation_##mode##_f32_vector, ARGS)                     \
+                              : launch_pool<float, 1>(roi_ablation_##mode##_f32_scalar, ARGS))                    \
+                    : (vector ? launch_pool<__nv_bfloat16, 8>(roi_ablation_##mode##_bf16_vector, ARGS)            \
+                              : launch_pool<__nv_bfloat16, 1>(roi_ablation_##mode##_bf16_scalar, ARGS))
+#define ARGS table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s
+
+int pool_k67(int mode, bool contig, const void* table, const void* boxes, void* out, int B, int H, int W, int C,
+             int P, int max_bh, int max_bw, int cb, int dtype, bool vector, cudaStream_t s) {
+  if (!contig) {
+    switch (mode) {
+      case FULL: ABL_PICK(pool_full);
+      case V3: ABL_PICK(pool_v3);
+      case NOP1: ABL_PICK(pool_noP1);
+      case NOP2: ABL_PICK(pool_noP2);
+      case NOBOTH: ABL_PICK(pool_noBoth);
+    }
+  } else {
+    switch (mode) {
+      case FULL: ABL_PICK(contig_full);
+      case STACK: ABL_PICK(contig_stackwrite);
+      case P1ONLY: ABL_PICK(contig_p1only);
+      case ZERO: ABL_PICK(contig_zeroOut);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#undef ARGS
+#undef ABL_PICK
+
+// ============================================================ K8 and K9
+
+constexpr int GROUP_THREADS = 256;
+constexpr int SMEM_LIMIT = 232448 - 1024;  // 227 KB a block may use, less the static Bins
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // the bins of one RoI, in shared memory
@@ -132,66 +689,40 @@ __device__ void load_bins(const float* box, int H, int W, int max_bh, int max_bw
   if (t == 0) {
     int hi = s.col0[0];
     for (int j = 0; j < S; ++j) hi = max(hi, s.col1[j]);
-    if (MODE == NOP2 || MODE == NOBOTH) {
-      // the copy reads columns 0..13; pass 1 loads as many columns as the
-      // v2 mode would, so that these modes remove pass 2 and not pass 1
-      s.xlo = 0;
-      s.span = max(hi - s.col0[0], S);
-    } else {
-      s.xlo = s.col0[0];
-      s.span = hi - s.col0[0];
-    }
+    s.xlo = s.col0[0];
+    s.span = hi - s.col0[0];
   }
   __syncthreads();
 }
 
 // pass 1: rowmax[i][x - xlo][tc] for the RoI's columns. tab_b is level 0
 // of image b; level l lies l * level_stride further.
-template <typename T, int MODE>
-__device__ void pass1(const T* __restrict__ tab_b, size_t level_stride, int W, int C, int c,
-                      const Bins& s, T* rowmax, int cc, int tc, int tr, int nr) {
+template <typename T>
+__device__ void pass1(const T* __restrict__ tab_b, size_t level_stride, int W, int C, int c, const Bins& s,
+                      T* rowmax, int cc, int tc, int tr, int nr) {
   const T neg = from_float<T>(NEG);
   const bool live = c < C;
   const int span = s.span;
-  if (MODE == STACK) {
-    // the 14 row values of one column gathered in registers, then stored
-    // together (the TPU's single stacked rowmax store)
-    for (int x = tr; x < span; x += nr) {
-      T r[S];
-#pragma unroll
-      for (int i = 0; i < S; ++i)
-        r[i] = (live && s.rows[i] > 0)
-                   ? tab_b[(s.rows[i] - 1) * level_stride + ((size_t)s.row0[i] * W + s.xlo + x) * C + c]
-                   : neg;
-#pragma unroll
-      for (int i = 0; i < S; ++i) rowmax[(i * W + x) * cc + tc] = r[i];
-    }
-    return;
-  }
 #pragma unroll 4
   for (int idx = tr; idx < S * span; idx += nr) {
     const int i = idx / span;
     const int x = idx - i * span;
     T v = neg;
-    if (MODE == NOP1 || MODE == NOBOTH) {
-      if (live) v = tab_b[((size_t)i * W + s.xlo + x) * C + c];
-    } else if (live && s.rows[i] > 0) {
+    if (live && s.rows[i] > 0)
       v = tab_b[(s.rows[i] - 1) * level_stride + ((size_t)s.row0[i] * W + s.xlo + x) * C + c];
-    }
     rowmax[(i * W + x) * cc + tc] = v;
   }
 }
 
 // pass 2: the value of bin (i, j)
-template <typename T, int MODE>
+template <typename T>
 __device__ __forceinline__ float bin_value(const T* rowmax, int W, int cc, int tc, const Bins& s, int i, int j) {
-  if (MODE == NOP2 || MODE == NOBOTH) return to_float(rowmax[(i * W + j) * cc + tc]);
   float m = -INFINITY;
   for (int x = s.col0[j]; x < s.col1[j]; ++x) m = max_nan(m, to_float(rowmax[(i * W + x - s.xlo) * cc + tc]));
   return m <= EMPTY_AT ? 0.f : m;
 }
 
-// one RoI, one channel chunk, NHWC output (K6, K8, K9)
+// one RoI, one channel chunk, NHWC output
 template <typename T, int MODE>
 __device__ void pool_roi(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out,
                          int B, int H, int W, int C, int P, int max_bh, int max_bw, int cc, int b, int p,
@@ -200,30 +731,19 @@ __device__ void pool_roi(const T* __restrict__ table, const float* __restrict__ 
   const int c = blockIdx.z * cc + tc;
   load_bins<MODE>(boxes + ((size_t)b * P + p) * 4, H, W, max_bh, max_bw, bins);
   const size_t level_stride = (size_t)B * H * W * C;
-  pass1<T, MODE>(table + (size_t)b * H * W * C, level_stride, W, C, c, bins, rowmax, cc, tc, tr, nr);
+  pass1<T>(table + (size_t)b * H * W * C, level_stride, W, C, c, bins, rowmax, cc, tc, tr, nr);
   __syncthreads();
   if (c < C) {
     T* o = out + ((size_t)b * P + p) * S * S * C + c;
     for (int idx = tr; idx < S * S; idx += nr)
-      o[(size_t)idx * C] = from_float<T>(bin_value<T, MODE>(rowmax, W, cc, tc, bins, idx / S, idx % S));
+      o[(size_t)idx * C] = from_float<T>(bin_value<T>(rowmax, W, cc, tc, bins, idx / S, idx % S));
   }
-}
-
-// K6: one block per (RoI, image, channel chunk)
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
-pool_kernel(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out,
-            int B, int H, int W, int C, int P, int max_bh, int max_bw, int cc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Bins bins;
-  pool_roi<T, MODE>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cc, blockIdx.y, blockIdx.x,
-                    bins, reinterpret_cast<T*>(smem));
 }
 
 // K8 (v2 window) and K9 (v3 window): one block per (G RoIs, image, channel
 // chunk), the RoIs in a loop
 template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(GROUP_THREADS)
 pool_grouped_kernel(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out,
                     int B, int H, int W, int C, int P, int max_bh, int max_bw, int cc, int group) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -235,198 +755,82 @@ pool_grouped_kernel(const T* __restrict__ table, const float* __restrict__ boxes
   }
 }
 
-// a tile of n elements from shared memory (or zeros) to device memory,
-// 16-byte stores by neighbouring threads where the tile allows them
-template <typename T>
-__device__ void store_tile(T* __restrict__ dst, const T* src, int n) {
-  const int bytes = n * (int)sizeof(T);
-  if (bytes % 16 == 0) {
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    const uint4* v = reinterpret_cast<const uint4*>(src);
-    for (int k = threadIdx.x; k < bytes / 16; k += blockDim.x) d[k] = src ? v[k] : make_uint4(0, 0, 0, 0);
-  } else {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src ? src[k] : from_float<T>(0.f);
-  }
-}
-
-// K7: one block per (RoI, image, channel block of cb), the block's cb
-// channels in chunks of cc; output (B, C/cb, P, 14, 14, cb). ``observe`` is
-// 0 in every launch: it keeps p1only's pass 1 from being removed as dead
-// code (its result would otherwise be unused).
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
-pool_contig_kernel(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out,
-                   int B, int H, int W, int C, int P, int max_bh, int max_bw, int cb, int cc, int observe) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Bins bins;
-  const int p = blockIdx.x, b = blockIdx.y, k = blockIdx.z;
-  T* dst = out + (((size_t)b * (C / cb) + k) * P + p) * S * S * cb;
-  if (MODE == ZERO) {
-    store_tile<T>(dst, nullptr, S * S * cb);
-    return;
-  }
-  constexpr int BINS = MODE == P1ONLY ? FULL : MODE;
-  T* tile = reinterpret_cast<T*>(smem);
-  T* rowmax = tile + S * S * cb;
-  const int tc = threadIdx.x % cc, tr = threadIdx.x / cc, nr = blockDim.x / cc;
-  load_bins<BINS>(boxes + ((size_t)b * P + p) * 4, H, W, max_bh, max_bw, bins);
-  const size_t level_stride = (size_t)B * H * W * C;
-  const T* tab_b = table + (size_t)b * H * W * C;
-  if (MODE == P1ONLY) store_tile<T>(dst, nullptr, S * S * cb);
-  for (int sub = 0; sub < cb; sub += cc) {
-    pass1<T, BINS>(tab_b, level_stride, W, C, k * cb + sub + tc, bins, rowmax, cc, tc, tr, nr);
-    __syncthreads();
-    if (MODE == P1ONLY) {
-      if (observe && threadIdx.x == 0) dst[sub] = rowmax[0];
-    } else {
-      for (int idx = tr; idx < S * S; idx += nr)
-        tile[idx * cb + sub + tc] = from_float<T>(bin_value<T, BINS>(rowmax, W, cc, tc, bins, idx / S, idx % S));
-    }
-    __syncthreads();  // rowmax is rewritten by the next chunk
-  }
-  if (MODE != P1ONLY) store_tile<T>(dst, tile, S * S * cb);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-build_table_kernel(const T* __restrict__ feat, T* __restrict__ table, int H, int W, int C, int L, size_t n) {
-  const size_t row = (size_t)W * C;
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n; e += (size_t)gridDim.x * blockDim.x) {
-    const int y = (int)((e / row) % H);
-    const T v0 = feat[e];
-    table[e] = v0;
-    float m = to_float(v0);
-    for (int l = 1; l < L; ++l) {
-      if (y + l < H) m = max_nan(m, to_float(feat[e + l * row]));
-      table[l * n + e] = from_float<T>(m);
-    }
-  }
-}
-
-// the largest power-of-two channel chunk up to cmax (and up to C rounded
-// up) that divides ``divides`` (0: any) and whose rowmax fits beside
-// ``extra`` bytes of shared memory; 0 if none does
-int pick_chunk(int W, int C, int es, int extra, int divides) {
+// the largest power-of-two channel chunk up to 128 bytes (and up to C
+// rounded up) whose rowmax fits in shared memory; 0 if none does
+int pick_chunk(int W, int C, int es) {
   const int cmax = 128 / es;
   int cc = 1;
   while (cc < cmax && cc < C) cc *= 2;
   for (; cc >= 1; cc /= 2)
-    if ((divides == 0 || divides % cc == 0) && (size_t)S * W * cc * es + extra <= (size_t)SMEM_LIMIT) return cc;
+    if ((size_t)S * W * cc * es <= (size_t)SMEM_LIMIT) return cc;
   return 0;
 }
 
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int build(const void* feat, void* table, int B, int H, int W, int C, int L, cudaStream_t stream) {
-  const size_t n = (size_t)B * H * W * C;
-  const size_t want = (n + THREADS - 1) / THREADS;
-  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  build_table_kernel<T><<<blocks, THREADS, 0, stream>>>(static_cast<const T*>(feat), static_cast<T*>(table),
-                                                        H, W, C, L, n);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int MODE>
-int pool_nhwc(const void* table, const void* boxes, void* out, int B, int H, int W, int C, int P, int max_bh,
-              int max_bw, int group, cudaStream_t stream) {
+int pool_grouped(const void* table, const void* boxes, void* out, int B, int H, int W, int C, int P, int max_bh,
+                 int max_bw, int group, cudaStream_t stream) {
   const int es = (int)sizeof(T);
-  const int cc = pick_chunk(W, C, es, 0, 0);
+  const int cc = pick_chunk(W, C, es);
   if (cc == 0) return (int)cudaErrorInvalidValue;
   const int smem = S * W * cc * es;
-  const T* tab = static_cast<const T*>(table);
-  const float* bx = static_cast<const float*>(boxes);
-  T* o = static_cast<T*>(out);
-  if (group == 0) {
-    dim3 grid(P, B, (C + cc - 1) / cc);
-    return launch(pool_kernel<T, MODE>, grid, smem, stream, tab, bx, o, B, H, W, C, P, max_bh, max_bw, cc);
-  }
+  auto kernel = pool_grouped_kernel<T, MODE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(P / group, B, (C + cc - 1) / cc);
-  return launch(pool_grouped_kernel<T, MODE>, grid, smem, stream, tab, bx, o, B, H, W, C, P, max_bh, max_bw,
-                cc, group);
+  kernel<<<grid, GROUP_THREADS, smem, stream>>>(static_cast<const T*>(table), static_cast<const float*>(boxes),
+                                                static_cast<T*>(out), B, H, W, C, P, max_bh, max_bw, cc, group);
+  return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE>
-int pool_contig(const void* table, const void* boxes, void* out, int B, int H, int W, int C, int P, int max_bh,
-                int max_bw, int cb, cudaStream_t stream) {
-  const int es = (int)sizeof(T);
-  const int tile = S * S * cb * es;
-  const int cc = MODE == ZERO ? 1 : pick_chunk(W, cb, es, tile, cb);
-  if (cc == 0) return (int)cudaErrorInvalidValue;
-  const int smem = MODE == ZERO ? 0 : tile + S * W * cc * es;
-  dim3 grid(P, B, C / cb);
-  return launch(pool_contig_kernel<T, MODE>, grid, smem, stream, static_cast<const T*>(table),
-                static_cast<const float*>(boxes), static_cast<T*>(out), B, H, W, C, P, max_bh, max_bw, cb, cc,
-                0);
-}
-
-template <typename T>
-int pool_mode(int mode, const void* table, const void* boxes, void* out, int B, int H, int W, int C, int P,
-              int max_bh, int max_bw, cudaStream_t s) {
-  switch (mode) {
-    case FULL: return pool_nhwc<T, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, 0, s);
-    case V3: return pool_nhwc<T, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, 0, s);
-    case NOP1: return pool_nhwc<T, NOP1>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, 0, s);
-    case NOP2: return pool_nhwc<T, NOP2>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, 0, s);
-    case NOBOTH: return pool_nhwc<T, NOBOTH>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, 0, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T>
-int contig_mode(int mode, const void* table, const void* boxes, void* out, int B, int H, int W, int C, int P,
-                int max_bh, int max_bw, int cb, cudaStream_t s) {
-  switch (mode) {
-    case FULL: return pool_contig<T, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s);
-    case STACK: return pool_contig<T, STACK>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s);
-    case P1ONLY: return pool_contig<T, P1ONLY>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s);
-    case ZERO: return pool_contig<T, ZERO>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its
+// dtype: 0 = float32, 1 = bfloat16. vector: 1 = the 16-byte path (C, and
+// K7's cb, a multiple of 16 bytes' worth of elements; pointers 16-byte
+// aligned), 0 = one element a thread. Each returns the cudaError_t of its
 // launch. The wrapper has checked shapes, modes and divisibility.
 
 // table (L, B, H, W, C) from features (B, H, W, C), L = max_bh levels
 extern "C" int roi_ablation_build_table(const void* feat, void* table, int B, int H, int W, int C, int L,
-                                        int dtype, void* stream) {
+                                        int dtype, int vector, void* stream) {
   if (B == 0 || H == 0 || W == 0 || C == 0) return 0;
+  if (vector && (misaligned(feat) || misaligned(table))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return build<float>(feat, table, B, H, W, C, L, s);
-  if (dtype == 1) return build<__nv_bfloat16>(feat, table, B, H, W, C, L, s);
+  if (dtype == 0)
+    return vector ? launch_build<float, 4>(roi_ablation_build_f32_vector, feat, table, B, H, W, C, L, s)
+                  : launch_build<float, 1>(roi_ablation_build_f32_scalar, feat, table, B, H, W, C, L, s);
+  if (dtype == 1)
+    return vector ? launch_build<__nv_bfloat16, 8>(roi_ablation_build_bf16_vector, feat, table, B, H, W, C, L, s)
+                  : launch_build<__nv_bfloat16, 1>(roi_ablation_build_bf16_scalar, feat, table, B, H, W, C, L, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K6; mode: 0 full, 1 v3, 2 noP1, 3 noP2, 4 noBoth
 extern "C" int roi_ablation_pool(const void* table, const void* boxes, void* out, int B, int H, int W, int C,
-                                 int P, int max_bh, int max_bw, int mode, int dtype, void* stream) {
+                                 int P, int max_bh, int max_bw, int mode, int dtype, int vector, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return pool_mode<float>(mode, table, boxes, out, B, H, W, C, P, max_bh, max_bw, s);
-  if (dtype == 1) return pool_mode<__nv_bfloat16>(mode, table, boxes, out, B, H, W, C, P, max_bh, max_bw, s);
-  return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || (vector && (misaligned(table) || misaligned(out))))
+    return (int)cudaErrorInvalidValue;
+  return pool_k67(mode, false, table, boxes, out, B, H, W, C, P, max_bh, max_bw, C, dtype, vector,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K7; mode: 0 full, 5 stackwrite, 6 p1only, 7 zeroOut; C % cb == 0
 extern "C" int roi_ablation_pool_contig(const void* table, const void* boxes, void* out, int B, int H, int W,
                                         int C, int P, int max_bh, int max_bw, int mode, int cb, int dtype,
-                                        void* stream) {
+                                        int vector, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return contig_mode<float>(mode, table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s);
-  if (dtype == 1)
-    return contig_mode<__nv_bfloat16>(mode, table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s);
-  return (int)cudaErrorInvalidValue;
+  if ((dtype != 0 && dtype != 1) || cb < 1 || C % cb || (vector && (misaligned(table) || misaligned(out))))
+    return (int)cudaErrorInvalidValue;
+  return pool_k67(mode, true, table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, dtype, vector,
+                  static_cast<cudaStream_t>(stream));
 }
+
+// The compiled block shape (K67_SHAPE) and channel slab (K67_SLAB) of K6
+// and K7, for reports.
+extern "C" int roi_ablation_shape() { return K67_SHAPE; }
+extern "C" int roi_ablation_slab() { return K67_SLAB; }
 
 // K8 (v3 = 0) and K9 (v3 = 1); P % group == 0
 extern "C" int roi_ablation_pool_grouped(const void* table, const void* boxes, void* out, int B, int H, int W,
@@ -436,10 +840,10 @@ extern "C" int roi_ablation_pool_grouped(const void* table, const void* boxes, v
   if (group < 1 || P % group) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return v3 ? pool_nhwc<float, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s)
-              : pool_nhwc<float, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s);
+    return v3 ? pool_grouped<float, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s)
+              : pool_grouped<float, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s);
   if (dtype == 1)
-    return v3 ? pool_nhwc<__nv_bfloat16, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s)
-              : pool_nhwc<__nv_bfloat16, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s);
+    return v3 ? pool_grouped<__nv_bfloat16, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s)
+              : pool_grouped<__nv_bfloat16, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s);
   return (int)cudaErrorInvalidValue;
 }

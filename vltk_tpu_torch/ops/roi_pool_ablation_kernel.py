@@ -6,12 +6,19 @@ Counterparts of ``pool``, ``pool_contig``, ``pool_grouped`` and
 ``pool_grouped_v3`` in ``tools/probe_roipool_ablation.py`` (Pallas on the
 TPU). Every call on the card launches the table build, then the variant's
 pool kernel; ``<dispatcher>.launches`` counts those calls (CPU calls do not
-count).
+count). K6 and K7 have two paths, picked before launching
+(``kernel_path``): ``"vector"`` (16-byte loads and stores, 8 bf16 or 4
+float32 channels a thread) where C, and K7's cb, are multiples of that
+width and the features start on a 16-byte boundary, ``"scalar"`` (one
+element a thread) otherwise; ``pool_auto.path_launches`` and
+``pool_contig_auto.path_launches`` count each. The table build takes the
+same path (K8 and K9, which have one path, build on ``kernel_path``'s).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -20,23 +27,33 @@ from vltk_tpu_torch.ops import roi_pool_ablation as plain
 from vltk_tpu_torch.ops.roi_pool_ablation import OUT_SIZE, caps, check_args
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+VECTOR_BYTES = 16
 MODE_CODE = {"full": 0, "v3": 1, "noP1": 2, "noP2": 3, "noBoth": 4, "stackwrite": 5, "p1only": 6, "zeroOut": 7}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "roi_ablation_build_table": [_P, _P] + [_I] * 6 + [_P],
-    "roi_ablation_pool": [_P] * 3 + [_I] * 9 + [_P],
-    "roi_ablation_pool_contig": [_P] * 3 + [_I] * 10 + [_P],
+    "roi_ablation_build_table": [_P, _P] + [_I] * 7 + [_P],
+    "roi_ablation_pool": [_P] * 3 + [_I] * 10 + [_P],
+    "roi_ablation_pool_contig": [_P] * 3 + [_I] * 11 + [_P],
     "roi_ablation_pool_grouped": [_P] * 3 + [_I] * 10 + [_P],
 }
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("roi_pool_ablation")
+    return bind(_build.load("roi_pool_ablation"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a build of ``csrc/roi_pool_ablation.cu``
+    (``tools/sweep_roipool_ablation.py`` binds builds of other block shapes
+    and channel slabs)."""
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name in ("roi_ablation_shape", "roi_ablation_slab"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -53,36 +70,54 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def build_table_cuda(features: torch.Tensor) -> torch.Tensor:
+def kernel_path(features: torch.Tensor, cb: Optional[int] = None) -> str:
+    """``"vector"`` where C (and ``cb``, K7's channel block) is a multiple
+    of 16 bytes' worth of elements and the (contiguous) features start on a
+    16-byte boundary, else ``"scalar"``."""
+    per_vector = VECTOR_BYTES // features.element_size()
+    widths = (features.shape[-1],) if cb is None else (features.shape[-1], cb)
+    aligned = features.data_ptr() % VECTOR_BYTES == 0
+    return "vector" if aligned and all(n % per_vector == 0 for n in widths) else "scalar"
+
+
+def build_table_cuda(features: torch.Tensor, path: Optional[str] = None,
+                     lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
     """The row-range-max table (max_bh, B, H, W, C): level l holds the max
     of rows y .. min(y + l, H - 1). Launches the build kernel alone (the
-    variants launch it themselves); no launch is counted."""
+    variants launch it themselves) on ``path`` (default
+    ``kernel_path(features)``), from ``lib`` (default the shipped build);
+    no launch is counted."""
     features = features.contiguous()
+    path = path or kernel_path(features)
     b, h, w, c = features.shape
     levels = caps(h, w)[0]
     table = torch.empty((levels, b, h, w, c), dtype=features.dtype, device=features.device)
     with torch.cuda.device(features.device):
-        err = _lib().roi_ablation_build_table(
+        err = (lib or _lib()).roi_ablation_build_table(
             features.data_ptr(), table.data_ptr(), b, h, w, c, levels,
-            _DTYPE_CODE[features.dtype], _stream(features),
+            _DTYPE_CODE[features.dtype], int(path == "vector"), _stream(features),
         )
-    _build.check(err, "roi_ablation_build_table launch")
+    _build.check(err, f"roi_ablation_build_table launch ({path} path)")
     return table
 
 
-def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor, out: torch.Tensor, *args: int) -> None:
-    """The table build, then the variant's kernel on the current stream."""
+def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor, out: torch.Tensor, *args: int,
+            path: Optional[str] = None, lib: Optional[ctypes.CDLL] = None) -> None:
+    """The table build on ``path`` (K6's or K7's; None for K8 and K9, whose
+    build takes ``kernel_path``'s), then the variant's kernel on the current
+    stream; ``args`` are the entry's arguments after ``max_bw``."""
+    lib = lib or _lib()
     features = features.contiguous()
     boxes = boxes.contiguous()
-    table = build_table_cuda(features)
+    table = build_table_cuda(features, path, lib)
     b, h, w, c = features.shape
     max_bh, max_bw = caps(h, w)
     with torch.cuda.device(features.device):
-        err = getattr(_lib(), entry)(
+        err = getattr(lib, entry)(
             table.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w, c, boxes.shape[1],
-            max_bh, max_bw, *args, _DTYPE_CODE[features.dtype], _stream(features),
+            max_bh, max_bw, *args, _stream(features),
         )
-    _build.check(err, f"{entry} launch")
+    _build.check(err, f"{entry} launch" + (f" ({path} path)" if path else ""))
 
 
 def _nhwc_out(features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -90,28 +125,40 @@ def _nhwc_out(features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, boxes.shape[1], OUT_SIZE, OUT_SIZE, c), dtype=features.dtype, device=features.device)
 
 
-def pool_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
+def pool_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128,
+              lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
     """K6: (B, H, W, C) float32/bf16, (B, P, 4) float32 on one CUDA device
-    -> (B, P, 14, 14, C). ``cb`` is checked and otherwise unused: the
-    kernel picks its own channel chunk."""
+    -> (B, P, 14, 14, C). ``cb`` is checked and otherwise unused: a
+    thread owns 16 bytes of channels (one element on the scalar path).
+    ``lib``: another build of the source (``bind``), for sweeps."""
     check_args(features, boxes, mode, plain.POOL_MODES, cb)
     _check_cuda(features, boxes)
+    features = features.contiguous()
+    path = kernel_path(features)
     out = _nhwc_out(features, boxes)
-    _launch("roi_ablation_pool", features, boxes, out, MODE_CODE[mode])
+    _launch("roi_ablation_pool", features, boxes, out, MODE_CODE[mode], _DTYPE_CODE[features.dtype],
+            int(path == "vector"), path=path, lib=lib)
     pool_auto.launches += 1
+    pool_auto.path_launches[path] += 1
     return out
 
 
-def pool_contig_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
-    """K7: -> (B, C/cb, P, 14, 14, cb)."""
+def pool_contig_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128,
+                     lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """K7: -> (B, C/cb, P, 14, 14, cb); the same kernel body as K6, written
+    into the channel-blocked layout."""
     check_args(features, boxes, mode, plain.CONTIG_MODES, cb, contig=True)
     _check_cuda(features, boxes)
+    features = features.contiguous()
+    path = kernel_path(features, cb)
     b, _, _, c = features.shape
     out = torch.empty(
         (b, c // cb, boxes.shape[1], OUT_SIZE, OUT_SIZE, cb), dtype=features.dtype, device=features.device
     )
-    _launch("roi_ablation_pool_contig", features, boxes, out, MODE_CODE[mode], cb)
+    _launch("roi_ablation_pool_contig", features, boxes, out, MODE_CODE[mode], cb, _DTYPE_CODE[features.dtype],
+            int(path == "vector"), path=path, lib=lib)
     pool_contig_auto.launches += 1
+    pool_contig_auto.path_launches[path] += 1
     return out
 
 
@@ -120,7 +167,7 @@ def pool_grouped_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 
     check_args(features, boxes, cb=cb, group=group)
     _check_cuda(features, boxes)
     out = _nhwc_out(features, boxes)
-    _launch("roi_ablation_pool_grouped", features, boxes, out, 0, group)
+    _launch("roi_ablation_pool_grouped", features, boxes, out, 0, group, _DTYPE_CODE[features.dtype])
     pool_grouped_auto.launches += 1
     return out
 
@@ -130,7 +177,7 @@ def pool_grouped_v3_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int
     check_args(features, boxes, cb=cb, group=group)
     _check_cuda(features, boxes)
     out = _nhwc_out(features, boxes)
-    _launch("roi_ablation_pool_grouped", features, boxes, out, 1, group)
+    _launch("roi_ablation_pool_grouped", features, boxes, out, 1, group, _DTYPE_CODE[features.dtype])
     pool_grouped_v3_auto.launches += 1
     return out
 
@@ -165,3 +212,5 @@ def pool_grouped_v3_auto(features: torch.Tensor, boxes: torch.Tensor, group: int
 
 for _fn in (pool_auto, pool_contig_auto, pool_grouped_auto, pool_grouped_v3_auto):
     _fn.launches = 0
+pool_auto.path_launches = {"vector": 0, "scalar": 0}
+pool_contig_auto.path_launches = {"vector": 0, "scalar": 0}

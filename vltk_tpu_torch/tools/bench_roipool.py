@@ -10,9 +10,10 @@ Counterpart of ``tools/bench_roipool.py`` (the Pallas kernel against the
 XLA path on the TPU), with ``--kernels cuda,plain`` in place of
 ``pallas,xla``. Inputs as the probe draws them
 (``tools.probe_roipool_ablation.make_inputs``: bf16, numpy
-``default_rng(0)``); each kernel is timed with CUDA events over
-``--iters`` back-to-back calls after two warm-up calls (the host clock on
-``--device cpu``, where only ``plain`` runs). The JAX tool's ``--cb``
+``default_rng(0)``); each kernel is timed as the probe times it
+(``timed``: CUDA events over ``--iters`` calls queued while the card
+sleeps, after two warm-up calls; the host clock on ``--device cpu``,
+where only ``plain`` runs). The JAX tool's ``--cb``
 (the Pallas kernel's channel block) has no counterpart.
 
 ``--shapes`` (needs the card) builds ``csrc/roi_pool.cu`` once per block

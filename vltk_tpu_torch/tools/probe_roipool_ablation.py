@@ -6,8 +6,9 @@
 Counterpart of ``tools/probe_roipool_ablation.py`` (JAX on the TPU). Makes
 the probe's inputs (bf16 features (8, 52, 84, 1024) and 300 boxes per
 image, from a numpy ``default_rng(0)`` as the JAX probe draws them) and
-times, with CUDA events over ``--iters`` back-to-back calls after two
-warm-up calls:
+times, with CUDA events over ``--iters`` calls queued while the card
+sleeps (so the wrappers' host work, a 358 MB table allocation and a
+``ctypes`` call, stays out of the span), after two warm-up calls:
 
 * ``shipped``: RoIPool K1 (``ops/roi_pool_kernel.py``), the reference of
   every comparison;
@@ -47,6 +48,7 @@ from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
     pool_grouped_v3_auto,
 )
 from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto
+from vltk_tpu_torch.tools.variants import queued_ms
 
 SHAPE = (8, 52, 84, 1024, 300)  # b, h, w, c, p
 
@@ -65,24 +67,18 @@ def make_inputs(b: int, h: int, w: int, c: int, p: int, device, seed: int = 0):
 
 
 def timed(fn: Callable[[], object], iters: int, device: torch.device) -> float:
-    """Mean ms of one call: CUDA events over ``iters`` back-to-back calls
-    after two warm-up calls; the host clock on the CPU."""
+    """Mean ms of one call after two warm-up calls: on the card, CUDA
+    events over ``iters`` calls queued while it sleeps
+    (``tools.variants.queued_ms``); the host clock on the CPU."""
+    if device.type == "cuda":
+        with torch.cuda.device(device):
+            return queued_ms(fn, iters)
     for _ in range(2):
         fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) / iters * 1e3
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / iters
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def variants(feat: torch.Tensor, boxes: torch.Tensor) -> Dict[str, Callable[[], torch.Tensor]]:
