@@ -17,23 +17,24 @@ package):
    copy one element into its storage; the wrapper's per-path counts show
    which ran); times both paths and the plain version at both step shapes
    (the median of five readings of 20 calls queued ahead, with the spread);
-4. prints the block shape of the ablation kernels K6 and K7 and the
-   registers, spills, shared memory and resident warps of K6, K7 and the
+4. prints the block shape of the ablation kernels K6-K9 and the
+   registers, spills, shared memory and resident warps of K6-K9 and the
    table build (the bf16 vector path must spill nothing and use under 4 KB
    of shared memory); holds K6-K9 (``pool``, ``pool_contig``,
    ``pool_grouped``, ``pool_grouped_v3``) against their plain versions,
    bitwise, every mode, at (2, 52, 84, 1024) float32 and (8, 52, 84, 1024)
-   bf16 x 300 RoIs (K7 at cb 128, K8/K9 at G 4 and 12), K6 and K7 on both
-   paths (16-byte vectors; one element a thread on a copy one element
-   into its storage) and on a copy with NaN and -inf cells (NaN in the
-   same places), and the RoIPool modes against K1; times every mode and
-   the table build alone (the median of five readings queued ahead, with
-   the spread), K6's and K7's ``full`` on the scalar path, and the plain
-   versions at the bf16 shape, and prints the phase split; then runs the
-   probe's path (``tools.probe_roipool_ablation.run``: every variant
-   timed and checked against K1 on the probe's inputs) with the launch
-   counts set to 0 and checks that K6-K9 were launched there, K6 and K7
-   on the vector path;
+   bf16 x 300 RoIs (K7 at cb 128, K8/K9 at G 4 and 12, also against K6
+   ``full`` / ``v3``), on both paths (16-byte vectors; one element a
+   thread on a copy one element into its storage) and on a copy with NaN
+   and -inf cells (NaN in the same places), and the RoIPool modes against
+   K1; times every mode and the table build alone (the median of five
+   readings queued ahead, with the spread), K6's and K7's ``full`` and K8
+   and K9 at G 4 on the scalar path, and the plain versions at the bf16
+   shape, and prints the phase split; then runs the probe's path
+   (``tools.probe_roipool_ablation.run``: every variant timed and checked
+   against K1 on the probe's inputs) with the launch counts set to 0,
+   checks that K6-K9 were launched there, all on the vector path, and
+   prints each one's loss there, launches x (ms - bound);
 5. prints K2's registers and spills, holds the greedy-NMS kernel K2
    against its plain version, exact keep indices and masks, at the RPN
    shape (B, 6000) -> 300 and the detection shape (B*3, 300) -> 36 for B=8
@@ -436,16 +437,17 @@ def with_nonfinite_cells(feat: torch.Tensor) -> torch.Tensor:
     return f
 
 
-def ablation_ptxas(lines, threads: int) -> None:
-    """Prints the ptxas lines of K6, K7 and the table build (registers,
+def ablation_ptxas(lines, threads: int) -> dict:
+    """Prints the ptxas lines of K6-K9 and the table build (registers,
     spills, static shared memory; they launch with no dynamic shared
     memory) with the warps an SM holds at their register counts in blocks
     of ``threads``, and checks that the bf16 vector path spills nothing and
-    uses under 4 KB of shared memory a block."""
+    uses under 4 KB of shared memory a block. Returns {kernel: {registers, spill_stores, smem, warps_per_sm}}."""
     kernels = {}
     for line in lines:
         name, _, text = line.partition(": ")
-        if not name.startswith(("roi_ablation_pool_", "roi_ablation_contig_", "roi_ablation_build_")):
+        if not name.startswith(("roi_ablation_pool_", "roi_ablation_contig_", "roi_ablation_grouped_",
+                                "roi_ablation_build_")):
             continue
         k = kernels.setdefault(name, {"registers": 0, "spill_stores": 0, "smem": 0})
         for key, pattern in (("registers", r"Used (\d+) registers"), ("spill_stores", r"(\d+) bytes spill stores"),
@@ -454,8 +456,8 @@ def ablation_ptxas(lines, threads: int) -> None:
             if m:
                 k[key] = int(m.group(1))
     if not kernels:
-        print("roi_pool_ablation K6/K7 ptxas: cached build")
-        return
+        print("roi_pool_ablation K6-K9 ptxas: cached build")
+        return kernels
     warps = threads // 32
     for name, k in sorted(kernels.items()):
         # registers are allocated in 256s a warp, 64K an SM; at most 64
@@ -465,40 +467,83 @@ def ablation_ptxas(lines, threads: int) -> None:
         print(f"roi_pool_ablation ptxas {name}: {k['registers']} registers, {k['spill_stores']} bytes spill stores, "
               f"{k['smem']} bytes static shared memory, {k['warps_per_sm']} resident warps an SM (from the registers)")
     vector = {n: k for n, k in kernels.items() if n.endswith("_bf16_vector")}
-    check(len(vector) == 10, f"ptxas lines of {len(vector)} bf16 vector K6/K7/build kernels, want 10")
-    check(all(k["spill_stores"] == 0 for k in vector.values()), "a K6/K7 bf16 vector kernel spills")
-    check(all(k["smem"] < 4096 for k in vector.values()), "a K6/K7 bf16 vector kernel uses 4 KB of shared memory")
+    check(len(vector) == 12, f"ptxas lines of {len(vector)} bf16 vector K6-K9/build kernels, want 12")
+    check(all(k["spill_stores"] == 0 for k in vector.values()), "a K6-K9 bf16 vector kernel spills")
+    check(all(k["smem"] < 4096 for k in vector.values()), "a K6-K9 bf16 vector kernel uses 4 KB of shared memory")
+    return kernels
+
+
+def grouped_waves(kernels: dict, shape: int, b: int, c: int, p: int) -> None:
+    """Prints the grids of K8 and K9 on the bf16 vector path at G = 1 (K6's
+    grid), 4 and 12 (threads, blocks of the compiled shape) against the
+    blocks the card holds at once at their register counts: the waves."""
+    bins, threads = shape // 100, 128 * (shape % 10)
+    groups = -(-14 // bins)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("roi_ablation_grouped_v2_bf16_vector", "roi_ablation_grouped_v3_bf16_vector"):
+        if name not in kernels:
+            continue
+        resident = kernels[name]["warps_per_sm"] // (threads // 32) * sms
+        for g in (1, 4, 12):
+            n = b * (p // g) * groups * (c // 8)
+            blocks = -(-n // threads)
+            print(f"{name} grid at G={g}: {n} threads, {blocks} blocks of {threads}; {resident} blocks resident "
+                  f"({kernels[name]['registers']} registers, {sms} SMs): {blocks / resident:.2f} waves")
+
+
+def table_reads(boxes: torch.Tensor, h: int, w: int, c: int, itemsize: int) -> float:
+    """Bytes of the row-max table that K6 ``full`` and K8 load on these
+    boxes: each live row bin's table row over its capped column windows."""
+    from vltk_tpu_torch.ops import roi_pool_ablation as plain
+
+    hs, he, ws, we = plain.capped_edges(boxes, h, w, "v2")
+    live, cols = ((he - hs) > 0).double(), (we - ws).clamp(min=0).double()
+    return float((live.sum(-1) * cols.sum(-1)).sum()) * c * itemsize
+
+
+# each ablation kernel and the case that stands for it in the kernels line
+KERNEL_LABELS = (("pool", "pool full"), ("pool_contig", "pool_contig full"), ("pool_grouped", "pool_grouped G=4"),
+                 ("pool_grouped_v3", "pool_grouped_v3 G=4"))
 
 
 def phase_roi_ablation(dev, ptxas) -> list:
     """K6-K9 against their plain versions, bitwise, every mode, at the
     probe's map in float32 (B=2) and bf16 (B=8) x 300 RoIs on
-    ``roi_boxes``; the RoIPool modes also against K1. K6 and K7 also on
-    their scalar path (an unaligned copy of the map) and on a copy with NaN
-    and -inf cells (NaN in the same places). Times every mode and the table
-    build (the median of five readings of 20 calls queued ahead), K1 and
-    the plain versions at the bf16 shape; then runs the probe's path once
-    and counts its launches, by path for K6 and K7. Returns the four
-    kernels-line entries."""
+    ``roi_boxes``; the RoIPool modes also against K1, K8 and K9 also
+    against K6 ``full`` / ``v3``. Every variant also on its scalar path (an
+    unaligned copy of the map) and on a copy with NaN and -inf cells (NaN
+    in the same places). Times every mode and the table build (the median
+    of five readings of 20 calls queued ahead), K1 and the plain versions
+    at the bf16 shape; then runs the probe's path once and counts its
+    launches by path. Returns the four kernels-line entries."""
     from vltk_tpu_torch.ops import KERNEL_WRAPPERS
     from vltk_tpu_torch.ops import roi_pool_ablation as plain
-    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import _lib, build_table_cuda, pool_auto, pool_contig_auto
+    from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
+        _lib,
+        build_table_cuda,
+        pool_auto,
+        pool_contig_auto,
+        pool_cuda,
+        pool_grouped_auto,
+        pool_grouped_v3_auto,
+    )
     from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
     from vltk_tpu_torch.tools import probe_roipool_ablation as probe
     from vltk_tpu_torch.tools.variants import unaligned
 
     lib = _lib()
-    print(f"roi_pool_ablation K67_SHAPE={lib.roi_ablation_shape():04d} K67_SLAB={lib.roi_ablation_slab()}")
-    ablation_ptxas(ptxas, threads=128 * (lib.roi_ablation_shape() % 10))
-    path_counts = {"pool": pool_auto.path_launches, "pool_contig": pool_contig_auto.path_launches}
+    print(f"roi_pool_ablation K67_SHAPE={lib.roi_ablation_shape():04d} K67_SLAB={lib.roi_ablation_slab()} "
+          f"K89_MIN_BLOCKS={lib.roi_ablation_grouped_min_blocks()}")
+    kernels = ablation_ptxas(ptxas, threads=128 * (lib.roi_ablation_shape() % 10))
+    grouped_waves(kernels, lib.roi_ablation_shape(), 8, C_RES4, N_ROI)
+    path_counts = {name: KERNEL_WRAPPERS[name].path_launches for name, _ in KERNEL_LABELS}
 
     def run_on(name, kernel, feat, boxes, want_path):
-        before = dict(path_counts[name]) if name in path_counts else None
+        before = dict(path_counts[name])
         got = kernel(feat, boxes)
         torch.cuda.synchronize()
-        if before is not None:
-            took = [k for k, v in path_counts[name].items() if v != before[k]]
-            check(took == [want_path], f"{name} took the {took} path, want {want_path}")
+        took = [k for k, v in path_counts[name].items() if v != before[k]]
+        check(took == [want_path], f"{name} took the {took} path, want {want_path}")
         return got
 
     gen = torch.Generator().manual_seed(8)
@@ -515,26 +560,25 @@ def phase_roi_ablation(dev, ptxas) -> list:
             eq = bitwise_equal(got, want)
             err = float((got.float() - want.float()).abs().max())
             worst[name] = max(worst.get(name, 0.0), err)
-            same_k1 = None
+            same_k1 = same_k6 = None
             if is_roipool:
                 same_k1 = bitwise_equal(plain.from_contig(got) if name == "pool_contig" else got, k1)
+            if name.startswith("pool_grouped"):
+                same_k6 = bitwise_equal(got, pool_cuda(feat, boxes, "v3" if name.endswith("v3") else "full"))
             del got
-            scalar_eq = None
-            if name in path_counts:
-                scalar_eq = bitwise_equal(run_on(name, kernel, scalar_feat, boxes, "scalar"), want)
+            scalar_eq = bitwise_equal(run_on(name, kernel, scalar_feat, boxes, "scalar"), want)
             print(f"{label} {tuple(feat.shape)} {dtype} x {N_ROI}: bitwise_equal={eq} max_abs_err={err} "
-                  f"equal_to_K1={same_k1} scalar_path_bitwise_equal={scalar_eq}")
+                  f"equal_to_K1={same_k1} equal_to_K6={same_k6} scalar_path_bitwise_equal={scalar_eq}")
             check(eq, f"{label} kernel != plain at {tuple(feat.shape)} {dtype}")
-            check(scalar_eq is not False, f"{label} scalar path != plain at {tuple(feat.shape)} {dtype}")
+            check(scalar_eq, f"{label} scalar path != plain at {tuple(feat.shape)} {dtype}")
             check(same_k1 is not False, f"{label} != K1 at {tuple(feat.shape)} {dtype}")
+            check(same_k6 is not False, f"{label} != K6 at {tuple(feat.shape)} {dtype}")
             del want
         del scalar_feat
-        # NaN and -inf cells: K6 and K7 on both paths
+        # NaN and -inf cells: every variant on both paths
         special = with_nonfinite_cells(feat)
         special_scalar = unaligned(special)
         for name, label, kernel, ref, _ in cases:
-            if name not in path_counts:
-                continue
             want = ref(special, boxes)
             ok = [nan_equal(run_on(name, kernel, f, boxes, path), want)
                   for f, path in ((special, "vector"), (special_scalar, "scalar"))]
@@ -556,7 +600,8 @@ def phase_roi_ablation(dev, ptxas) -> list:
     levels = plain.caps(*FEAT_HW)[0]
     t_bound, _ = bound(feat.numel() * 2 * (1 + levels), 0.0)
     print(f"roi_pool_ablation table build {tuple(feat.shape)} bf16 ({levels} levels): {show(table_runs)}, "
-          f"bound {t_bound:.4f} ms (bytes); K1 {k1_ms:.4f} ms")
+          f"bound {t_bound:.4f} ms (bytes); K1 {k1_ms:.4f} ms; table loads of K6 full on roi_boxes "
+          f"{table_reads(boxes, *FEAT_HW, C_RES4, 2) / 1e9:.3f} GB")
     for name, label, kernel, ref, _ in cases:
         out = kernel(feat, boxes)
         runs = spread_ms(lambda: kernel(feat, boxes))
@@ -569,7 +614,9 @@ def phase_roi_ablation(dev, ptxas) -> list:
         del out
     scalar_feat = unaligned(feat)
     for label, kernel in (("pool full", lambda f: pool_auto(f, boxes, "full")),
-                          ("pool_contig full", lambda f: pool_contig_auto(f, boxes, "full", 128))):
+                          ("pool_contig full", lambda f: pool_contig_auto(f, boxes, "full", 128)),
+                          ("pool_grouped G=4", lambda f: pool_grouped_auto(f, boxes, 4)),
+                          ("pool_grouped_v3 G=4", lambda f: pool_grouped_v3_auto(f, boxes, 4))):
         runs = spread_ms(lambda: kernel(scalar_feat), reps=5, runs=3)
         rows[label]["scalar_ms"] = runs[1]
         print(f"{label} timing on the scalar path (unaligned copy): {show(runs)}")
@@ -593,18 +640,23 @@ def phase_roi_ablation(dev, ptxas) -> list:
     for counts in path_counts.values():
         counts.update(vector=0, scalar=0)
     probe_rows = probe.run(feat, boxes, iters=5)
-    launches = {name: KERNEL_WRAPPERS[name].launches for name in ("pool", "pool_contig", "pool_grouped", "pool_grouped_v3")}
+    print(f"table loads of K6 full on the probe's boxes {table_reads(boxes, *FEAT_HW, C_RES4, 2) / 1e9:.3f} GB")
+    launches = {name: KERNEL_WRAPPERS[name].launches for name in path_counts}
     by_path = {name: dict(counts) for name, counts in path_counts.items()}
     check(all(r["same_as_shipped"] is not False for r in probe_rows), "probe: a RoIPool variant != K1")
     check(all(n > 0 for n in launches.values()), f"probe path launched {launches}")
     check(all(by_path[n]["vector"] == launches[n] for n in by_path), f"probe path took the scalar path: {by_path}")
     print("probe_run " + json.dumps({"launches": launches, "launches_by_path": by_path, "rows": probe_rows}))
+    probe_ms = {r["variant"]: r["ms"] for r in probe_rows}
+    for name, label in KERNEL_LABELS:
+        loss = launches[name] * (probe_ms[label] - rows[label]["bound_ms"])
+        print(f"{label} on the probe's path: {probe_ms[label]:.4f} ms, {launches[name]} launches, "
+              f"{probe_ms[label] / rows[label]['bound_ms']:.2f}x the bound, loss {loss:.2f} ms a probe call")
     del feat, boxes
     torch.cuda.empty_cache()
 
     entries = []
-    for name, label, line in (("pool", "pool full", 446), ("pool_contig", "pool_contig full", 217),
-                              ("pool_grouped", "pool_grouped G=4", 177), ("pool_grouped_v3", "pool_grouped_v3 G=4", 83)):
+    for (name, label), line in zip(KERNEL_LABELS, (446, 217, 177, 83)):
         entries.append({
             "name": name,
             "route": "cuda",

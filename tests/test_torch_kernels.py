@@ -762,8 +762,8 @@ def test_roi_pool_refuses_to_cut_the_gradient(dev):
 # ------------------------------------------------- RoIPool ablation, K6-K9
 
 # (b, h, w, c, p): the smallest map the noP* modes take; W a multiple of 8
-# (the v3 window's edge) with C not a multiple of the chunk; the probe's
-# map; a wide map that shrinks the kernel's channel chunk
+# (the v3 window's edge) with C not a multiple of the 256-channel slab; the
+# probe's map; a wide map
 ABLATION_SHAPES = [(1, 14, 14, 8, 4), (2, 20, 24, 72, 12), (2, 52, 84, 256, 12), (1, 30, 200, 128, 6)]
 
 
@@ -805,12 +805,17 @@ def test_pool_contig_kernel_bitwise(dev, dtype, shape, mode):
 @pytest.mark.parametrize("shape", ABLATION_SHAPES)
 @pytest.mark.parametrize("v3", [False, True])
 def test_pool_grouped_kernels_bitwise(dev, dtype, shape, v3):
+    """K8 / K9 at every G in {1, 2, 4, 12, P} that divides P: equal to the
+    plain version and to K6 ``full`` / ``v3``, bitwise."""
     feat, boxes = _ablation_case(dev, dtype, *shape)
     kernel, ref = (pool_grouped_v3_cuda, ablation.pool_grouped_v3) if v3 else (pool_grouped_cuda, ablation.pool_grouped)
-    for group in (1, 2, shape[4]):
+    k6 = pool_cuda(feat, boxes, "v3" if v3 else "full")
+    p = shape[4]
+    for group in sorted({g for g in (1, 2, 4, 12, p) if p % g == 0}):
         got = kernel(feat, boxes, group)
         torch.cuda.synchronize()
-        assert torch.equal(_bits(got), _bits(ref(feat, boxes, group)))
+        assert torch.equal(_bits(got), _bits(ref(feat, boxes, group))), group
+        assert torch.equal(_bits(got), _bits(k6)), group
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -852,9 +857,9 @@ def test_ablation_roipool_modes_equal_k1_inside_the_map(dev):
         assert torch.equal(_bits(got), _bits(want))
 
 
-# (name, C, cb, K6's path, K7's path): an aligned map whose C and cb take
-# 16-byte vectors; an unaligned copy of it; C = 9 (cb = 3); cb = 6, which
-# sends K7 alone to the scalar path
+# (name, C, cb, K6's path (and K8's and K9's), K7's path): an aligned map
+# whose C and cb take 16-byte vectors; an unaligned copy of it; C = 9
+# (cb = 3); cb = 6, which sends K7 alone to the scalar path
 K67_PATH_CASES = [
     ("aligned", 72, 8, "vector", "vector"),
     ("unaligned", 72, 8, "scalar", "scalar"),
@@ -888,11 +893,11 @@ def _with_nonfinite_cells(feat: torch.Tensor) -> torch.Tensor:
 @pytest.mark.parametrize("case", K67_PATH_CASES, ids=[c[0] for c in K67_PATH_CASES])
 @pytest.mark.parametrize("nonfinite", [False, True], ids=["finite", "nonfinite"])
 def test_k6_k7_paths_every_mode(dev, dtype, case, nonfinite):
-    """K6 and K7 on both paths, every mode: the wrapper picks the path
-    before launching, each call adds one to ``launches`` and to the count
-    of that path alone, and the result equals the plain version (NaN in the
-    same places, every other value bitwise), also on maps with NaN and
-    -inf cells."""
+    """K6 and K7 on both paths, every mode, and K8 and K9 at G in {1, 2, 4,
+    12} (P = 12): the wrapper picks the path before launching, each call
+    adds one to ``launches`` and to the count of that path alone, and the
+    result equals the plain version (NaN in the same places, every other
+    value bitwise), also on maps with NaN and -inf cells."""
     from vltk_tpu_torch.tools.variants import unaligned
 
     name, c, cb, k6_path, k7_path = case
@@ -905,6 +910,11 @@ def test_k6_k7_paths_every_mode(dev, dtype, case, nonfinite):
               lambda f, b, m=mode: ablation.pool(f, b, m)) for mode in ablation.POOL_MODES]
     calls += [(pool_contig_auto, k7_path, mode, lambda f, b, m=mode: pool_contig_cuda(f, b, m, cb),
                lambda f, b, m=mode: ablation.pool_contig(f, b, m, cb)) for mode in ablation.CONTIG_MODES]
+    for g in (1, 2, 4, 12):
+        calls += [(pool_grouped_auto, k6_path, f"grouped G={g}", lambda f, b, g=g: pool_grouped_cuda(f, b, g),
+                   lambda f, b, g=g: ablation.pool_grouped(f, b, g)),
+                  (pool_grouped_v3_auto, k6_path, f"grouped_v3 G={g}", lambda f, b, g=g: pool_grouped_v3_cuda(f, b, g),
+                   lambda f, b, g=g: ablation.pool_grouped_v3(f, b, g))]
     for wrapper, path, mode, kernel, ref in calls:
         before, paths = wrapper.launches, dict(wrapper.path_launches)
         got = kernel(feat, boxes)
@@ -919,7 +929,8 @@ def test_k6_k7_paths_every_mode(dev, dtype, case, nonfinite):
 
 def test_k6_k7_nonfinite_at_the_probe_width(dev):
     """bf16 (2, 52, 84, 1024) with NaN and -inf cells on the vector path,
-    every K6 and K7 mode (K7 at cb 128) against the plain version."""
+    every K6 and K7 mode (K7 at cb 128), and K8 and K9 at G = 4 and 12,
+    against the plain version."""
     gen = torch.Generator().manual_seed(52)
     feat = _with_nonfinite_cells(torch.randn(2, 52, 84, 1024, generator=gen).to(dev, torch.bfloat16))
     boxes = _boxes(gen, 2, 24, 52, 84).to(dev)
@@ -931,6 +942,11 @@ def test_k6_k7_nonfinite_at_the_probe_width(dev):
         got = pool_contig_cuda(feat, boxes, mode, 128)
         torch.cuda.synchronize()
         assert _nan_equal(got, ablation.pool_contig(feat, boxes, mode, 128)), mode
+    for g in (4, 12):
+        for kernel, ref in ((pool_grouped_cuda, ablation.pool_grouped), (pool_grouped_v3_cuda, ablation.pool_grouped_v3)):
+            got = kernel(feat, boxes, g)
+            torch.cuda.synchronize()
+            assert _nan_equal(got, ref(feat, boxes, g)), (kernel.__name__, g)
 
 
 def test_ablation_table_levels_on_both_paths(dev):

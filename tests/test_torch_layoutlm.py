@@ -441,6 +441,30 @@ class TestHostChain:
         for k, v in port_sd.items():
             assert torch.equal(got[k], v), k
 
+    @pytest.mark.parametrize("dropped", ["layoutlm.encoder.layer.1.", "classifier."])
+    def test_from_pretrained_partial_checkpoint(self, tiny_vocab, jax_model, port_sd, tmp_path, dropped):
+        """A checkpoint without one layer's encoder weights raises and names
+        a missing key (JAX fails on the missing parameter); one without
+        only the ``classifier.*`` head loads, the head left as seeded."""
+        from vltk_tpu_torch.data.tokenizer import Tokenizer
+        from vltk_tpu_torch.predict import DocTokenClassifier
+
+        sd = {k: v for k, v in port_sd.items() if not k.startswith(dropped)}
+        assert len(sd) < len(port_sd)
+        path = str(tmp_path / "partial.pt")
+        torch.save(sd, path)
+        kwargs = dict(config=port_cfg(jax_model[0]), device="cpu", max_seq_length=16,
+                      tokenizer=Tokenizer(vocab_path=tiny_vocab, max_seq_length=16))
+        if dropped.startswith("layoutlm."):
+            with pytest.raises(KeyError, match=r"lacks 16 encoder weights: layoutlm\.encoder\.layer\.1\."):
+                DocTokenClassifier.from_pretrained(path, DOC_LABELS, **kwargs)
+            return
+        clf = DocTokenClassifier.from_pretrained(path, DOC_LABELS, **kwargs)
+        seeded = DocTokenClassifier(DOC_LABELS, **kwargs).model.state_dict()
+        got = clf.model.state_dict()
+        for k, v in got.items():
+            assert torch.equal(v, sd[k] if k in sd else seeded[k]), k
+
 
 # --------------------------------------------------------------- guards
 

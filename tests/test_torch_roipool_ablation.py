@@ -8,8 +8,8 @@ imported, which are put back. Its four functions run at (2, 16, 20, 128) x
 zero-size box, boxes off the map, a box far larger than the map and one
 wider than it in x only: the last two pin the bin-extent caps of the v2
 and v3 windows. A copy of the map with NaN and -inf cells runs the RoIPool
-modes and the copies that keep raw values (noP1, noP2). The JAX outputs are
-computed once per module.
+modes (K8 and K9 at G = 4 among them) and the copies that keep raw values
+(noP1, noP2). The JAX outputs are computed once per module.
 """
 
 import importlib.util
@@ -152,7 +152,11 @@ def test_bf16_bitwise_equal_to_pallas(jax_outputs, fn, arg):
     assert torch.equal(_bits(got), _bits(want))
 
 
-NONFINITE_CASES = [("pool", m) for m in ("full", "v3", "noP1", "noP2")] + [("contig", m) for m in ("full", "stackwrite")]
+NONFINITE_CASES = (
+    [("pool", m) for m in ("full", "v3", "noP1", "noP2")]
+    + [("contig", m) for m in ("full", "stackwrite")]
+    + [("grouped", 4), ("grouped_v3", 4)]
+)
 
 
 @pytest.fixture(scope="module")
@@ -335,6 +339,9 @@ def test_ablation_sweep_parses_its_builds_and_needs_the_card(monkeypatch):
     assert sweep.parse_slabs("0,256,128") == [0, 256, 128]
     with pytest.raises(ValueError):
         sweep.parse_slabs("256,-1")
+    assert sweep.parse_blocks("0,1,9") == [0, 1, 9]
+    with pytest.raises(ValueError):
+        sweep.parse_blocks("1,-1")
     with pytest.raises(ValueError):
         sweep.main(["--shapes", "1522"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -3,8 +3,8 @@
 // Replaces the four Pallas TPU kernels of tools/probe_roipool_ablation.py:
 //   K6 pool             (body make_kernel)            modes full, v3, noP1, noP2, noBoth
 //   K7 pool_contig      (body make_kernel_contig)     modes full, stackwrite, p1only, zeroOut
-//   K8 pool_grouped     (body make_group_kernel)      v2 RoIPool, G RoIs per block
-//   K9 pool_grouped_v3  (body make_group_kernel_v3)   v3 RoIPool, G RoIs per block
+//   K8 pool_grouped     (body make_group_kernel)      v2 RoIPool, G RoIs per grid step
+//   K9 pool_grouped_v3  (body make_group_kernel_v3)   v3 RoIPool, G RoIs per grid step
 // They are variants of the separable-max RoIPool design that the shipped
 // TPU kernel uses, made to time its phases; what each mode returns is
 // written out in ops/roi_pool_ablation.py, the plain version.
@@ -26,7 +26,7 @@
 // P=300) the function reads a 71.6 MB map and writes 963 MB, ~0.31 ms at
 // 3.35 TB/s; the table adds 358 MB written and read back.
 //
-// K6 and K7: one register body, the output address a template parameter
+// K6-K9: one register body, the output address a template parameter
 // (K1's design, csrc/roi_pool.cu, applied to the table).
 // - 16-byte vectors along C: a thread owns 8 bf16 or 4 float32 channels, so
 //   a warp loads and stores 512 contiguous bytes. bf16 maxima are taken on
@@ -44,8 +44,17 @@
 //   Evict-first stores (st.global.cs), so the 0.96 GB stream does not push
 //   the table out of L2.
 // - Image-major order: the image is the slowest index of the flat thread
-//   id, then (K67_SLAB, below) a slab of channels, then the RoI, so an
-//   image's table (44.7 MB in bf16) is read while it sits in L2.
+//   id, then (K67_SLAB, below) a slab of channels, then the RoI (the RoI
+//   group for K8 and K9), so an image's table (44.7 MB in bf16) is read
+//   while it sits in L2.
+// - K8 and K9 (the v2 and v3 windows of K6 full and v3, NHWC): a thread
+//   walks G RoIs p = pg G + k, k < G, in a loop, with the same channels and
+//   column bins in each, so the flat id decodes once for G RoIs, as the TPU
+//   kernel's grid step served G RoIs. G changes how the work is grouped,
+//   not the values. The grid has G times fewer threads, and the threads an
+//   SM holds read G times as many channels of an image's table as K6's at
+//   once, so more of it misses L2: K8 and K9 run fewer, fatter threads
+//   (K89_MIN_BLOCKS, below: ~120 registers, 4 blocks an SM).
 // - Modes, each removing on the card the work it removed on the TPU:
 //   noP1 reads feature row i (table level 0) in place of the table row;
 //   noP2 and noBoth issue as many column loads per bin as full (at least
@@ -59,13 +68,6 @@
 // - A scalar path (one element a thread) takes what the vector path cannot:
 //   C (or K7's cb) not a multiple of the vector width, or features that are
 //   not 16-byte aligned. The wrapper picks the path before launching.
-//
-// K8 and K9 keep the first port's design: per (G RoIs, image, channel
-// chunk) a block fills a shared-memory rowmax [14][W][cc] from the table
-// (pass 1), then takes each bin's capped column window from it (pass 2).
-// The rowmax (84, 14, 128) of the TPU would be 301 KB in bf16, above the
-// 227 KB a block may use, so a block works on a channel chunk cc (64
-// channels in bf16, 32 in float32; fewer if W is large).
 //
 // Exactness: every value is a max or a copy of input values, so all modes
 // agree bitwise with the plain version (NaN in the same places). The
@@ -101,23 +103,29 @@ __device__ __forceinline__ float max_nan(float m, float v) {
   return (v > m || isnan(v)) ? (isnan(m) ? m : v) : m;
 }
 
-// ============================================================ K6 and K7
+// ============================================================ K6-K9
 
-// Block shape of K6, K7 and the build, three or four digits "bb u t" as
+// Block shape of K6-K9 and the build, three or four digits "bb u t" as
 // K1's (221 is bb = 02):
 //   bb  column bins a thread owns (01-14)
 //   u   cells of a bin a thread loads in one unrolled, predicated group
 //   t   threads a block, in units of 128
-// and K67_SLAB, the channels of the table that one wave of blocks reads
-// (0: all C): the order is image, channel slab, RoI, so a smaller slab
-// reads less of an image's table at a time. tools/sweep_roipool_ablation.py
-// builds others and times them on the probe's inputs; PERF.md has the
-// ranking (221 with slabs of 256 channels came first).
+// K67_SLAB, the channels of the table that one wave of blocks reads (0: all
+// C): the order is image, channel slab, RoI, so a smaller slab reads less
+// of an image's table at a time. K89_MIN_BLOCKS: the blocks of K8 and K9 an
+// SM must hold at once, __launch_bounds__'s second argument (0: none
+// given); 1 lets ptxas spend registers on loads in flight, which K8 and K9
+// need more than occupancy. tools/sweep_roipool_ablation.py builds others
+// and times them on the probe's inputs; PERF.md has the rankings (221 with
+// slabs of 256 channels came first; K89_MIN_BLOCKS 1 for K8 and K9).
 #ifndef K67_SHAPE
 #define K67_SHAPE 221
 #endif
 #ifndef K67_SLAB
 #define K67_SLAB 256
+#endif
+#ifndef K89_MIN_BLOCKS
+#define K89_MIN_BLOCKS 1
 #endif
 
 constexpr int kBins = K67_SHAPE / 100;
@@ -128,6 +136,12 @@ static_assert(kBins >= 1 && kBins <= 14 && kUnroll >= 1 && kThreads >= 128,
 static_assert(K67_SLAB >= 0, "K67_SLAB: want channels >= 0");
 constexpr int kGroups = (S + kBins - 1) / kBins;
 constexpr int kBuildGroup = 8;  // table levels a build thread loads in one group
+#define K67_BOUNDS __launch_bounds__(kThreads)
+#if K89_MIN_BLOCKS > 0
+#define K89_BOUNDS __launch_bounds__(kThreads, K89_MIN_BLOCKS)
+#else
+#define K89_BOUNDS __launch_bounds__(kThreads)
+#endif
 
 template <typename To, typename From>
 __device__ __forceinline__ To bit_cast(const From& x) {
@@ -306,42 +320,31 @@ struct BinWalk {
   }
 };
 
-// The thread's (channel vector, column-bin group, RoI, image) from its flat
-// id (((b * slabs + slab) * P + p) * groups + group) * vecs + vector in the
-// slab: the image is the slowest index, so the order is image-major, then
-// the channel slab (one slab of all C channels by default), then the RoI.
+// The thread's (channel vector, column-bin group, RoI group, image) from its
+// flat id (((b * slabs + slab) * R + pg) * groups + group) * vecs + vector in
+// the slab, R = P / G RoI groups an image (K6 and K7: G = 1, the RoI): the
+// image is the slowest index, so the order is image-major, then the channel
+// slab (one slab of all C channels by default), then the RoI group.
 template <typename I>
-__device__ __forceinline__ void decode(I t, I vecs, I slabs, I P, I& cv, I& g, I& roi, I& b) {
+__device__ __forceinline__ void decode(I t, I vecs, I slabs, I R, I& cv, I& g, I& pg, I& b) {
   cv = t % vecs;
   t /= vecs;
   g = t % kGroups;
   t /= kGroups;
-  const I p = t % P;
-  t /= P;
+  pg = t % R;
+  t /= R;
   cv += t % slabs * vecs;
   b = t / slabs;
-  roi = b * P + p;
 }
 
-// One thread: V::N channels of one RoI's kBins column bins, all 14 row
-// bins. CONTIG: the (B, C/cb, P, 14, 14, cb) layout of K7, else K6's NHWC.
+// One RoI (roi = b P + p, of image b): V::N channels from c0 of kBins
+// column bins from j0, all 14 row bins. CONTIG: the (B, C/cb, P, 14, 14,
+// cb) layout of K7, else NHWC.
 template <typename T, typename V, int MODE, bool CONTIG>
-__device__ __forceinline__ void ablation_body(const T* __restrict__ table, const float* __restrict__ boxes,
-                                              T* __restrict__ out, int B, int H, int W, int C, int P, int max_bh,
-                                              int max_bw, int cb, int slab, long long total, int observe) {
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  long long cv, g, roi, b;
-  if (total <= 0xffffffffLL) {
-    unsigned cv32, g32, roi32, b32;
-    decode<unsigned>((unsigned)t, slab / V::N, C / slab, P, cv32, g32, roi32, b32);
-    cv = cv32, g = g32, roi = roi32, b = b32;
-  } else {
-    decode<long long>(t, slab / V::N, C / slab, P, cv, g, roi, b);
-  }
-  const int c0 = (int)cv * V::N;
-  const int j0 = (int)g * kBins;
-
+__device__ __forceinline__ void roi_body(const T* __restrict__ table, const float* __restrict__ boxes,
+                                         T* __restrict__ out, int B, int H, int W, int C, int P, int max_bh,
+                                         int max_bw, int cb, long long b, long long roi, int c0, int j0,
+                                         int observe) {
   // bin (i, j) is written at o + (i * S + j) * step
   T* o;
   int step;
@@ -505,6 +508,38 @@ __device__ __forceinline__ void ablation_body(const T* __restrict__ table, const
   if ((MODE == NOP2 || MODE == NOBOTH || MODE == P1ONLY) && observe) sink.store(o);
 }
 
+// One thread: the body for each of its G RoIs p = pg * G + k, k < G, in
+// turn (GROUPED: K8 and K9, G = group; else G = 1). The loop amortises the
+// decode over G RoIs, as the TPU's grid step amortised its cost over them.
+template <typename T, typename V, int MODE, bool CONTIG, bool GROUPED>
+__device__ __forceinline__ void ablation_body(const T* __restrict__ table, const float* __restrict__ boxes,
+                                              T* __restrict__ out, int B, int H, int W, int C, int P, int max_bh,
+                                              int max_bw, int cb, int slab, int group, long long total,
+                                              int observe) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int G = GROUPED ? group : 1;
+  long long cv, g, roi0, b;  // roi0 = b P + pg G, the group's first RoI
+  if (total <= 0xffffffffLL) {
+    unsigned cv32, g32, pg32, b32;
+    decode<unsigned>((unsigned)t, slab / V::N, C / slab, P / G, cv32, g32, pg32, b32);
+    cv = cv32, g = g32, roi0 = b32 * P + pg32 * G, b = b32;
+  } else {
+    long long pg;
+    decode<long long>(t, slab / V::N, C / slab, P / G, cv, g, pg, b);
+    roi0 = b * P + pg * G;
+  }
+  const int c0 = (int)cv * V::N, j0 = (int)g * kBins;
+  if (!GROUPED) {
+    roi_body<T, V, MODE, CONTIG>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, b, roi0, c0, j0, observe);
+    return;
+  }
+#pragma unroll 1
+  for (int k = 0; k < G; ++k)
+    roi_body<T, V, MODE, CONTIG>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, b, roi0 + k, c0, j0,
+                                 observe);
+}
+
 // the table: thread per (image, row, column, channel vector); loads rows
 // y .. y + L - 1 of its cells (those inside the map) in groups, and writes
 // the running maxima to the L levels
@@ -536,28 +571,31 @@ __device__ __forceinline__ void build_body(const T* __restrict__ feat, T* __rest
 }
 
 // one kernel per mode, layout, type and path, named so that -Xptxas -v
-// tells them apart
-#define ABL_KERNEL(name, T, n, MODE, CONTIG)                                                                  \
-  __global__ void __launch_bounds__(kThreads)                                                                \
-      name(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out, int B, int H,  \
-           int W, int C, int P, int max_bh, int max_bw, int cb, int slab, long long total, int observe) {   \
-    ablation_body<T, Cells<T, n>, MODE, CONTIG>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, slab,  \
-                                                total, observe);                                             \
+// tells them apart; BOUNDS: its __launch_bounds__
+#define ABL_KERNEL(name, T, n, MODE, CONTIG, GROUPED, BOUNDS)                                                \
+  __global__ void BOUNDS                                                                                      \
+      name(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out, int B, int H,   \
+           int W, int C, int P, int max_bh, int max_bw, int cb, int slab, int group, long long total,         \
+           int observe) {                                                                                     \
+    ablation_body<T, Cells<T, n>, MODE, CONTIG, GROUPED>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, \
+                                                         slab, group, total, observe);                        \
   }
-#define ABL_MODE(mode, MODE, CONTIG)                                        \
-  ABL_KERNEL(roi_ablation_##mode##_bf16_vector, __nv_bfloat16, 8, MODE, CONTIG) \
-  ABL_KERNEL(roi_ablation_##mode##_bf16_scalar, __nv_bfloat16, 1, MODE, CONTIG) \
-  ABL_KERNEL(roi_ablation_##mode##_f32_vector, float, 4, MODE, CONTIG)          \
-  ABL_KERNEL(roi_ablation_##mode##_f32_scalar, float, 1, MODE, CONTIG)
-ABL_MODE(pool_full, FULL, false)
-ABL_MODE(pool_v3, V3, false)
-ABL_MODE(pool_noP1, NOP1, false)
-ABL_MODE(pool_noP2, NOP2, false)
-ABL_MODE(pool_noBoth, NOBOTH, false)
-ABL_MODE(contig_full, FULL, true)
-ABL_MODE(contig_stackwrite, STACK, true)
-ABL_MODE(contig_p1only, P1ONLY, true)
-ABL_MODE(contig_zeroOut, ZERO, true)
+#define ABL_MODE(mode, MODE, CONTIG, GROUPED, BOUNDS)                                              \
+  ABL_KERNEL(roi_ablation_##mode##_bf16_vector, __nv_bfloat16, 8, MODE, CONTIG, GROUPED, BOUNDS) \
+  ABL_KERNEL(roi_ablation_##mode##_bf16_scalar, __nv_bfloat16, 1, MODE, CONTIG, GROUPED, BOUNDS) \
+  ABL_KERNEL(roi_ablation_##mode##_f32_vector, float, 4, MODE, CONTIG, GROUPED, BOUNDS)          \
+  ABL_KERNEL(roi_ablation_##mode##_f32_scalar, float, 1, MODE, CONTIG, GROUPED, BOUNDS)
+ABL_MODE(pool_full, FULL, false, false, K67_BOUNDS)
+ABL_MODE(pool_v3, V3, false, false, K67_BOUNDS)
+ABL_MODE(pool_noP1, NOP1, false, false, K67_BOUNDS)
+ABL_MODE(pool_noP2, NOP2, false, false, K67_BOUNDS)
+ABL_MODE(pool_noBoth, NOBOTH, false, false, K67_BOUNDS)
+ABL_MODE(contig_full, FULL, true, false, K67_BOUNDS)
+ABL_MODE(contig_stackwrite, STACK, true, false, K67_BOUNDS)
+ABL_MODE(contig_p1only, P1ONLY, true, false, K67_BOUNDS)
+ABL_MODE(contig_zeroOut, ZERO, true, false, K67_BOUNDS)
+ABL_MODE(grouped_v2, FULL, false, true, K89_BOUNDS)
+ABL_MODE(grouped_v3, V3, false, true, K89_BOUNDS)
 #undef ABL_MODE
 #undef ABL_KERNEL
 
@@ -573,22 +611,22 @@ ABL_BUILD(roi_ablation_build_f32_scalar, float, 1)
 #undef ABL_BUILD
 
 template <typename T>
-using AblationKernel = void (*)(const T*, const float*, T*, int, int, int, int, int, int, int, int, int, long long,
-                                int);
+using AblationKernel = void (*)(const T*, const float*, T*, int, int, int, int, int, int, int, int, int, int,
+                                long long, int);
 
 template <typename T, int N>
 int launch_pool(AblationKernel<T> kernel, const void* table, const void* boxes, void* out, int B, int H, int W, int C,
-                int P, int max_bh, int max_bw, int cb, cudaStream_t stream) {
+                int P, int max_bh, int max_bw, int cb, int group, cudaStream_t stream) {
   if (C % N || cb % N) return (int)cudaErrorInvalidValue;
   // the channel slab of a wave: K67_SLAB where it divides C into whole
   // vectors, else all of C
   const int slab = K67_SLAB > 0 && K67_SLAB < C && C % K67_SLAB == 0 && K67_SLAB % N == 0 ? K67_SLAB : C;
-  const long long total = (long long)B * P * kGroups * (C / N);
+  const long long total = (long long)B * (P / group) * kGroups * (C / N);
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(static_cast<const T*>(table), static_cast<const float*>(boxes),
                                                     static_cast<T*>(out), B, H, W, C, P, max_bh, max_bw, cb, slab,
-                                                    total, 0);
+                                                    group, total, 0);
   return (int)cudaGetLastError();
 }
 
@@ -604,17 +642,18 @@ int launch_build(void (*kernel)(const T*, T*, int, int, int, int, long long), co
   return (int)cudaGetLastError();
 }
 
-// the K6 / K7 kernel of a mode, for a type and path
+// the K6, K7 or K8 / K9 kernel of a mode, for a type and path
 #define ABL_PICK(mode)                                                                                            \
   return dtype == 0 ? (vector ? launch_pool<float, 4>(roi_ablation_##mode##_f32_vector, ARGS)                     \
                               : launch_pool<float, 1>(roi_ablation_##mode##_f32_scalar, ARGS))                    \
                     : (vector ? launch_pool<__nv_bfloat16, 8>(roi_ablation_##mode##_bf16_vector, ARGS)            \
                               : launch_pool<__nv_bfloat16, 1>(roi_ablation_##mode##_bf16_scalar, ARGS))
-#define ARGS table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, s
+#define ARGS table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, group, s
+enum Variant { K6 = 0, K7 = 1, K8_K9 = 2 };
 
-int pool_k67(int mode, bool contig, const void* table, const void* boxes, void* out, int B, int H, int W, int C,
-             int P, int max_bh, int max_bw, int cb, int dtype, bool vector, cudaStream_t s) {
-  if (!contig) {
+int pool_variant(int mode, int variant, const void* table, const void* boxes, void* out, int B, int H, int W, int C,
+                 int P, int max_bh, int max_bw, int cb, int group, int dtype, bool vector, cudaStream_t s) {
+  if (variant == K6) {
     switch (mode) {
       case FULL: ABL_PICK(pool_full);
       case V3: ABL_PICK(pool_v3);
@@ -622,12 +661,17 @@ int pool_k67(int mode, bool contig, const void* table, const void* boxes, void* 
       case NOP2: ABL_PICK(pool_noP2);
       case NOBOTH: ABL_PICK(pool_noBoth);
     }
-  } else {
+  } else if (variant == K7) {
     switch (mode) {
       case FULL: ABL_PICK(contig_full);
       case STACK: ABL_PICK(contig_stackwrite);
       case P1ONLY: ABL_PICK(contig_p1only);
       case ZERO: ABL_PICK(contig_zeroOut);
+    }
+  } else {
+    switch (mode) {
+      case FULL: ABL_PICK(grouped_v2);
+      case V3: ABL_PICK(grouped_v3);
     }
   }
   return (int)cudaErrorInvalidValue;
@@ -635,154 +679,11 @@ int pool_k67(int mode, bool contig, const void* table, const void* boxes, void* 
 #undef ARGS
 #undef ABL_PICK
 
-// ============================================================ K8 and K9
-
-constexpr int GROUP_THREADS = 256;
-constexpr int SMEM_LIMIT = 232448 - 1024;  // 227 KB a block may use, less the static Bins
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// the bins of one RoI, in shared memory
-struct Bins {
-  int row0[S];  // first row of row bin i
-  int rows[S];  // its row count after the cap (0: empty)
-  int col0[S];  // first column of column bin j
-  int col1[S];  // its end after the column window's cap
-  int xlo;      // pass 1 fills columns [xlo, xlo + span)
-  int span;
-};
-
-template <int MODE>
-__device__ void load_bins(const float* box, int H, int W, int max_bh, int max_bw, Bins& s) {
-  const int t = threadIdx.x;
-  if (t < S) {
-    const int x1 = round_half_away(box[0]);
-    const int y1 = round_half_away(box[1]);
-    const int x2 = round_half_away(box[2]);
-    const int y2 = round_half_away(box[3]);
-    // 64-bit bin arithmetic: a box far off the map must not overflow
-    const long long rw = max(x2 - x1 + 1, 1);
-    const long long rh = max(y2 - y1 + 1, 1);
-    const int hs = clampl(t * rh / S + y1, 0, H);
-    const int he = clampl(((t + 1) * rh + S - 1) / S + y1, 0, H);
-    s.row0[t] = hs;
-    s.rows[t] = max(min(he - hs, max_bh), 0);
-    const int ws = clampl(t * rw / S + x1, 0, W);
-    const int we = clampl(((t + 1) * rw + S - 1) / S + x1, 0, W);
-    int end;
-    if (MODE == V3) {
-      const int win = 2 * ((max_bw + 7) / 8) * 8;
-      end = min(we, ws / 8 * 8 + win);
-    } else {
-      end = min(we, min(ws, W - max_bw) + max_bw);  // ws >= 0
-    }
-    s.col0[t] = ws;
-    s.col1[t] = end;
-  }
-  __syncthreads();
-  if (t == 0) {
-    int hi = s.col0[0];
-    for (int j = 0; j < S; ++j) hi = max(hi, s.col1[j]);
-    s.xlo = s.col0[0];
-    s.span = hi - s.col0[0];
-  }
-  __syncthreads();
-}
-
-// pass 1: rowmax[i][x - xlo][tc] for the RoI's columns. tab_b is level 0
-// of image b; level l lies l * level_stride further.
-template <typename T>
-__device__ void pass1(const T* __restrict__ tab_b, size_t level_stride, int W, int C, int c, const Bins& s,
-                      T* rowmax, int cc, int tc, int tr, int nr) {
-  const T neg = from_float<T>(NEG);
-  const bool live = c < C;
-  const int span = s.span;
-#pragma unroll 4
-  for (int idx = tr; idx < S * span; idx += nr) {
-    const int i = idx / span;
-    const int x = idx - i * span;
-    T v = neg;
-    if (live && s.rows[i] > 0)
-      v = tab_b[(s.rows[i] - 1) * level_stride + ((size_t)s.row0[i] * W + s.xlo + x) * C + c];
-    rowmax[(i * W + x) * cc + tc] = v;
-  }
-}
-
-// pass 2: the value of bin (i, j)
-template <typename T>
-__device__ __forceinline__ float bin_value(const T* rowmax, int W, int cc, int tc, const Bins& s, int i, int j) {
-  float m = -INFINITY;
-  for (int x = s.col0[j]; x < s.col1[j]; ++x) m = max_nan(m, to_float(rowmax[(i * W + x - s.xlo) * cc + tc]));
-  return m <= EMPTY_AT ? 0.f : m;
-}
-
-// one RoI, one channel chunk, NHWC output
-template <typename T, int MODE>
-__device__ void pool_roi(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out,
-                         int B, int H, int W, int C, int P, int max_bh, int max_bw, int cc, int b, int p,
-                         Bins& bins, T* rowmax) {
-  const int tc = threadIdx.x % cc, tr = threadIdx.x / cc, nr = blockDim.x / cc;
-  const int c = blockIdx.z * cc + tc;
-  load_bins<MODE>(boxes + ((size_t)b * P + p) * 4, H, W, max_bh, max_bw, bins);
-  const size_t level_stride = (size_t)B * H * W * C;
-  pass1<T>(table + (size_t)b * H * W * C, level_stride, W, C, c, bins, rowmax, cc, tc, tr, nr);
-  __syncthreads();
-  if (c < C) {
-    T* o = out + ((size_t)b * P + p) * S * S * C + c;
-    for (int idx = tr; idx < S * S; idx += nr)
-      o[(size_t)idx * C] = from_float<T>(bin_value<T>(rowmax, W, cc, tc, bins, idx / S, idx % S));
-  }
-}
-
-// K8 (v2 window) and K9 (v3 window): one block per (G RoIs, image, channel
-// chunk), the RoIs in a loop
-template <typename T, int MODE>
-__global__ void __launch_bounds__(GROUP_THREADS)
-pool_grouped_kernel(const T* __restrict__ table, const float* __restrict__ boxes, T* __restrict__ out,
-                    int B, int H, int W, int C, int P, int max_bh, int max_bw, int cc, int group) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Bins bins;
-  for (int g = 0; g < group; ++g) {
-    pool_roi<T, MODE>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, cc, blockIdx.y,
-                      blockIdx.x * group + g, bins, reinterpret_cast<T*>(smem));
-    __syncthreads();  // bins and rowmax are rewritten by the next RoI
-  }
-}
-
-// the largest power-of-two channel chunk up to 128 bytes (and up to C
-// rounded up) whose rowmax fits in shared memory; 0 if none does
-int pick_chunk(int W, int C, int es) {
-  const int cmax = 128 / es;
-  int cc = 1;
-  while (cc < cmax && cc < C) cc *= 2;
-  for (; cc >= 1; cc /= 2)
-    if ((size_t)S * W * cc * es <= (size_t)SMEM_LIMIT) return cc;
-  return 0;
-}
-
-template <typename T, int MODE>
-int pool_grouped(const void* table, const void* boxes, void* out, int B, int H, int W, int C, int P, int max_bh,
-                 int max_bw, int group, cudaStream_t stream) {
-  const int es = (int)sizeof(T);
-  const int cc = pick_chunk(W, C, es);
-  if (cc == 0) return (int)cudaErrorInvalidValue;
-  const int smem = S * W * cc * es;
-  auto kernel = pool_grouped_kernel<T, MODE>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(P / group, B, (C + cc - 1) / cc);
-  kernel<<<grid, GROUP_THREADS, smem, stream>>>(static_cast<const T*>(table), static_cast<const float*>(boxes),
-                                                static_cast<T*>(out), B, H, W, C, P, max_bh, max_bw, cc, group);
-  return (int)cudaGetLastError();
-}
-
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
+bool bad_args(int dtype, int vector, const void* table, const void* out) {
+  return (dtype != 0 && dtype != 1) || (vector && (misaligned(table) || misaligned(out)));
+}
 
 }  // namespace
 
@@ -810,10 +711,9 @@ extern "C" int roi_ablation_build_table(const void* feat, void* table, int B, in
 extern "C" int roi_ablation_pool(const void* table, const void* boxes, void* out, int B, int H, int W, int C,
                                  int P, int max_bh, int max_bw, int mode, int dtype, int vector, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
-  if ((dtype != 0 && dtype != 1) || (vector && (misaligned(table) || misaligned(out))))
-    return (int)cudaErrorInvalidValue;
-  return pool_k67(mode, false, table, boxes, out, B, H, W, C, P, max_bh, max_bw, C, dtype, vector,
-                  static_cast<cudaStream_t>(stream));
+  if (bad_args(dtype, vector, table, out)) return (int)cudaErrorInvalidValue;
+  return pool_variant(mode, K6, table, boxes, out, B, H, W, C, P, max_bh, max_bw, C, 1, dtype, vector,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // K7; mode: 0 full, 5 stackwrite, 6 p1only, 7 zeroOut; C % cb == 0
@@ -821,29 +721,23 @@ extern "C" int roi_ablation_pool_contig(const void* table, const void* boxes, vo
                                         int C, int P, int max_bh, int max_bw, int mode, int cb, int dtype,
                                         int vector, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
-  if ((dtype != 0 && dtype != 1) || cb < 1 || C % cb || (vector && (misaligned(table) || misaligned(out))))
-    return (int)cudaErrorInvalidValue;
-  return pool_k67(mode, true, table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, dtype, vector,
-                  static_cast<cudaStream_t>(stream));
+  if (cb < 1 || C % cb || bad_args(dtype, vector, table, out)) return (int)cudaErrorInvalidValue;
+  return pool_variant(mode, K7, table, boxes, out, B, H, W, C, P, max_bh, max_bw, cb, 1, dtype, vector,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// The compiled block shape (K67_SHAPE) and channel slab (K67_SLAB) of K6
-// and K7, for reports.
+// The compiled block shape (K67_SHAPE), channel slab (K67_SLAB) and K8/K9
+// launch bound (K89_MIN_BLOCKS), for reports.
 extern "C" int roi_ablation_shape() { return K67_SHAPE; }
 extern "C" int roi_ablation_slab() { return K67_SLAB; }
+extern "C" int roi_ablation_grouped_min_blocks() { return K89_MIN_BLOCKS; }
 
-// K8 (v3 = 0) and K9 (v3 = 1); P % group == 0
+// K8 (v3 = 0) and K9 (v3 = 1), G = group RoIs a thread; P % group == 0
 extern "C" int roi_ablation_pool_grouped(const void* table, const void* boxes, void* out, int B, int H, int W,
                                          int C, int P, int max_bh, int max_bw, int v3, int group, int dtype,
-                                         void* stream) {
+                                         int vector, void* stream) {
   if (B == 0 || P == 0 || C == 0) return 0;
-  if (group < 1 || P % group) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return v3 ? pool_grouped<float, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s)
-              : pool_grouped<float, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s);
-  if (dtype == 1)
-    return v3 ? pool_grouped<__nv_bfloat16, V3>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s)
-              : pool_grouped<__nv_bfloat16, FULL>(table, boxes, out, B, H, W, C, P, max_bh, max_bw, group, s);
-  return (int)cudaErrorInvalidValue;
+  if (group < 1 || P % group || bad_args(dtype, vector, table, out)) return (int)cudaErrorInvalidValue;
+  return pool_variant(v3 ? V3 : FULL, K8_K9, table, boxes, out, B, H, W, C, P, max_bh, max_bw, C, group, dtype,
+                      vector, static_cast<cudaStream_t>(stream));
 }

@@ -6,13 +6,12 @@ Counterparts of ``pool``, ``pool_contig``, ``pool_grouped`` and
 ``pool_grouped_v3`` in ``tools/probe_roipool_ablation.py`` (Pallas on the
 TPU). Every call on the card launches the table build, then the variant's
 pool kernel; ``<dispatcher>.launches`` counts those calls (CPU calls do not
-count). K6 and K7 have two paths, picked before launching
-(``kernel_path``): ``"vector"`` (16-byte loads and stores, 8 bf16 or 4
-float32 channels a thread) where C, and K7's cb, are multiples of that
-width and the features start on a 16-byte boundary, ``"scalar"`` (one
-element a thread) otherwise; ``pool_auto.path_launches`` and
-``pool_contig_auto.path_launches`` count each. The table build takes the
-same path (K8 and K9, which have one path, build on ``kernel_path``'s).
+count). Each has two paths, picked before launching (``kernel_path``):
+``"vector"`` (16-byte loads and stores, 8 bf16 or 4 float32 channels a
+thread) where C, and K7's cb, are multiples of that width and the features
+start on a 16-byte boundary, ``"scalar"`` (one element a thread)
+otherwise; ``<dispatcher>.path_launches`` counts each. The table build
+takes the same path.
 """
 
 from __future__ import annotations
@@ -35,7 +34,7 @@ _SIGNATURES = {
     "roi_ablation_build_table": [_P, _P] + [_I] * 7 + [_P],
     "roi_ablation_pool": [_P] * 3 + [_I] * 10 + [_P],
     "roi_ablation_pool_contig": [_P] * 3 + [_I] * 11 + [_P],
-    "roi_ablation_pool_grouped": [_P] * 3 + [_I] * 10 + [_P],
+    "roi_ablation_pool_grouped": [_P] * 3 + [_I] * 11 + [_P],
 }
 
 
@@ -51,7 +50,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    for name in ("roi_ablation_shape", "roi_ablation_slab"):
+    for name in ("roi_ablation_shape", "roi_ablation_slab", "roi_ablation_grouped_min_blocks"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -102,10 +101,9 @@ def build_table_cuda(features: torch.Tensor, path: Optional[str] = None,
 
 
 def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor, out: torch.Tensor, *args: int,
-            path: Optional[str] = None, lib: Optional[ctypes.CDLL] = None) -> None:
-    """The table build on ``path`` (K6's or K7's; None for K8 and K9, whose
-    build takes ``kernel_path``'s), then the variant's kernel on the current
-    stream; ``args`` are the entry's arguments after ``max_bw``."""
+            path: str, lib: Optional[ctypes.CDLL] = None) -> None:
+    """The table build on ``path``, then the variant's kernel on the
+    current stream; ``args`` are the entry's arguments after ``max_bw``."""
     lib = lib or _lib()
     features = features.contiguous()
     boxes = boxes.contiguous()
@@ -117,7 +115,7 @@ def _launch(entry: str, features: torch.Tensor, boxes: torch.Tensor, out: torch.
             table.data_ptr(), boxes.data_ptr(), out.data_ptr(), b, h, w, c, boxes.shape[1],
             max_bh, max_bw, *args, _stream(features),
         )
-    _build.check(err, f"{entry} launch" + (f" ({path} path)" if path else ""))
+    _build.check(err, f"{entry} launch ({path} path)")
 
 
 def _nhwc_out(features: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
@@ -162,24 +160,35 @@ def pool_contig_cuda(features: torch.Tensor, boxes: torch.Tensor, mode: str = "f
     return out
 
 
-def pool_grouped_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 8, cb: int = 128) -> torch.Tensor:
-    """K8: v2 RoIPool, G RoIs per block -> (B, P, 14, 14, C)."""
+def _pool_grouped(features: torch.Tensor, boxes: torch.Tensor, v3: int, group: int, cb: int,
+                  lib: Optional[ctypes.CDLL]) -> torch.Tensor:
+    """K8 (``v3`` 0) or K9 (1): G = ``group`` RoIs a thread, on the path
+    ``kernel_path`` picks; counted on its dispatcher."""
     check_args(features, boxes, cb=cb, group=group)
     _check_cuda(features, boxes)
+    features = features.contiguous()
+    path = kernel_path(features)
     out = _nhwc_out(features, boxes)
-    _launch("roi_ablation_pool_grouped", features, boxes, out, 0, group, _DTYPE_CODE[features.dtype])
-    pool_grouped_auto.launches += 1
+    _launch("roi_ablation_pool_grouped", features, boxes, out, v3, group, _DTYPE_CODE[features.dtype],
+            int(path == "vector"), path=path, lib=lib)
+    wrapper = pool_grouped_v3_auto if v3 else pool_grouped_auto
+    wrapper.launches += 1
+    wrapper.path_launches[path] += 1
     return out
 
 
-def pool_grouped_v3_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 4, cb: int = 128) -> torch.Tensor:
-    """K9: v3 RoIPool, G RoIs per block -> (B, P, 14, 14, C)."""
-    check_args(features, boxes, cb=cb, group=group)
-    _check_cuda(features, boxes)
-    out = _nhwc_out(features, boxes)
-    _launch("roi_ablation_pool_grouped", features, boxes, out, 1, group, _DTYPE_CODE[features.dtype])
-    pool_grouped_v3_auto.launches += 1
-    return out
+def pool_grouped_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 8, cb: int = 128,
+                      lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """K8: v2 RoIPool, G RoIs a thread -> (B, P, 14, 14, C); equal to K6
+    ``full`` for every G that divides P."""
+    return _pool_grouped(features, boxes, 0, group, cb, lib)
+
+
+def pool_grouped_v3_cuda(features: torch.Tensor, boxes: torch.Tensor, group: int = 4, cb: int = 128,
+                         lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
+    """K9: v3 RoIPool, G RoIs a thread -> (B, P, 14, 14, C); equal to K6
+    ``v3``."""
+    return _pool_grouped(features, boxes, 1, group, cb, lib)
 
 
 def pool_auto(features: torch.Tensor, boxes: torch.Tensor, mode: str = "full", cb: int = 128) -> torch.Tensor:
@@ -212,5 +221,4 @@ def pool_grouped_v3_auto(features: torch.Tensor, boxes: torch.Tensor, group: int
 
 for _fn in (pool_auto, pool_contig_auto, pool_grouped_auto, pool_grouped_v3_auto):
     _fn.launches = 0
-pool_auto.path_launches = {"vector": 0, "scalar": 0}
-pool_contig_auto.path_launches = {"vector": 0, "scalar": 0}
+    _fn.path_launches = {"vector": 0, "scalar": 0}

@@ -146,14 +146,18 @@ class DocTokenClassifier:
     @classmethod
     def from_pretrained(cls, checkpoint: str, labels, **kwargs) -> "DocTokenClassifier":
         """HF LayoutLM(-ForTokenClassification) state dict file ->
-        predictor. The encoder loads by name (the pooler is dropped); a
-        ``classifier.*`` head is loaded too, else it stays random (the
-        caller should fine-tune before trusting outputs)."""
+        predictor. The encoder loads by name (the pooler and the
+        ``position_ids`` buffer are dropped), and every encoder weight must
+        be there: a checkpoint that lacks one raises ``KeyError`` naming
+        the missing keys, as the JAX predictor fails on a missing
+        parameter. A ``classifier.*`` head is loaded too, else it stays
+        random (the caller should fine-tune before trusting outputs)."""
         sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
         sd = sd.get("model", sd)
         self = cls(labels, **kwargs)
         own = self.model.state_dict()
         root = "layoutlm." if any(k.startswith("layoutlm.") for k in sd) else ""
+        loaded = set()
         for key, value in sd.items():
             name = key[len(root):] if root and key.startswith(root) else key
             if name.startswith(("embeddings.", "encoder.")):
@@ -162,6 +166,13 @@ class DocTokenClassifier:
                 continue  # pooler, position_ids buffer
             if name in own:
                 own[name] = value.float()
+                loaded.add(name)
+        missing = sorted(k for k in own if k.startswith("layoutlm.") and k not in loaded)
+        if missing:
+            more = f" and {len(missing) - 5} more" if len(missing) > 5 else ""
+            raise KeyError(
+                f"{checkpoint} lacks {len(missing)} encoder weights: {', '.join(missing[:5])}{more}"
+            )
         _check_head_width(own, "classifier.weight", len(self.labels), "label")
         self.model.load_state_dict(own)
         return self
