@@ -7,7 +7,7 @@ It drives the port only (``vltk_tpu_torch``; nothing of JAX or of the JAX
 package):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the four main paths from ``csrc/`` (one
+2. builds every CUDA kernel of the five main paths from ``csrc/`` (one
    nvcc per source, started together) and prints the build time and each
    kernel's registers and spills (``-Xptxas -v``);
 3. prints K1's block shape and its registers and spills, and holds the
@@ -66,17 +66,34 @@ package):
 8. runs a small f32 FRCNN on the card and on the CPU with the same weights
    and compares them key by key (the CPU path is the one the test suite
    holds against the JAX package);
-9. serves documents with ``predict.DocTokenClassifier`` at LayoutLM-base
+9. serves composed VQA with ``predict.VQAPredictor`` at full width
+   (the parity_300 FRCNN, tamed, then LXMERT-base: 9 language, 5 visual
+   and 5 cross layers, hidden 768, 12 heads, 3129 answers, bf16; seeded
+   random weights; questions of 20 tokens) on the extraction canvas: three
+   requests (8 pairs; 8 pairs with one image larger than the raw canvas;
+   the first request's first 5 pairs, so 3 pad rows), scores finite in
+   [0, 1] and ranked, boxes finite and inside each caller's image, K1
+   launched once (vector path) and K2 twice a bucket and no other kernel,
+   the padded bucket's real rows equal to the same pairs in the full
+   bucket; times the step at B=8 on device-resident inputs and the FRCNN
+   part alone (samples/s, the LXMERT share by difference, peak memory);
+   then runs the first bucket with cuDNN's TF32 off and prints how many
+   final boxes, object ids and top-1 answers move (measured, not checked);
+10. runs a small f32 composed predictor on the card and on the CPU with
+   the same weights (three pairs at batch 2, a pad row) and compares
+   answers, their order, object ids and box counts exactly, scores
+   (1e-4) and boxes (rtol/atol 1e-3);
+11. serves documents with ``predict.DocTokenClassifier`` at LayoutLM-base
    width (12 layers, hidden 768, 12 heads, bf16, seeded random weights,
    max_seq_length 1024, attention_impl "auto"): three requests of four
    synthetic documents, one per word within the budget, K3 launched 12
    times per forward; then times the classifier step at the JAX bench.py
    geometry (B=32, seq 1024) on the dense route and on K3, with documents/s
    and peak memory;
-10. runs a small f32 LayoutLM on the card and on the CPU with the flash
+12. runs a small f32 LayoutLM on the card and on the CPU with the flash
    route forced on both sides (K3 on the card, the plain version on the
    CPU) and compares the real positions;
-11. holds the flash-attention backward kernels K5 (dq, and the fused
+13. holds the flash-attention backward kernels K5 (dq, and the fused
    ``di = sum(o * do)``) and K4 (dk, dv), and K3's row statistics, against
    the plain backward: bf16 at the training shape (8, 1024, 12, 64) with
    rows of 1024, 819, 129 and 1 real tokens, bf16 with alternating 64-row
@@ -87,7 +104,7 @@ package):
    ``scaled_dot_product_attention``'s backward with the same boolean mask,
    measured directly after one forward (the yardstick; the port never
    calls it);
-12. trains ``OCRTokenExperiment`` at LayoutLM-base width (bf16, seq 1024,
+14. trains ``OCRTokenExperiment`` at LayoutLM-base width (bf16, seq 1024,
    attention dropout 0, hidden dropout 0.1, seeded random weights, AdamW
    lr 1e-5 with warmup, decay and clip 1.0) for one epoch of 8 batches of
    B=8 drawn as the JAX bench.py draws them (20% pad tail, -100 labels on
@@ -95,12 +112,12 @@ package):
    12 times per step, ``steps_log.json`` and a checkpoint are written; then
    times the step on the K3/K4/K5 route and on the dense route (sequences/s,
    ms/step, peak memory);
-13. compares one full-width bf16 step's parameter gradients on the flash
+15. compares one full-width bf16 step's parameter gradients on the flash
    route against the dense route (relative L2 per tensor);
-14. trains a small f32 LayoutLM two steps on the card and on the CPU with
+16. trains a small f32 LayoutLM two steps on the card and on the CPU with
    the flash route forced on both sides and compares loss, gradients and
    the parameters after the AdamW update;
-15. prints the ``kernels`` JSON line, then the device line last.
+17. prints the ``kernels`` JSON line, then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -1209,6 +1226,260 @@ def phase_small_reference(dev) -> None:
     print(f"small f32 FRCNN card vs CPU: ids/masks exact, max_abs_err={worst} (rtol/atol 1e-3)")
 
 
+# --------------------------------------------------- the composed VQA path
+
+VQA_BIG_HW = (1000, 1400)  # larger than the raw canvas 512 x 672: shrunk on the host by 0.48
+VQA_SHRUNK_HW = (480, 672)
+
+
+def vqa_requests(rng: np.random.Generator):
+    """Three requests: 8 pairs of 480x640 images; 8 pairs with one image
+    larger than the raw canvas; the first 5 pairs of the first request
+    (a bucket with 3 pad rows)."""
+    first = [rng.integers(0, 256, (*RAW_HW, 3), dtype=np.uint8) for _ in range(8)]
+    second = [rng.integers(0, 256, (*RAW_HW, 3), dtype=np.uint8) for _ in range(8)]
+    second[3] = rng.integers(0, 256, (*VQA_BIG_HW, 3), dtype=np.uint8)
+    from vltk_tpu_torch.trace import VQA_QUESTIONS
+
+    questions = list(VQA_QUESTIONS)
+    return [(first, questions), (second, questions[::-1]), (first[:5], questions[:5])]
+
+
+def check_vqa_results(images, results) -> None:
+    """Scores finite in [0, 1] and ranked; boxes finite and inside each
+    caller's image; at least one box on most rows."""
+    check(len(results) == len(images), "one VQA result per pair")
+    with_boxes = 0
+    for img, res in zip(images, results):
+        scores = np.array([s for _, s in res["topk"]])
+        check(bool(np.isfinite(scores).all() and (scores >= 0).all() and (scores <= 1).all()),
+              f"VQA scores outside [0, 1]: {scores}")
+        check(bool((np.diff(scores) <= 0).all()) and res["answer"] == res["topk"][0][0], "VQA top-k not ranked")
+        boxes = res["boxes"]
+        h, w = img.shape[:2]
+        check(boxes.shape == (36, 4) and bool(np.isfinite(boxes).all()), f"VQA boxes {boxes.shape} not finite")
+        inside = (boxes >= -1e-3).all() and (boxes[:, [0, 2]] <= w + 1e-3).all() and (boxes[:, [1, 3]] <= h + 1e-3).all()
+        check(bool(inside), f"VQA boxes outside the {h}x{w} image")
+        with_boxes += res["num_boxes"] > 0
+    check(with_boxes >= 0.75 * len(results), f"only {with_boxes} of {len(results)} pairs have a box")
+
+
+def differing(got, want) -> dict:
+    """How many final boxes (slot by slot, and boxes found in no slot of
+    the other run), object ids and top-1 answers of two runs of the same
+    pairs differ, and the largest score and box differences."""
+    def unmatched(g, w):
+        return int((np.abs(g[:, None, :] - w[None, :, :]).max(-1).min(-1) > 1e-3).sum())
+
+    return {
+        "boxes": int(sum(np.any(g["boxes"] != w["boxes"], axis=-1).sum() for g, w in zip(got, want))),
+        "boxes_in_no_slot": sum(unmatched(g["boxes"], w["boxes"]) for g, w in zip(got, want)),
+        "object_ids": int(sum((g["objects"] != w["objects"]).sum() for g, w in zip(got, want))),
+        "top1": int(sum(g["answer"] != w["answer"] for g, w in zip(got, want))),
+        "of": [len(got) * 36, len(got) * 36, len(got)],
+        "max_score_diff": max(max(abs(a[1] - b[1]) for a, b in zip(g["topk"], w["topk"])) for g, w in zip(got, want)),
+        "max_box_diff": float(max(np.abs(g["boxes"] - w["boxes"]).max() for g, w in zip(got, want))),
+    }
+
+
+def vqa_bucket(pred, images):
+    """What ``pred`` hands the card for one bucket of ``images``: the
+    collated raw images and sizes (an oversized image shrunk), padded to
+    the batch with 0 x 0 rows. Returns (raw sizes before padding, raw
+    images, sizes) with the last two on the card."""
+    from vltk_tpu_torch.adapters.frcnn import collate
+
+    collated = collate(pred._entries(images), pred.raw_canvas)
+    put = lambda a: torch.from_numpy(pred._pad_chunk(a)).to(pred.device)  # noqa: E731
+    return collated["rawsize"], put(collated["image"]), put(collated["rawsize"].astype(np.float32))
+
+
+def pad_row_kernel_inputs(pred, images):
+    """Runs the FRCNN part of a bucket with pad rows and keeps what it hands
+    K1 (features, proposals) and K2 (its two calls' inputs and keeps)."""
+    from vltk_tpu_torch.tools.bench_nms import step_calls
+
+    _, raw, sizes = vqa_bucket(pred, images)
+    store, hook = capture_roi_inputs(pred.frcnn)
+    try:
+        calls = step_calls({"step": pred.detect}, raw, sizes)
+    finally:
+        hook.remove()
+    return store["features"], store["boxes"].contiguous(), calls
+
+
+def hold_kernels_on_pad_rows(pred, images) -> dict:
+    """K1 and K2 held against their plain versions on the inputs of a
+    bucket of ``len(images)`` real rows and pad rows (raw size 0 x 0), pad
+    rows included: K1 NaN in the same places and every other value
+    bitwise equal, K2 exact keeps and masks at every cluster size and
+    equal to the keeps the bucket used. Returns what the pad rows held
+    and K2's largest keep error."""
+    from vltk_tpu_torch.ops.roi_pool import roi_pool
+
+    real = len(images)
+    feat, boxes, calls = pad_row_kernel_inputs(pred, images)
+    got = roi_pool_path_run(feat, boxes, "vector")
+    want = roi_pool(feat, boxes, 14, 1 / 16)
+    torch.cuda.synchronize()
+    check(nan_equal(got, want), "roi_pool kernel != plain on the padded VQA bucket (pad rows included)")
+    held = {
+        "pad_rows": feat.shape[0] - real,
+        "pad_proposals_nonfinite": int((~torch.isfinite(boxes[real:])).any(-1).sum()),
+        "pad_features_nonfinite": int((~torch.isfinite(feat[real:].float())).sum()),
+        "roi_pool_nan_out_pad_rows": int(torch.isnan(got[real:].float()).sum()),
+        "roi_pool_nan_out_real_rows": int(torch.isnan(got[:real].float()).sum()),
+    }
+    err = 0.0
+    for call in calls:
+        keep, call_err = nms_held(call, f"the padded VQA bucket's {call['name']} call")
+        check(torch.equal(keep, call["keep"]), f"the padded VQA bucket's {call['name']} keeps differ from the plain version's")
+        err = max(err, call_err)
+        held[call["name"] + "_pad_rows_kept"] = int((keep[real * keep.shape[0] // feat.shape[0]:] >= 0).sum())
+    print(f"VQA padded bucket, K1 and K2 against their plain versions on its own inputs, pad rows included: "
+          f"K1 NaN in the same places and bitwise equal elsewhere, K2 exact keeps at every cluster size; {held}")
+    held["nms_max_abs_err"] = err
+    return held
+
+
+def time_vqa_step(pred, dev, steps: int) -> dict:
+    """The composed step and the FRCNN part alone at B=8 on device-resident
+    inputs: K steps, one synchronise each."""
+    from vltk_tpu_torch.trace import vqa_inputs
+
+    raw, sizes, ids, tmask = vqa_inputs(pred, 8, dev)
+    timed = {}
+    for name, fn in (("step", lambda: pred.step(raw, sizes, ids, tmask)), ("frcnn", lambda: pred.detect(raw, sizes))):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = fn()
+        torch.cuda.synchronize()
+        timed[name + "_ms"] = (time.perf_counter() - t0) / steps * 1e3
+        timed[name + "_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if name == "step":
+            check(bool(torch.isfinite(out["scores"]).all()), "VQA step scores are not finite")
+    timed["samples_per_s"] = 8 * 1e3 / timed["step_ms"]
+    timed["lxmert_ms_by_difference"] = timed["step_ms"] - timed["frcnn_ms"]
+    return timed
+
+
+def phase_vqa(dev, wrappers, smi: str) -> dict:
+    """The composed VQA path: VQAPredictor at full width (parity_300 FRCNN,
+    LXMERT-base bf16) serves three requests; K1 once and K2 twice a bucket,
+    K3 never; the padded bucket's real rows against the full bucket's; the
+    step timed; TF32 off on the first bucket, counted."""
+    from vltk_tpu_torch.trace import VQA_SEQ, build_vqa
+
+    pred = build_vqa(8, dev)  # tamed FRCNN weights, so that detections exist
+    fc, lc = pred.frcnn_config, pred.lxmert_config
+    check(
+        (fc.depth, fc.num_classes, fc.num_attrs, fc.pre_nms_topk, fc.post_nms_topk, fc.max_detections,
+         fc.dtype) == (101, 1600, 400, 6000, 300, 36, "bfloat16"),
+        f"parity_300 config {fc}",
+    )
+    check(
+        (lc.l_layers, lc.r_layers, lc.x_layers, lc.hidden_size, lc.num_heads, lc.head_dim,
+         lc.intermediate_size, lc.vocab_size, lc.num_answers, lc.visual_feat_dim, lc.dtype,
+         lc.attention_impl) == (9, 5, 5, 768, 12, 64, 3072, 30522, 3129, 2048, "bfloat16", "xla"),
+        f"LXMERT-base config {lc}",
+    )
+    requests = vqa_requests(np.random.default_rng(0))
+
+    for w in wrappers.values():
+        w.launches = 0
+    paths = wrappers["roi_pool"].path_launches
+    paths.update(dict.fromkeys(paths, 0))
+    t0 = time.perf_counter()
+    answers = [pred(images, questions) for images, questions in requests]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    paths = dict(paths)
+    buckets = len(requests)
+    check(launches["roi_pool"] == buckets and paths["scalar"] == 0,
+          f"K1 launched {launches['roi_pool']} times ({paths}) over {buckets} buckets")
+    check(launches["nms"] == 2 * buckets, f"K2 launched {launches['nms']} times over {buckets} buckets")
+    others = {k: v for k, v in launches.items() if k not in ("roi_pool", "nms")}
+    check(not any(others.values()), f"other kernels launched on the VQA path: {others}")
+    for (images, _), results in zip(requests, answers):
+        check_vqa_results(images, results)
+    shrunk = vqa_bucket(pred, requests[1][0])[0][3]
+    check(tuple(shrunk) == VQA_SHRUNK_HW, f"the oversized image's raw size after collate: {tuple(shrunk)}")
+    pad = differing(answers[2], answers[0][:5])
+    print(f"VQA padded bucket (5 real + 3 pad rows) vs the same pairs in a full bucket: {pad}")
+    check(pad["boxes"] == 0 and pad["object_ids"] == 0 and pad["top1"] == 0 and pad["max_score_diff"] <= 1e-3,
+          f"padded bucket's real rows differ from the full bucket's: {pad}")
+    print(
+        f"VQA requests: 8 + 8 + 5 pairs, {serve_s:.3f} s with host prep; launches {launches} over "
+        f"{buckets} buckets (K1 paths {paths}); boxes per pair {[r['num_boxes'] for r in answers[0]]}"
+    )
+    pad_rows = hold_kernels_on_pad_rows(pred, requests[2][0])
+
+    timed = time_vqa_step(pred, dev, steps=5)
+    print(
+        f"VQA step B=8 parity_300 + LXMERT-base bf16, seq {VQA_SEQ}, 36 boxes, canvas {CANVAS[0]}x{CANVAS[1]}: "
+        f"{timed['samples_per_s']:.2f} samples/s ({timed['step_ms']:.3f} ms/step over 5 steps), FRCNN alone "
+        f"{timed['frcnn_ms']:.3f} ms, LXMERT by difference {timed['lxmert_ms_by_difference']:.3f} ms; "
+        f"peak {timed['step_peak_mem_gb']:.2f} GB on {smi}"
+    )
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        no_tf32 = pred(*requests[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    tf32 = differing(no_tf32, answers[0])
+    print(f"VQA first bucket with cudnn TF32 off vs the default run (C.3, measured only): {tf32}")
+    return {"launches": launches, "roi_pool_paths": paths, "padded_vs_full": pad, "pad_rows": pad_rows, "timed": timed,
+            "tf32_off_vs_default": tf32, "num_boxes": [[r["num_boxes"] for r in a] for a in answers]}
+
+
+def phase_small_vqa(dev) -> None:
+    """A small f32 composed predictor on the card against the same one on
+    the CPU: three pairs at batch_size 2, so the second bucket has a pad
+    row."""
+    from vltk_tpu_torch.models import FRCNNConfig
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.predict import VQAPredictor
+
+    kw = dict(
+        frcnn_config=FRCNNConfig(
+            depth=50, stem_out_channels=8, res2_out_channels=16, width_per_group=4,
+            rpn_hidden_channels=16, anchor_sizes=(16, 32), pre_nms_topk=64, post_nms_topk=16,
+            num_classes=7, num_attrs=5, pooler_resolution=7, min_detections=4, max_detections=4,
+        ),
+        lxmert_config=LxmertConfig(hidden_size=48, num_heads=2, intermediate_size=96, l_layers=2,
+                                   x_layers=1, r_layers=1, max_position_embeddings=32),
+        batch_size=2, max_seq_length=12, raw_canvas=(64, 64), resized_canvas=(64, 64), short=32.0, maximum=64.0,
+    )
+    answers = ["yes", "no", "red", "2", "cat"]
+    cpu = VQAPredictor(answers, device="cpu", **kw)
+    gpu = VQAPredictor(answers, device=dev, frcnn_params=cpu.frcnn.state_dict(),
+                       lxmert_params=cpu.lxmert.state_dict(), **kw)
+    rng = np.random.default_rng(7)
+    images = [rng.integers(0, 256, hw + (3,), dtype=np.uint8) for hw in ((48, 56), (64, 40), (100, 80))]
+    questions = ["what color is it?", "is there a cat?", "how many?"]
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, got = cpu(images, questions), gpu(images, questions)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    score_err = max(max(abs(a[1] - b[1]) for a, b in zip(g["topk"], w["topk"])) for g, w in zip(got, want))
+    box_err = float(max(np.abs(g["boxes"] - w["boxes"]).max() for g, w in zip(got, want)))
+    for g, w in zip(got, want):
+        check([a for a, _ in g["topk"]] == [a for a, _ in w["topk"]] and g["num_boxes"] == w["num_boxes"]
+              and np.array_equal(g["objects"], w["objects"]), "small VQA: card != CPU (answers, boxes or ids)")
+        check(np.allclose(g["boxes"], w["boxes"], rtol=1e-3, atol=1e-3), "small VQA: card != CPU (boxes)")
+    print(f"small f32 VQA predictor card vs CPU: answers, order, ids and box counts exact, "
+          f"max score err {score_err:.3e} (1e-4), max box err {box_err:.3e} px (rtol/atol 1e-3, as phase 8)")
+    check(score_err <= 1e-4, "small VQA: card != CPU (scores)")
+
+
 # ------------------------------------------------------ the document path
 
 DOC_LABELS = ["other", "question", "answer", "header"]
@@ -1638,6 +1909,13 @@ def main() -> int:
 
     phase_small_reference(dev)
     del bundle
+    torch.cuda.empty_cache()
+
+    vqa = phase_vqa(dev, KERNEL_WRAPPERS, smi)
+    k2 = next(e for e in entries if e["name"] == "nms_fixed")
+    k2["max_abs_err"] = max(k2["max_abs_err"], vqa["pad_rows"].pop("nms_max_abs_err"))
+    print("vqa_run " + json.dumps(vqa))
+    phase_small_vqa(dev)
     torch.cuda.empty_cache()
 
     doc = phase_document(dev, KERNEL_WRAPPERS, smi)

@@ -14,7 +14,7 @@ card and no explicit CPU request they raise instead of falling back.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Mapping, Union
 
 import torch
 
@@ -33,4 +33,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A torch state dict file, unwrapped when a training checkpoint keeps
+    it under ``"model"``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    inner = sd.get("model") if isinstance(sd, Mapping) else None
+    return dict(inner if isinstance(inner, Mapping) else sd)
+
+
+__all__ = ["read_state_dict", "resolve_device"]

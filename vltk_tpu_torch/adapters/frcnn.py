@@ -4,20 +4,25 @@ Port of ``vltk_tpu/adapters/frcnn.py:FRCNN.setup``. ``setup`` builds the
 model on the chosen device and returns a step that runs preprocess ->
 FRCNN -> the packed (B, D, 2048+4+1+1) float32 output the reference step
 returns (features, raw-coordinate boxes, object ids, attribute ids).
+``collate`` is the host side that feeds such a step: decoded images padded
+onto the static raw canvas as uint8.
 
 Weights come from a local reference-named torch state dict
 (``checkpoint=``), or are seeded random without one. The arrow writer and
-the host data plane of the reference adapter are a later slice.
+the rest of the host data plane of the reference adapter are a later
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from vltk_tpu_torch import DeviceLike, resolve_device
+from vltk_tpu_torch import DeviceLike, read_state_dict, resolve_device
+from vltk_tpu_torch import vars as V
 from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
 from vltk_tpu_torch.ops.image_ops import preprocess_batch
 
@@ -62,17 +67,48 @@ def tame_random_weights(model: FRCNN) -> FRCNN:
     return model
 
 
-def load_checkpoint(model: FRCNN, path: str) -> None:
-    """Load a reference-named torch state dict (anchor buffers and
-    ``num_batches_tracked`` are skipped)."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "model" in sd and not hasattr(sd["model"], "shape"):
-        sd = sd["model"]
-    sd = {
-        k: v for k, v in sd.items()
+def collate(entries: List[Dict[str, Any]], raw_canvas: Tuple[int, int] = RAW_CANVAS) -> Dict[str, Any]:
+    """Pad decoded raw images (``{V.img: (h, w, 3), V.imgid: ...}``) onto
+    the static raw canvas and stack them as uint8, with their (n, 2) int32
+    raw (h, w) and their ids. An image larger than the canvas is shrunk on
+    the host first (PIL, to ``int(h * scale)`` x ``int(w * scale)``; the
+    interpolated pixels rounded and clipped before the uint8 cast), and its
+    raw size is the shrunk one."""
+    ch, cw = raw_canvas
+    n = len(entries)
+    images = np.zeros((n, ch, cw, 3), np.uint8)
+    raw_sizes = np.zeros((n, 2), np.int32)
+    imgids = []
+    for i, e in enumerate(entries):
+        img = e[V.img]
+        h, w = img.shape[0], img.shape[1]
+        if h > ch or w > cw:
+            from PIL import Image
+
+            scale = min(ch / h, cw / w)
+            h, w = int(h * scale), int(w * scale)
+            img = np.asarray(Image.fromarray(img.astype(np.uint8)).resize((w, h)), np.float32)
+        if img.dtype == np.uint8:
+            images[i, :h, :w] = img
+        else:
+            images[i, :h, :w] = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+        raw_sizes[i] = (h, w)
+        imgids.append(e[V.imgid])
+    return {V.img: images, V.rawsize: raw_sizes, V.imgid: imgids}
+
+
+def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-named torch state dict file, without the anchor buffers
+    and ``num_batches_tracked`` counters the port's FRCNN does not keep."""
+    return {
+        k: v for k, v in read_state_dict(path).items()
         if "anchor_generator" not in k and "num_batches_tracked" not in k
     }
-    model.load_state_dict(sd, strict=True)
+
+
+def load_checkpoint(model: FRCNN, path: str) -> None:
+    """Load a reference-named torch state dict strictly."""
+    model.load_state_dict(read_checkpoint(path), strict=True)
 
 
 def setup(

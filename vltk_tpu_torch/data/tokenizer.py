@@ -2,15 +2,17 @@
 
 Counterpart of ``vltk_tpu/data/tokenizer.py:Tokenizer`` for the
 ``NativeWordPiece`` backend (the first-party C++ WordPiece), which is all
-the document path uses: the special-token ids and the per-word encode of
-the OCR chain. The HF ``tokenizers`` / ``transformers`` backends raise
+the port uses: the special-token ids, the fixed-length encode of VQA
+questions and the per-word encode of the OCR chain. The HF ``tokenizers`` / ``transformers`` backends raise
 ``NotImplementedError``: neither package is part of the port's
 environment.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from vltk_tpu_torch import vars as V
 
@@ -35,7 +37,7 @@ class Tokenizer:
         self.lowercase = bool(lowercase)
         self.max_seq_length = int(max_seq_length)
         self._vocab_path = vocab_path or V.VOCABPATH
-        self._tok = NativeWordPiece(self._vocab_path, lowercase=lowercase)
+        self._tok = NativeWordPiece(self._vocab_path, lowercase=lowercase, max_seq_length=self.max_seq_length)
         self.cls_token, self.sep_token = "[CLS]", "[SEP]"
         self.pad_token, self.mask_token, self.unk_token = "[PAD]", "[MASK]", "[UNK]"
         self.cls_id = self._tok.cls_id
@@ -44,6 +46,27 @@ class Tokenizer:
         self.mask_id = self._tok.mask_id
         self.unk_id = self._tok.unk_id
         self.vocab_size = self._tok.vocab_size
+
+    @property
+    def special_ids(self) -> List[int]:
+        return [self.cls_id, self.sep_id, self.pad_id, self.mask_id, self.unk_id]
+
+    def encode(self, text: str) -> Dict[str, np.ndarray]:
+        """One sentence -> fixed-length {input_ids, type_ids,
+        text_attention_mask} int32 arrays."""
+        return self.encode_batch([text])[0]
+
+    def encode_batch(self, texts: Sequence[str]) -> List[Dict[str, np.ndarray]]:
+        """Sentences -> one fixed-length dict each, as ``encode``."""
+        enc = self._tok.encode_batch(list(texts))
+        return [
+            {
+                V.input_ids: enc["input_ids"][i],
+                V.type_ids: enc["type_ids"][i],
+                V.text_attention_mask: enc["attention_mask"][i],
+            }
+            for i in range(len(texts))
+        ]
 
     def encode_words(self, words: Sequence[str]) -> List[List[int]]:
         """Per-word sub-token ids, no special tokens, no padding: the

@@ -1,7 +1,7 @@
-"""Models of the port: the Faster R-CNN extraction path and the LayoutLM
-document encoder on the shared transformer blocks."""
+"""Models of the port: the Faster R-CNN extraction path, and the LayoutLM
+document encoder and LXMERT on the shared transformer blocks."""
 
-from vltk_tpu_torch.models.convert import jax_frcnn_to_torch, jax_layoutlm_to_torch
+from vltk_tpu_torch.models.convert import jax_frcnn_to_torch, jax_layoutlm_to_torch, jax_lxmert_to_torch
 from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
 from vltk_tpu_torch.models.layoutlm import (
     LayoutLM,
@@ -9,6 +9,7 @@ from vltk_tpu_torch.models.layoutlm import (
     LayoutLMForSpanQA,
     LayoutLMForTokenClassification,
 )
+from vltk_tpu_torch.models.lxmert import Lxmert, LxmertConfig, LxmertForVQA
 
 __all__ = [
     "FRCNN",
@@ -17,7 +18,11 @@ __all__ = [
     "LayoutLMConfig",
     "LayoutLMForSpanQA",
     "LayoutLMForTokenClassification",
+    "Lxmert",
+    "LxmertConfig",
+    "LxmertForVQA",
     "init_weights",
     "jax_frcnn_to_torch",
     "jax_layoutlm_to_torch",
+    "jax_lxmert_to_torch",
 ]

@@ -19,6 +19,11 @@ The backbone and RoI-head convs sit inside a ``conv`` child in flax
 token-classification / span-QA model with its ``layoutlm`` child) -> the HF
 ``transformers`` LayoutLM names the port's modules carry (no pooler: the
 flax model has none).
+
+``jax_lxmert_to_torch`` does the same for LXMERT (an ``LxmertForVQA`` tree
+with its ``lxmert`` child and ``answer_head``, or a bare ``Lxmert``): HF
+``LxmertForQuestionAnswering`` names, the same keys the JAX package's own
+``jax_lxmert_to_torch`` writes (its pair table kept here as a copy).
 """
 
 from __future__ import annotations
@@ -76,16 +81,29 @@ def jax_frcnn_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-# flax module path inside a LayoutLM layer -> HF module path
-_LAYOUTLM_LAYER = {
-    ("att", "query"): "attention.self.query",
-    ("att", "key"): "attention.self.key",
-    ("att", "value"): "attention.self.value",
-    ("att", "att_out"): "attention.output.dense",
-    ("att", "ln"): "attention.output.LayerNorm",
-    ("ffn", "intermediate"): "intermediate.dense",
-    ("ffn", "mlp_out"): "output.dense",
-    ("ffn", "ln"): "output.LayerNorm",
+def _attention_names(flax: str, qkv: str, out: str) -> Dict[tuple, str]:
+    return {
+        (flax, "query"): f"{qkv}.query",
+        (flax, "key"): f"{qkv}.key",
+        (flax, "value"): f"{qkv}.value",
+        (flax, "att_out"): f"{out}.dense",
+        (flax, "ln"): f"{out}.LayerNorm",
+    }
+
+
+def _ffn_names(flax: str, inter: str, out: str) -> Dict[tuple, str]:
+    return {
+        (flax, "intermediate"): f"{inter}.dense",
+        (flax, "mlp_out"): f"{out}.dense",
+        (flax, "ln"): f"{out}.LayerNorm",
+    }
+
+
+# flax module path inside a BERT-style layer (LayoutLM's, LXMERT's
+# language and visual layers) -> HF module path
+_BERT_LAYER = {
+    **_attention_names("att", "attention.self", "attention.output"),
+    **_ffn_names("ffn", "intermediate", "output"),
 }
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
 _HEADS = ("classifier", "qa_outputs")
@@ -98,9 +116,9 @@ def _layoutlm_name(path) -> str:
     if top == "embeddings":
         mod = "LayerNorm" if mods == ["ln"] else ".".join(mods)
         return f"embeddings.{mod}.{_LEAF[leaf]}"
-    if top.startswith("layer_") and tuple(mods) in _LAYOUTLM_LAYER:
+    if top.startswith("layer_") and tuple(mods) in _BERT_LAYER:
         i = int(top[len("layer_"):])
-        return f"encoder.layer.{i}.{_LAYOUTLM_LAYER[tuple(mods)]}.{_LEAF[leaf]}"
+        return f"encoder.layer.{i}.{_BERT_LAYER[tuple(mods)]}.{_LEAF[leaf]}"
     raise KeyError(f"unexpected LayoutLM param path {'/'.join(path)}")
 
 
@@ -124,4 +142,67 @@ def jax_layoutlm_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     unknown = set(params) - {"layoutlm", *_HEADS} if headed else set()
     if unknown:
         raise KeyError(f"unexpected LayoutLM param keys {sorted(unknown)}")
+    return out
+
+
+# LXMERT's cross-modality layer: one cross-attention (HF's ``att`` child),
+# then per-stream self-attention and feed-forward
+_X_LAYER = {
+    **_attention_names("cross_att", "visual_attention.att", "visual_attention.output"),
+    **_attention_names("lang_self_att", "lang_self_att.self", "lang_self_att.output"),
+    **_attention_names("visn_self_att", "visn_self_att.self", "visn_self_att.output"),
+    **_ffn_names("lang_ffn", "lang_inter", "lang_output"),
+    **_ffn_names("visn_ffn", "visn_inter", "visn_output"),
+}
+_LXMERT_MODULES = {
+    ("embeddings", "word_embeddings"): "embeddings.word_embeddings",
+    ("embeddings", "position_embeddings"): "embeddings.position_embeddings",
+    ("embeddings", "token_type_embeddings"): "embeddings.token_type_embeddings",
+    ("embeddings", "ln"): "embeddings.LayerNorm",
+    ("visn_fc", "visn_fc"): "encoder.visn_fc.visn_fc",
+    ("visn_fc", "visn_ln"): "encoder.visn_fc.visn_layer_norm",
+    ("visn_fc", "box_fc"): "encoder.visn_fc.box_fc",
+    ("visn_fc", "box_ln"): "encoder.visn_fc.box_layer_norm",
+    ("pooler", "dense"): "pooler.dense",
+}
+# flax layer-name prefix -> (HF stack, layer table)
+_LXMERT_STACKS = {
+    "layer_": ("encoder.layer", _BERT_LAYER),
+    "r_layer_": ("encoder.r_layers", _BERT_LAYER),
+    "x_layer_": ("encoder.x_layers", _X_LAYER),
+}
+_ANSWER_HEAD = {"fc": "answer_head.logit_fc.0", "ln": "answer_head.logit_fc.2", "logit": "answer_head.logit_fc.3"}
+
+
+def _lxmert_name(path) -> str:
+    """flax path inside the encoder -> HF name without ``lxmert.``."""
+    top, *mods, leaf = path
+    module = _LXMERT_MODULES.get((top, *mods))
+    for prefix, (stack, table) in _LXMERT_STACKS.items():
+        index = top[len(prefix):]
+        if module is None and top.startswith(prefix) and index.isdigit() and tuple(mods) in table:
+            module = f"{stack}.{int(index)}.{table[tuple(mods)]}"
+    if module is None or leaf not in _LEAF:
+        raise KeyError(f"unexpected LXMERT param path {'/'.join(path)}")
+    return f"{module}.{_LEAF[leaf]}"
+
+
+def jax_lxmert_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax LXMERT params -> the port's (HF-named) state dict of float32
+    tensors. An ``LxmertForVQA`` tree gives ``lxmert.``-prefixed encoder
+    names plus ``answer_head.logit_fc.{0,2,3}``; a bare ``Lxmert`` tree
+    gives unprefixed names. Any other key raises ``KeyError``."""
+    headed = "lxmert" in params
+    if headed and set(params) - {"lxmert", "answer_head"}:
+        raise KeyError(f"unexpected LXMERT param keys {sorted(set(params) - {'lxmert', 'answer_head'})}")
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params["lxmert"] if headed else params):
+        arr = np.asarray(value, dtype=np.float32)
+        out[("lxmert." if headed else "") + _lxmert_name(path)] = _tensor(arr.T if path[-1] == "kernel" else arr)
+    for path, value in _flatten(params.get("answer_head", {}) if headed else {}):
+        mod, leaf = path if len(path) == 2 else (None, None)
+        if mod not in _ANSWER_HEAD or leaf not in _LEAF:
+            raise KeyError(f"unexpected LXMERT param path answer_head/{'/'.join(path)}")
+        arr = np.asarray(value, dtype=np.float32)
+        out[f"{_ANSWER_HEAD[mod]}.{_LEAF[leaf]}"] = _tensor(arr.T if leaf == "kernel" else arr)
     return out

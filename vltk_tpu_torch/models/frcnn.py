@@ -220,7 +220,7 @@ class FRCNN(nn.Module):
         super().__init__()
         if cfg.int8:
             raise NotImplementedError(
-                "int8 presets are not ported yet; use a bf16 or f32 preset"
+                "int8 presets are not ported yet (ROADMAP A.9); use a bf16 or f32 preset"
             )
         self.cfg = cfg
         dtype = cfg.compute_dtype

@@ -23,7 +23,12 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from vltk_tpu_torch.models.lxmert import LxmertConfig, TransformerLayer, masked_cross_entropy
+from vltk_tpu_torch.models.lxmert import (  # noqa: F401  (init_weights is re-exported)
+    LxmertConfig,
+    TransformerLayer,
+    init_weights,
+    masked_cross_entropy,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,21 +163,3 @@ def span_qa_loss(start_logits: torch.Tensor, end_logits: torch.Tensor, span_star
     ``ignore_id`` skipped."""
     return (masked_cross_entropy(start_logits, span_start, ignore_id)
             + masked_cross_entropy(end_logits, span_end, ignore_id)) / 2
-
-
-def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded random weights: normal(0, initializer_range) for every
-    projection and embedding table, zero biases, unit LayerNorms (the flax
-    initialisers of the JAX package, not its random draws)."""
-    gen = torch.Generator().manual_seed(seed)
-    std = model.cfg.initializer_range
-    with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * std)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
-    return model

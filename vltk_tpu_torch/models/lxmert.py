@@ -1,22 +1,27 @@
-"""Shared transformer blocks of the port's encoders.
+"""LXMERT and the shared transformer blocks of the port's encoders.
 
-Counterpart of the encoder parts of ``vltk_tpu/models/lxmert.py``:
-``LxmertConfig`` (same field set), the flash-attention gate
-(``_flash_applicable`` / ``_impl_wants_flash`` / ``_flash_eligible``),
-``MultiHeadAttention`` with its dense and flash branches,
-``FeedForward``, ``TransformerLayer`` and ``masked_cross_entropy``. LayoutLM
-runs on them now;
-VisualBERT, ViT and LXMERT reuse them later.
+Counterpart of ``vltk_tpu/models/lxmert.py``: ``LxmertConfig`` (same field
+set), the flash-attention gate (``_flash_applicable`` /
+``_impl_wants_flash`` / ``_flash_eligible``), ``MultiHeadAttention`` with
+its dense and flash branches, ``FeedForward``, ``TransformerLayer`` and
+``masked_cross_entropy``, which LayoutLM runs on too; and the VQA parts of
+LXMERT: ``Embeddings``, ``VisualFeatEncoder``, ``CrossModalityLayer``,
+``Pooler``, ``Lxmert``, ``AnswerHead``, ``LxmertForVQA`` and
+``vqa_soft_loss``. The pretraining heads and their losses come later.
 
 Module names follow HF ``transformers`` BERT-style layers
 (``attention.self.{query,key,value}``, ``attention.output.{dense,LayerNorm}``,
-``intermediate.dense``, ``output.{dense,LayerNorm}``), so an HF state dict
-loads as it is.
+``intermediate.dense``, ``output.{dense,LayerNorm}``) and HF's
+``LxmertForQuestionAnswering`` (``lxmert.encoder.{visn_fc,layer,r_layers,
+x_layers}``, ``visual_attention.att``, ``lang_inter``, ``answer_head.logit_fc``),
+so an HF state dict loads as it is.
 
 Mixed precision as in flax: parameters stay float32; every projection
 casts its input and weights to ``compute_dtype`` (``nn.Dense(dtype=bf16)``);
 LayerNorm runs in float32 and returns float32, so the residual stream
-between layers is float32; softmax is taken in float32. The dense route
+between layers is float32; softmax is taken in float32. The embeddings, the
+pooler and the answer head are flax layers without a ``dtype``, so they run
+in float32 whatever the config says. The dense route
 divides the ``compute_dtype`` scores by sqrt(dh) in that type and adds
 ``(1 - mask) * -10000``; the flash route (``ops/flash_attention_kernel.py``,
 the CUDA kernel K3 on the card) uses segment ids and a float32 scale, so pad
@@ -29,7 +34,7 @@ K5 behind a ``torch.autograd.Function``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,12 +85,13 @@ class LxmertConfig:
     int8: bool = False
 
     def __post_init__(self):
+        # each option, and the ROADMAP item that ports it
         unported = {
-            "activation_sharding": self.activation_sharding,
-            "seq_attention_sharding": self.seq_attention_sharding,
-            "moe_experts > 0": self.moe_experts > 0,
-            "int8": self.int8,
-            "remat": self.remat,
+            "activation_sharding (ROADMAP A.14)": self.activation_sharding,
+            "seq_attention_sharding (ROADMAP A.14)": self.seq_attention_sharding,
+            "moe_experts > 0 (ROADMAP A.11b)": self.moe_experts > 0,
+            "int8 (ROADMAP A.9)": self.int8,
+            "remat (ROADMAP A.13)": self.remat,
         }
         on = [name for name, value in unported.items() if value]
         if on:
@@ -166,12 +172,15 @@ class _Intermediate(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Post-LN residual attention block: ``ln(x + dropout(proj(attn)))``,
-    over a context ``ctx`` (``ctx is x`` for self-attention)."""
+    over a context ``ctx`` (``ctx is x`` for self-attention). The q/k/v
+    projections sit under ``qkv_name``: HF's ``self``, or ``att`` in
+    LXMERT's cross-attention."""
 
-    def __init__(self, cfg: LxmertConfig):
+    def __init__(self, cfg: LxmertConfig, qkv_name: str = "self"):
         super().__init__()
         self.cfg = cfg
-        self.self = _QKV(cfg)
+        self.qkv_name = qkv_name
+        self.add_module(qkv_name, _QKV(cfg))
         self.output = _DenseNorm(cfg, cfg.hidden_size)
         self.att_drop = nn.Dropout(cfg.attention_dropout)
 
@@ -181,9 +190,10 @@ class MultiHeadAttention(nn.Module):
         dt = cfg.compute_dtype
         n, s, h = x.shape
         nh, dh = cfg.num_heads, cfg.head_dim
-        q = dense(self.self.query, x, dt).view(n, s, nh, dh)
-        k = dense(self.self.key, ctx, dt).view(n, ctx.shape[1], nh, dh)
-        v = dense(self.self.value, ctx, dt).view(n, ctx.shape[1], nh, dh)
+        qkv = getattr(self, self.qkv_name)
+        q = dense(qkv.query, x, dt).view(n, s, nh, dh)
+        k = dense(qkv.key, ctx, dt).view(n, ctx.shape[1], nh, dh)
+        v = dense(qkv.value, ctx, dt).view(n, ctx.shape[1], nh, dh)
         if _impl_wants_flash(cfg, s) and _flash_eligible(x, ctx, s, not self.training, cfg):
             out4 = flash_attention_auto(q, k, v, ctx_mask, dh)
             return self.output(out4.reshape(n, s, h), x)
@@ -198,6 +208,12 @@ class MultiHeadAttention(nn.Module):
         return self.output(out4.reshape(n, s, h), x)
 
 
+def _feed_forward(inter: _Intermediate, out: _DenseNorm, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Exact-erf GELU MLP with post-LN residual."""
+    y = F.gelu(dense(inter.dense, x, dt), approximate="none")
+    return out(y, x)
+
+
 class FeedForward(nn.Module):
     """Exact-erf GELU MLP with post-LN residual (BERT intermediate +
     output)."""
@@ -209,8 +225,7 @@ class FeedForward(nn.Module):
         self.dt = cfg.compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.gelu(dense(self.intermediate.dense, x, self.dt), approximate="none")
-        return self.output(y, x)
+        return _feed_forward(self.intermediate, self.output, x, self.dt)
 
 
 class TransformerLayer(FeedForward):
@@ -226,6 +241,167 @@ class TransformerLayer(FeedForward):
         return super().forward(self.attention(x, x, mask))
 
 
+class CrossModalityLayer(nn.Module):
+    """LXMERT x-layer: one cross-attention applied in both directions, each
+    reading the other stream as it came in (the visual direction attends
+    to the incoming language stream, not the updated one), then
+    per-modality self-attention and feed-forward."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.dt = cfg.compute_dtype
+        self.visual_attention = MultiHeadAttention(cfg, qkv_name="att")
+        self.lang_self_att = MultiHeadAttention(cfg)
+        self.visn_self_att = MultiHeadAttention(cfg)
+        self.lang_inter = _Intermediate(cfg)
+        self.lang_output = _DenseNorm(cfg, cfg.intermediate_size)
+        self.visn_inter = _Intermediate(cfg)
+        self.visn_output = _DenseNorm(cfg, cfg.intermediate_size)
+
+    def forward(self, lang: torch.Tensor, lang_mask: Optional[torch.Tensor], visn: torch.Tensor,
+                visn_mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        lang2 = self.visual_attention(lang, visn, visn_mask)
+        visn2 = self.visual_attention(visn, lang, lang_mask)
+        lang2 = self.lang_self_att(lang2, lang2, lang_mask)
+        visn2 = self.visn_self_att(visn2, visn2, visn_mask)
+        lang2 = _feed_forward(self.lang_inter, self.lang_output, lang2, self.dt)
+        visn2 = _feed_forward(self.visn_inter, self.visn_output, visn2, self.dt)
+        return lang2, visn2
+
+
+class Embeddings(nn.Module):
+    """Word + position + type embeddings, LayerNorm, dropout; float32."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, h)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
+        self.LayerNorm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, input_ids: torch.Tensor, token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        n, s = input_ids.shape
+        if s > self.cfg.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {s} exceeds max_position_embeddings="
+                f"{self.cfg.max_position_embeddings}; raise it in the config"
+            )
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        pos = torch.arange(s, device=input_ids.device)[None, :].expand(n, s)
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos) + self.token_type_embeddings(token_type_ids)
+        return self.dropout(self.LayerNorm(x))
+
+
+class VisualFeatEncoder(nn.Module):
+    """Region features and [0, 1] xyxy boxes -> hidden: each projected in
+    the compute type, LayerNormed to float32, and averaged."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.dt = cfg.compute_dtype
+        self.visn_fc = nn.Linear(cfg.visual_feat_dim, h)
+        self.visn_layer_norm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        self.box_fc = nn.Linear(cfg.visual_pos_dim, h)
+        self.box_layer_norm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        self.dropout = nn.Dropout(cfg.hidden_dropout)
+
+    def forward(self, feats: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+        f = self.visn_layer_norm(dense(self.visn_fc, feats, self.dt).float())
+        b = self.box_layer_norm(dense(self.box_fc, boxes, self.dt).float())
+        return self.dropout((f + b) / 2.0)
+
+
+class Pooler(nn.Module):
+    """tanh(dense(first token)), float32."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+
+    def forward(self, lang: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(lang[:, 0].float()))
+
+
+class _LxmertEncoder(nn.Module):
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.visn_fc = VisualFeatEncoder(cfg)
+        self.layer = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.l_layers))
+        self.x_layers = nn.ModuleList(CrossModalityLayer(cfg) for _ in range(cfg.x_layers))
+        self.r_layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.r_layers))
+
+
+class Lxmert(nn.Module):
+    """The two-stream encoder: (N, S) ids, (N, V, visual_feat_dim)
+    features and (N, V, 4) [0, 1] xyxy boxes -> (lang, visn, pooled),
+    all float32. Masks are 1 = keep."""
+
+    def __init__(self, cfg: LxmertConfig = LxmertConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = Embeddings(cfg)
+        self.encoder = _LxmertEncoder(cfg)
+        self.pooler = Pooler(cfg)
+
+    def forward(self, input_ids: torch.Tensor, visual_feats: torch.Tensor, visual_pos: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None, visual_mask: Optional[torch.Tensor] = None,
+                token_type_ids: Optional[torch.Tensor] = None):
+        dt = self.cfg.compute_dtype
+        if attention_mask is None:
+            attention_mask = torch.ones(input_ids.shape, dtype=torch.float32, device=input_ids.device)
+        attention_mask = attention_mask.float()
+        if visual_mask is not None:
+            visual_mask = visual_mask.float()
+        lang = self.embeddings(input_ids, token_type_ids)
+        visn = self.encoder.visn_fc(visual_feats.to(dt), visual_pos.to(dt))
+        for layer in self.encoder.layer:
+            lang = layer(lang, attention_mask)
+        for layer in self.encoder.r_layers:
+            visn = layer(visn, visual_mask)
+        for layer in self.encoder.x_layers:
+            lang, visn = layer(lang, attention_mask, visn, visual_mask)
+        lang = lang.float()
+        return lang, visn.float(), self.pooler(lang)
+
+
+class AnswerHead(nn.Module):
+    """pooled -> dense 2h, GELU, LayerNorm -> num_answers logits, float32
+    (HF's ``logit_fc`` sequence: 0 dense, 1 GELU, 2 LayerNorm, 3 dense)."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        h2 = 2 * cfg.hidden_size
+        self.logit_fc = nn.Sequential(
+            nn.Linear(cfg.hidden_size, h2),
+            nn.GELU(approximate="none"),
+            nn.LayerNorm(h2, eps=cfg.layer_norm_eps),
+            nn.Linear(h2, cfg.num_answers),
+        )
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.logit_fc(pooled.float())
+
+
+class LxmertForVQA(nn.Module):
+    """The encoder and the answer head: -> (N, num_answers) float32 logits."""
+
+    def __init__(self, cfg: LxmertConfig = LxmertConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.lxmert = Lxmert(cfg)
+        self.answer_head = AnswerHead(cfg)
+
+    def forward(self, input_ids, visual_feats, visual_pos, attention_mask=None, visual_mask=None,
+                token_type_ids=None) -> torch.Tensor:
+        _, _, pooled = self.lxmert(input_ids, visual_feats, visual_pos, attention_mask, visual_mask, token_type_ids)
+        return self.answer_head(pooled)
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -100) -> torch.Tensor:
     """Cross entropy averaged over the positions whose label is not
     ``ignore_id``, over the whole batch; 0 (not NaN) when none is. Float32
@@ -235,3 +411,31 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: 
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     return torch.where(valid, nll, torch.zeros_like(nll)).sum() / valid.sum().clamp(min=1)
+
+
+def vqa_soft_loss(logits: torch.Tensor, target_scores: torch.Tensor) -> torch.Tensor:
+    """Sigmoid BCE with logits against VQA soft scores, in the stable form
+    ``max(x, 0) - x t + log1p(exp(-|x|))``, averaged and scaled by the
+    number of answers (the LXMERT convention). Float32."""
+    x = logits.float()
+    per = torch.clamp(x, min=0.0) - x * target_scores.float() + torch.log1p(torch.exp(-x.abs()))
+    return per.mean() * x.shape[-1]
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random weights: normal(0, initializer_range) for every
+    projection and embedding table, zero biases, unit LayerNorms (the flax
+    initialisers of the JAX package, not its random draws). Deterministic
+    for a seed whatever the device: the numbers are drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    std = model.cfg.initializer_range
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=gen) * std)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+    return model

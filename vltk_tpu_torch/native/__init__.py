@@ -52,6 +52,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vltk_wp_vocab_size.argtypes = [c.c_void_p]
     lib.vltk_wp_token_id.restype = c.c_int32
     lib.vltk_wp_token_id.argtypes = [c.c_void_p, c.c_char_p]
+    lib.vltk_wp_encode_batch.restype = None
+    lib.vltk_wp_encode_batch.argtypes = [
+        c.c_void_p, ccharpp, c.c_int64, c.c_int32, c.c_int, i32p, i32p, i32p, c.c_int32,
+    ]
     lib.vltk_wp_encode_words.restype = c.c_int64
     lib.vltk_wp_encode_words.argtypes = [c.c_void_p, ccharpp, c.c_int64, i32p, c.c_int64, i32p]
     return lib

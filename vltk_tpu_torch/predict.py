@@ -1,8 +1,18 @@
-"""Inference compositions of the port: OCR-document token labelling.
+"""Inference compositions of the port: composed VQA and OCR-document token
+labelling.
 
-Counterpart of ``vltk_tpu/predict.py:DocTokenClassifier`` and the helpers
-it uses. OCR words + pixel boxes -> per-word labels through the OCR chain
-(``processing/visn.py`` ``AuxTokenize`` + ``OCRBoxFixed``) and
+Counterpart of ``vltk_tpu/predict.py:VQAPredictor`` and
+``DocTokenClassifier`` and the helpers they use.
+
+``VQAPredictor``: images + questions -> ranked answers. Each bucket of
+``batch_size`` (image, question) pairs runs preprocess -> FRCNN -> box
+normalisation -> ``LxmertForVQA`` -> sigmoid on the device (on the card the
+FRCNN runs the RoIPool kernel K1 once and the greedy-NMS kernel K2 twice a
+bucket); questions are tokenized, images decoded and padded onto the raw
+canvas, and answers ranked on the host.
+
+``DocTokenClassifier``: OCR words + pixel boxes -> per-word labels through
+the OCR chain (``processing/visn.py`` ``AuxTokenize`` + ``OCRBoxFixed``) and
 ``LayoutLMForTokenClassification``. Requests are chunked into
 ``batch_size`` buckets padded to ``max_seq_length``, so every forward has
 one shape; at ``max_seq_length >= 1024`` on the card every self-attention
@@ -18,8 +28,10 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from vltk_tpu_torch import DeviceLike, resolve_device
+from vltk_tpu_torch import DeviceLike, read_state_dict, resolve_device
 from vltk_tpu_torch import vars as V
+
+ImageLike = Union[str, np.ndarray]
 
 
 def _pad_to(arr: np.ndarray, batch: int) -> np.ndarray:
@@ -73,6 +85,65 @@ def _check_head_width(state_dict: Mapping[str, torch.Tensor], key: str, n: int, 
         )
 
 
+def _materialise(make, params: Optional[Mapping[str, torch.Tensor]], init, seed: int, device) -> torch.nn.Module:
+    """``make()`` in eval mode on ``device``: with ``params`` (the model's
+    own names, loaded strictly), or seeded random weights when None. A
+    model that loads is built without weights first, so no random draws
+    are spent on what the load overwrites."""
+    if params is None:
+        return init(make(), seed=seed).eval().to(device)
+    with torch.device("meta"):
+        model = make().eval()
+    model.to_empty(device=device)
+    model.load_state_dict(params)
+    return model
+
+
+def _load_by_name(make, sd: Mapping[str, torch.Tensor], rename, required: str, path: str, what: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint's tensors under the names of ``make()``'s state dict,
+    float32. ``rename`` maps a checkpoint key to the model's name; keys
+    the model does not have are skipped. Every name that starts with
+    ``required`` must be there, else ``KeyError`` naming the first five
+    missing and their count: the JAX predictors fail on a missing
+    parameter."""
+    with torch.device("meta"):
+        names = set(make().state_dict())
+    out = {}
+    for key, value in sd.items():
+        name = rename(key)
+        if name in names:
+            out[name] = value.float()
+    missing = sorted(k for k in names if k.startswith(required) and k not in out)
+    if missing:
+        more = f" and {len(missing) - 5} more" if len(missing) > 5 else ""
+        raise KeyError(f"{path} lacks {len(missing)} {what} weights: {', '.join(missing[:5])}{more}")
+    return out
+
+
+def _doc_config(config, num_labels: int):
+    """LayoutLM-base in bf16 unless given, its head sized to the labels."""
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+
+    cfg = config or LayoutLMConfig(dtype="bfloat16")
+    return cfg if cfg.num_labels == num_labels else dataclasses.replace(cfg, num_labels=num_labels)
+
+
+def _vqa_configs(frcnn_config, lxmert_config, num_answers: int):
+    """The VG parity FRCNN and LXMERT-base in bf16 unless given; the answer
+    head is sized to the answers and ``visual_feat_dim`` to the FRCNN's
+    ``res2_out_channels * 8``."""
+    from vltk_tpu_torch.models.frcnn import FRCNNConfig
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+
+    fcfg = frcnn_config or FRCNNConfig.vg_extraction()
+    lcfg = lxmert_config or LxmertConfig(dtype="bfloat16")
+    if lcfg.num_answers != num_answers:
+        lcfg = dataclasses.replace(lcfg, num_answers=num_answers)
+    if lcfg.visual_feat_dim != fcfg.res2_out_channels * 8:
+        lcfg = dataclasses.replace(lcfg, visual_feat_dim=fcfg.res2_out_channels * 8)
+    return fcfg, lcfg
+
+
 class DocTokenClassifier:
     """OCR documents (words + boxes) -> per-word labels via LayoutLM.
 
@@ -102,11 +173,7 @@ class DocTokenClassifier:
         device: DeviceLike = None,
     ):
         from vltk_tpu_torch.data.tokenizer import Tokenizer
-        from vltk_tpu_torch.models.layoutlm import (
-            LayoutLMConfig,
-            LayoutLMForTokenClassification,
-            init_weights,
-        )
+        from vltk_tpu_torch.models.layoutlm import LayoutLMForTokenClassification, init_weights
         from vltk_tpu_torch.processing.visn import AuxTokenize, OCRBoxFixed
 
         self.device = resolve_device(device)
@@ -114,9 +181,7 @@ class DocTokenClassifier:
         self.batch_size = int(batch_size)
         self.max_seq_length = int(max_seq_length)
 
-        cfg = config or LayoutLMConfig(dtype="bfloat16")
-        if cfg.num_labels != len(self.labels):
-            cfg = dataclasses.replace(cfg, num_labels=len(self.labels))
+        cfg = _doc_config(config, len(self.labels))
         if cfg.max_position_embeddings < self.max_seq_length:
             raise ValueError(
                 f"max_seq_length {self.max_seq_length} exceeds the position "
@@ -135,13 +200,9 @@ class DocTokenClassifier:
         self._aux = AuxTokenize(tokenizer=self.tokenizer, max_visual_seq_length=self.max_seq_length)
         self._boxfix = OCRBoxFixed(max_visual_seq_length=self.max_seq_length)
 
-        model = LayoutLMForTokenClassification(cfg).eval()
-        if params is None:
-            init_weights(model, seed=0)
-        else:
+        if params is not None:
             _check_head_width(params, "classifier.weight", len(self.labels), "label")
-            model.load_state_dict(params)
-        self.model = model.to(self.device)
+        self.model = _materialise(lambda: LayoutLMForTokenClassification(cfg), params, init_weights, 0, self.device)
 
     @classmethod
     def from_pretrained(cls, checkpoint: str, labels, **kwargs) -> "DocTokenClassifier":
@@ -152,30 +213,22 @@ class DocTokenClassifier:
         the missing keys, as the JAX predictor fails on a missing
         parameter. A ``classifier.*`` head is loaded too, else it stays
         random (the caller should fine-tune before trusting outputs)."""
-        sd = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        sd = sd.get("model", sd)
-        self = cls(labels, **kwargs)
-        own = self.model.state_dict()
+        from vltk_tpu_torch.models.layoutlm import LayoutLMForTokenClassification, init_weights
+
+        cfg = _doc_config(kwargs.get("config"), len(_load_answer_list(labels)))
+        make = lambda: LayoutLMForTokenClassification(cfg)  # noqa: E731
+        sd = read_state_dict(checkpoint)
         root = "layoutlm." if any(k.startswith("layoutlm.") for k in sd) else ""
-        loaded = set()
-        for key, value in sd.items():
+
+        def rename(key: str) -> str:
             name = key[len(root):] if root and key.startswith(root) else key
-            if name.startswith(("embeddings.", "encoder.")):
-                name = "layoutlm." + name
-            elif not name.startswith("classifier."):
-                continue  # pooler, position_ids buffer
-            if name in own:
-                own[name] = value.float()
-                loaded.add(name)
-        missing = sorted(k for k in own if k.startswith("layoutlm.") and k not in loaded)
-        if missing:
-            more = f" and {len(missing) - 5} more" if len(missing) > 5 else ""
-            raise KeyError(
-                f"{checkpoint} lacks {len(missing)} encoder weights: {', '.join(missing[:5])}{more}"
-            )
-        _check_head_width(own, "classifier.weight", len(self.labels), "label")
-        self.model.load_state_dict(own)
-        return self
+            return "layoutlm." + name if name.startswith(("embeddings.", "encoder.")) else name
+
+        params = _load_by_name(make, sd, rename, "layoutlm.", checkpoint, "encoder")
+        if not all(k in params for k in ("classifier.weight", "classifier.bias")):
+            seeded = init_weights(make(), seed=0).state_dict()
+            params = {**seeded, **params}
+        return cls(labels, params=params, **kwargs)
 
     def export_bundle(self, path: str, **kwargs) -> str:
         raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
@@ -229,4 +282,243 @@ class DocTokenClassifier:
                     lab = int(np.argmax(p))
                     per_word.append({"word": word, "label": self.labels[lab], "score": float(p[lab])})
                 results.append(per_word)
+        return results
+
+
+def visual_inputs(det: Dict[str, torch.Tensor], raw_sizes: torch.Tensor):
+    """FRCNN output -> LXMERT's (features, [0, 1] boxes, mask), float32.
+    Boxes are scaled by each row's raw (h, w) extent. Invalid slots are
+    zeroed with ``where``, not a multiply: the pad rows of a bucket (raw
+    size 0 x 0) come out of the FRCNN with NaN boxes and features, and
+    NaN * 0 is NaN."""
+    vmask = det["mask"].float()
+    wh = raw_sizes.float()[:, [1, 0, 1, 0]].clamp(min=1.0)
+    valid = vmask[..., None] > 0
+    zero = torch.zeros((), device=vmask.device)
+    norm = torch.where(valid, (det["boxes"].float() / wh[:, None, :]).clamp(0.0, 1.0), zero)
+    feats = torch.where(valid, det["roi_features"].float(), zero)
+    return feats, norm, vmask
+
+
+class VQAPredictor:
+    """images + questions -> ranked answer strings, fixed shapes end to end.
+
+    Args:
+      answers: the answer vocabulary the LXMERT head was trained over (a
+        list of strings, or a json list / {answer: id} map path).
+      frcnn_params / lxmert_params: state dicts of the port's ``FRCNN``
+        (reference names) and ``LxmertForVQA`` (HF names), e.g. from
+        ``jax_frcnn_to_torch`` / ``jax_lxmert_to_torch``; ``None`` = seeded
+        random weights (smoke runs and shape checks only).
+      frcnn_config / lxmert_config: architecture overrides (default the VG
+        parity geometry ``FRCNNConfig.vg_extraction()`` and LXMERT-base in
+        bf16); the answer head is auto-sized to ``len(answers)`` and
+        ``visual_feat_dim`` to the FRCNN's ``res2_out_channels * 8``.
+      batch_size: static request bucket; inputs are padded up to it.
+      max_seq_length: static question budget (default: the tokenizer's, else
+        20; giving both requires them to agree).
+      raw_canvas / resized_canvas / short / maximum: detector input
+        geometry; default to the extraction adapter's.
+      device: CUDA unless ``"cpu"`` is asked for.
+    """
+
+    def __init__(
+        self,
+        answers: Union[str, Sequence[str]],
+        *,
+        frcnn_params: Optional[Mapping[str, torch.Tensor]] = None,
+        lxmert_params: Optional[Mapping[str, torch.Tensor]] = None,
+        frcnn_config=None,
+        lxmert_config=None,
+        batch_size: int = 8,
+        max_seq_length: Optional[int] = None,
+        tokenizer=None,
+        raw_canvas=None,
+        resized_canvas=None,
+        short: Optional[float] = None,
+        maximum: Optional[float] = None,
+        device: DeviceLike = None,
+    ):
+        from vltk_tpu_torch.adapters import frcnn as adapter
+        from vltk_tpu_torch.data.tokenizer import Tokenizer
+        from vltk_tpu_torch.models.frcnn import FRCNN
+        from vltk_tpu_torch.models.frcnn import init_weights as init_frcnn
+        from vltk_tpu_torch.models.lxmert import LxmertForVQA, init_weights
+
+        self.device = resolve_device(device)
+        self.answers = _load_answer_list(answers)
+        self.batch_size = int(batch_size)
+        self.raw_canvas = tuple(raw_canvas or adapter.RAW_CANVAS)
+        self._resized_canvas = tuple(resized_canvas or adapter.RESIZED_CANVAS)
+        self._short = float(short if short is not None else adapter.SHORT)
+        self._maximum = float(maximum if maximum is not None else adapter.MAXIMUM)
+
+        fcfg, lcfg = _vqa_configs(frcnn_config, lxmert_config, len(self.answers))
+        self.frcnn_config, self.lxmert_config = fcfg, lcfg
+        if tokenizer is None:
+            tokenizer = Tokenizer(name="NativeWordPiece", max_seq_length=20 if max_seq_length is None else max_seq_length)
+        elif max_seq_length is not None and tokenizer.max_seq_length != max_seq_length:
+            raise ValueError(
+                f"tokenizer.max_seq_length ({tokenizer.max_seq_length}) "
+                f"must equal max_seq_length ({max_seq_length})"
+            )
+        self.tokenizer = tokenizer
+        if tokenizer.vocab_size > lcfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab ({tokenizer.vocab_size}) exceeds "
+                f"LxmertConfig.vocab_size ({lcfg.vocab_size})"
+            )
+
+        if lxmert_params is not None:
+            _check_head_width(lxmert_params, "answer_head.logit_fc.3.weight", len(self.answers), "answer")
+        self.frcnn = _materialise(lambda: FRCNN(fcfg), frcnn_params, init_frcnn, 0, self.device)
+        self.lxmert = _materialise(lambda: LxmertForVQA(lcfg), lxmert_params, init_weights, 1, self.device)
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        frcnn_checkpoint: str,
+        lxmert_checkpoint: str,
+        answers: Union[str, Sequence[str]],
+        **kwargs,
+    ) -> "VQAPredictor":
+        """Torch state dict files -> predictor: a reference-named FRCNN
+        (loaded strictly, as ``adapters.frcnn.load_checkpoint``) and an HF
+        ``LxmertForQuestionAnswering`` loaded by name. Every weight of
+        ``LxmertForVQA``, the answer head included, must be there: a
+        checkpoint that lacks one (a bare ``LxmertModel`` lacks the head)
+        raises ``KeyError`` naming the missing keys, as the JAX predictor
+        fails on a missing parameter. Keys the model does not have (the
+        pretraining heads ``cls.*`` and ``obj_predict_head.*``, buffers)
+        are skipped."""
+        from vltk_tpu_torch.adapters.frcnn import read_checkpoint
+        from vltk_tpu_torch.models.lxmert import LxmertForVQA
+
+        _, lcfg = _vqa_configs(kwargs.get("frcnn_config"), kwargs.get("lxmert_config"), len(_load_answer_list(answers)))
+        lxmert = _load_by_name(
+            lambda: LxmertForVQA(lcfg), read_state_dict(lxmert_checkpoint), str, "",
+            lxmert_checkpoint, "LxmertForVQA",
+        )
+        return cls(answers, frcnn_params=read_checkpoint(frcnn_checkpoint), lxmert_params=lxmert, **kwargs)
+
+    def export_bundle(self, path: str, **kwargs) -> str:
+        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+
+    @classmethod
+    def from_bundle(cls, path: str) -> "VQAPredictor":
+        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+
+    # ------------------------------------------------------------ device
+
+    @torch.inference_mode()
+    def detect(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Preprocess and FRCNN: (B, Hr, Wr, 3) uint8 raw pixels and (B, 2)
+        raw (h, w) -> the FRCNN output dict, boxes in raw pixels."""
+        from vltk_tpu_torch.ops.image_ops import preprocess_batch
+
+        pre = preprocess_batch(
+            raw_images, raw_sizes, canvas_hw=self._resized_canvas, short=self._short, maximum=self._maximum,
+        )
+        return self.frcnn(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+
+    @torch.inference_mode()
+    def answer(self, det: Dict[str, torch.Tensor], raw_sizes: torch.Tensor, ids: torch.Tensor,
+               tmask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Box normalisation, LXMERT and sigmoid on ``detect``'s output."""
+        feats, norm, vmask = visual_inputs(det, raw_sizes)
+        logits = self.lxmert(ids, feats, norm, tmask, vmask)
+        return {
+            "scores": torch.sigmoid(logits.float()),
+            "boxes": det["boxes"].float(),
+            "mask": vmask,
+            "obj_ids": det["obj_ids"],
+            "obj_probs": det["obj_probs"].float(),
+        }
+
+    @torch.inference_mode()
+    def step(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor, ids: torch.Tensor,
+             tmask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """One bucket on the device: (B, Hr, Wr, 3) uint8 raw images, (B, 2)
+        raw sizes, (B, L) int32 question ids and (B, L) float32 mask ->
+        ``scores`` (B, num_answers), ``boxes`` (B, D, 4) raw-pixel xyxy,
+        ``mask`` (B, D), ``obj_ids`` and ``obj_probs`` (B, D)."""
+        return self.answer(self.detect(raw_images, raw_sizes), raw_sizes, ids, tmask)
+
+    def warmup(self) -> None:
+        """One step on a zero bucket, ahead of the first request (the
+        kernels' builds and the allocator's first blocks)."""
+        b, (ch, cw), seq = self.batch_size, self.raw_canvas, self.tokenizer.max_seq_length
+        dev = self.device
+        self.step(
+            torch.zeros((b, ch, cw, 3), dtype=torch.uint8, device=dev),
+            torch.full((b, 2), 32.0, device=dev),
+            torch.zeros((b, seq), dtype=torch.int32, device=dev),
+            torch.zeros((b, seq), device=dev),
+        )
+
+    # -------------------------------------------------------------- host
+
+    def _entries(self, images: Sequence[ImageLike], offset: int = 0) -> List[Dict[str, Any]]:
+        from PIL import Image
+
+        entries = []
+        for i, img in enumerate(images):
+            if isinstance(img, str):
+                arr = np.asarray(Image.open(img).convert("RGB"))
+            else:
+                arr = np.asarray(img)
+                if arr.ndim != 3 or arr.shape[-1] != 3:
+                    raise ValueError(f"image {offset + i}: expected (H, W, 3) RGB, got {arr.shape}")
+            entries.append({V.img: arr, V.imgid: str(offset + i)})
+        return entries
+
+    def _pad_chunk(self, arr: np.ndarray) -> np.ndarray:
+        return _pad_to(arr, self.batch_size)
+
+    def __call__(self, images: Sequence[ImageLike], questions: Sequence[str], top_k: int = 5) -> List[Dict[str, Any]]:
+        """Returns one dict per (image, question) pair: ``answer`` (top-1
+        string), ``score`` (its sigmoid score), ``topk`` ([(answer, score)]
+        ranked), ``boxes`` ((D, 4) xyxy in the caller's pixels),
+        ``objects`` ((D,) VG class ids), ``object_probs``, ``num_boxes``."""
+        from vltk_tpu_torch.adapters.frcnn import collate
+
+        if len(images) != len(questions):
+            raise ValueError(f"{len(images)} images vs {len(questions)} questions")
+        n = len(images)
+        if n == 0:
+            return []
+        top_k = max(1, min(int(top_k), len(self.answers)))
+        enc = self.tokenizer.encode_batch([str(q) for q in questions])
+        ids = np.stack([e[V.input_ids] for e in enc]).astype(np.int32)
+        tmask = np.stack([e[V.text_attention_mask] for e in enc]).astype(np.float32)
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(self._pad_chunk(a)).to(self.device)
+
+        results: List[Dict[str, Any]] = []
+        for lo in range(0, n, self.batch_size):
+            hi = min(lo + self.batch_size, n)
+            entries = self._entries(images[lo:hi], offset=lo)
+            orig_hw = np.array([e[V.img].shape[:2] for e in entries], np.float32)
+            collated = collate(entries, self.raw_canvas)
+            # collate shrinks raws larger than the canvas; this maps boxes
+            # back into the caller's pixel frame (1 where nothing shrank)
+            unshrink = (orig_hw[:, [1, 0, 1, 0]] / np.maximum(collated[V.rawsize][:, [1, 0, 1, 0]], 1.0))[:, None, :]
+            out = self.step(
+                put(collated[V.img]), put(collated[V.rawsize].astype(np.float32)),
+                put(ids[lo:hi]), put(tmask[lo:hi]),
+            )
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            for j in range(hi - lo):
+                order = np.argsort(-out["scores"][j])[:top_k]
+                ranked = [(self.answers[a], float(out["scores"][j, a])) for a in order]
+                results.append({
+                    "answer": ranked[0][0],
+                    "score": ranked[0][1],
+                    "topk": ranked,
+                    "boxes": out["boxes"][j] * unshrink[j],
+                    "objects": out["obj_ids"][j],
+                    "object_probs": out["obj_probs"][j],
+                    "num_boxes": int(out["mask"][j].sum()),
+                })
         return results

@@ -4,6 +4,7 @@
     python -m vltk_tpu_torch.trace --model layoutlm [--attn auto|xla] [--batch 32]
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] [--batch 8]
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] --lrs 1e-4 1e-5
+    python -m vltk_tpu_torch.trace --model vqa [--batch 8]
 
 ``--model frcnn`` (default) builds the ``parity_300`` extraction (R-101-C4,
 1600 classes, 400 attributes, bf16) on the 832x1344 canvas with seeded
@@ -18,13 +19,20 @@ instead (``make_train_step``: forward, token cross entropy, backward,
 clipped AdamW, schedule) at the JAX bench.py ``--train layoutlm``
 geometry: seq 1024, batch 8, a 20% pad tail with -100 labels on it,
 attention dropout 0 (hidden dropout 0.1); on ``--attn auto`` K3 runs with
-its statistics in the forward and K4 and K5 in the backward. It prints:
+its statistics in the forward and K4 and K5 in the backward. ``--model
+vqa`` builds the composed VQA step (``predict.VQAPredictor.step``: the
+``parity_300`` FRCNN, tamed, then LXMERT-base in bf16 with seeded random
+weights, 3129 answers) on the extraction canvas, with 8 questions of 20
+tokens. It prints:
 
 * the step time over ``--repeats`` windows of ``--steps`` steps (host
   clock, synchronised), to show the spread;
 * the device time of each stage of one step (CUDA events between the
-  stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess;
-  or embeddings, encoder, head; or forward, backward, optimizer);
+  stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess
+  (and for VQA then LXMERT's embeddings with the box normalisation and
+  the visual projection, language layers, visual layers, cross layers,
+  pooler and answer head); or embeddings, encoder, head; or forward,
+  backward, optimizer);
 * from a ``torch.profiler`` trace of ``--steps`` steps: device time by
   kernel class and the top kernels, and the device's busy share of the
   traced span (union of kernel intervals over first-start..last-end).
@@ -120,6 +128,40 @@ def build_layoutlm(batch: int, attn: str):
     return clf, ids, boxes, mask
 
 
+VQA_SEQ = 20
+VQA_QUESTIONS = (
+    "what color is the car?", "how many people are in the picture?", "is there a dog on the grass?",
+    "what is the man holding in his left hand?", "where is the cat sitting?", "is it raining?",
+    "what sport is being played on the field today?", "which animal is bigger, the horse or the cow?",
+)
+
+
+def build_vqa(batch: int, device="cuda"):
+    """The composed VQA predictor at full width on the extraction canvas:
+    parity_300 (tamed seeded weights), LXMERT-base bf16, 3129 answers."""
+    from vltk_tpu_torch.adapters.frcnn import tame_random_weights
+    from vltk_tpu_torch.predict import VQAPredictor
+
+    pred = VQAPredictor(
+        [f"answer {i}" for i in range(3129)], batch_size=batch, max_seq_length=VQA_SEQ,
+        raw_canvas=RAW_CANVAS, resized_canvas=CANVAS, short=800.0, maximum=1333.0, device=device,
+    )
+    tame_random_weights(pred.frcnn)
+    return pred
+
+
+def vqa_inputs(pred, batch: int, device):
+    """A device-resident bucket: seeded 480x640 raw images on the raw
+    canvas, their sizes, and the questions' ids and masks."""
+    rng = np.random.default_rng(1)
+    raw = torch.from_numpy(rng.integers(0, 256, (batch, *RAW_CANVAS, 3), dtype=np.uint8)).to(device)
+    sizes = torch.tensor([RAW_HW] * batch, dtype=torch.float32, device=device)
+    enc = pred.tokenizer.encode_batch([VQA_QUESTIONS[i % len(VQA_QUESTIONS)] for i in range(batch)])
+    ids = torch.from_numpy(np.stack([e["input_ids"] for e in enc])).to(device)
+    tmask = torch.from_numpy(np.stack([e["text_attention_mask"] for e in enc]).astype(np.float32)).to(device)
+    return raw, sizes, ids, tmask
+
+
 def bench_documents(batch: int, vocab_size: int, device):
     """bench.py's LayoutLM inputs (--infer layoutlm), on the device."""
     rng = np.random.default_rng(0)
@@ -198,90 +240,139 @@ def epoch_losses(batch: int, steps: int, lr: float, logdir: str, attn: str = "au
         return [json.loads(line)["loss"] for line in f]
 
 
-def stage_times_train(exp, data, steps: int):
-    """Mean device ms of forward (with the loss), backward and optimizer
-    (clip, AdamW, schedule) over ``steps`` training steps."""
-    model, opt = exp.model, exp.optimizer
-    names = ("forward", "backward", "optimizer")
+def timed_stages(names, run, steps: int):
+    """Mean device ms of each stage over ``steps`` calls of ``run(mark)``,
+    which calls ``mark()`` once as each stage ends."""
     totals = defaultdict(float)
-    model.train()
     for _ in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        opt.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True)]
         ev[0].record()
-        loss, _ = exp.loss_fn(model, data)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        opt.step()
-        exp.scheduler.step()
-        ev[3].record()
+
+        def mark():
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+
+        run(mark)
         torch.cuda.synchronize()
         for i, name in enumerate(names):
             totals[name] += ev[i].elapsed_time(ev[i + 1])
     return {k: v / steps for k, v in totals.items()}
+
+
+def stage_times_train(exp, data, steps: int):
+    """Mean device ms of forward (with the loss), backward and optimizer
+    (clip, AdamW, schedule) over ``steps`` training steps."""
+    model, opt = exp.model, exp.optimizer
+    model.train()
+
+    def run(mark):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = exp.loss_fn(model, data)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        exp.scheduler.step()
+        mark()
+
+    return timed_stages(("forward", "backward", "optimizer"), run, steps)
 
 
 @torch.inference_mode()
 def stage_times_layoutlm(clf, ids, boxes, mask, steps: int):
     """Mean device ms of embeddings, encoder and head over ``steps``."""
     model = clf.model
-    names = ("embeddings", "encoder", "head")
-    totals = defaultdict(float)
-    for _ in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
+
+    def run(mark):
         x = model.layoutlm.embeddings(ids, boxes)
-        ev[1].record()
+        mark()
         for layer in model.layoutlm.encoder.layer:
             x = layer(x, mask)
-        ev[2].record()
+        mark()
         torch.softmax(model.classifier(x).float(), dim=-1)
-        ev[3].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            totals[name] += ev[i].elapsed_time(ev[i + 1])
-    return {k: v / steps for k, v in totals.items()}
+        mark()
+
+    return timed_stages(("embeddings", "encoder", "head"), run, steps)
+
+
+FRCNN_STAGES = ("preprocess", "backbone", "rpn_head", "propose", "roi_heads", "postprocess")
+
+
+def frcnn_stages(model, cfg, pre_fn, raw, sizes, mark):
+    """The extraction step stage by stage, marking each end; returns the
+    postprocessed output."""
+    from vltk_tpu_torch.models.frcnn import _postprocess
+    from vltk_tpu_torch.models.rpn import propose
+
+    rpn = model.proposal_generator
+    pre = pre_fn(raw, sizes)
+    mark()
+    feats = model.backbone(pre["img"])
+    mark()
+    logits, deltas = rpn.rpn_head(feats)
+    mark()
+    anchors = rpn.anchors((feats.shape[1], feats.shape[2]), feats.device)
+    boxes, _, valid = propose(
+        logits, deltas, anchors, pre["sizes"], nms_thresh=cfg.rpn_nms_thresh,
+        pre_nms_topk=cfg.pre_nms_topk, post_nms_topk=cfg.post_nms_topk,
+        min_box_side_len=cfg.min_box_side_len,
+        bbox_reg_weights=cfg.rpn_bbox_reg_weights,
+    )
+    mark()
+    obj, attr, deltas_b, pooled = model.roi_heads(feats, boxes)
+    mark()
+    out = _postprocess(
+        cfg, boxes, valid, obj.float(), attr.float(), deltas_b.float(),
+        pooled.float(), pre["sizes"], pre["scales_yx"],
+    )
+    mark()
+    return out
 
 
 @torch.inference_mode()
 def stage_times(bundle, raw, sizes, steps: int):
-    """Mean device ms of each stage over ``steps`` steps."""
-    from vltk_tpu_torch.models.frcnn import _postprocess
-    from vltk_tpu_torch.models.rpn import propose
+    """Mean device ms of each stage of the extraction step."""
+    return timed_stages(
+        FRCNN_STAGES,
+        lambda mark: frcnn_stages(bundle["model"], bundle["cfg"], bundle["pre_fn"], raw, sizes, mark),
+        steps,
+    )
 
-    model, cfg = bundle["model"], bundle["cfg"]
-    rpn = model.proposal_generator
-    names = ("preprocess", "backbone", "rpn_head", "propose", "roi_heads", "postprocess")
-    totals = defaultdict(float)
-    for _ in range(steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-        ev[0].record()
-        pre = bundle["pre_fn"](raw, sizes)
-        ev[1].record()
-        feats = model.backbone(pre["img"])
-        ev[2].record()
-        logits, deltas = rpn.rpn_head(feats)
-        ev[3].record()
-        anchors = rpn.anchors((feats.shape[1], feats.shape[2]), feats.device)
-        boxes, _, valid = propose(
-            logits, deltas, anchors, pre["sizes"], nms_thresh=cfg.rpn_nms_thresh,
-            pre_nms_topk=cfg.pre_nms_topk, post_nms_topk=cfg.post_nms_topk,
-            min_box_side_len=cfg.min_box_side_len,
-            bbox_reg_weights=cfg.rpn_bbox_reg_weights,
-        )
-        ev[4].record()
-        obj, attr, deltas_b, pooled = model.roi_heads(feats, boxes)
-        ev[5].record()
-        _postprocess(
-            cfg, boxes, valid, obj.float(), attr.float(), deltas_b.float(),
-            pooled.float(), pre["sizes"], pre["scales_yx"],
-        )
-        ev[6].record()
-        torch.cuda.synchronize()
-        for i, name in enumerate(names):
-            totals[name] += ev[i].elapsed_time(ev[i + 1])
-    return {k: v / steps for k, v in totals.items()}
+
+@torch.inference_mode()
+def stage_times_vqa(pred, raw, sizes, ids, tmask, steps: int):
+    """Mean device ms of each stage of the composed VQA step: the
+    extraction stages, then LXMERT's."""
+    from vltk_tpu_torch.ops.image_ops import preprocess_batch
+    from vltk_tpu_torch.predict import visual_inputs
+
+    lx = pred.lxmert.lxmert
+    enc = lx.encoder
+    dt = lx.cfg.compute_dtype
+
+    def pre_fn(r, s):
+        return preprocess_batch(r, s, canvas_hw=pred._resized_canvas, short=pred._short, maximum=pred._maximum)
+
+    def run(mark):
+        det = frcnn_stages(pred.frcnn, pred.frcnn_config, pre_fn, raw, sizes, mark)
+        feats, norm, vmask = visual_inputs(det, sizes)
+        lang = lx.embeddings(ids)
+        visn = enc.visn_fc(feats.to(dt), norm.to(dt))
+        mark()
+        for layer in enc.layer:
+            lang = layer(lang, tmask)
+        mark()
+        for layer in enc.r_layers:
+            visn = layer(visn, vmask)
+        mark()
+        for layer in enc.x_layers:
+            lang, visn = layer(lang, tmask, visn, vmask)
+        mark()
+        torch.sigmoid(pred.lxmert.answer_head(lx.pooler(lang.float())))
+        mark()
+
+    names = FRCNN_STAGES + ("lxmert_embeddings", "language_layers", "visual_layers", "cross_layers", "head")
+    return timed_stages(names, run, steps)
 
 
 def busy_share(intervals):
@@ -303,7 +394,7 @@ def busy_share(intervals):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("frcnn", "layoutlm"), default="frcnn")
+    ap.add_argument("--model", choices=("frcnn", "layoutlm", "vqa"), default="frcnn")
     ap.add_argument("--attn", choices=("auto", "xla"), default="auto",
                     help="layoutlm: attention_impl (auto = the flash kernel at seq 1024)")
     ap.add_argument("--train", action="store_true", help="layoutlm: the training step (bench.py --train)")
@@ -311,7 +402,7 @@ def main() -> None:
                     help="layoutlm --train: instead of tracing, print the losses of chip_smoke.py's "
                          "8-step epoch at each of these learning rates")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 (frcnn), 32 (layoutlm), 8 (layoutlm --train)")
+                    help="default 8 (frcnn, vqa), 32 (layoutlm), 8 (layoutlm --train)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
@@ -338,6 +429,13 @@ def main() -> None:
         step = lambda: bundle["step"](raw, sizes)  # noqa: E731
         stages_fn = lambda: stage_times(bundle, raw, sizes, args.steps)  # noqa: E731
         unit = "images_per_s"
+    elif args.model == "vqa":
+        batch = args.batch or 8
+        pred = build_vqa(batch)
+        raw, sizes, ids, tmask = vqa_inputs(pred, batch, "cuda")
+        step = lambda: pred.step(raw, sizes, ids, tmask)  # noqa: E731
+        stages_fn = lambda: stage_times_vqa(pred, raw, sizes, ids, tmask, args.steps)  # noqa: E731
+        unit = "samples_per_s"
     elif args.train:
         import tempfile
 
@@ -410,6 +508,7 @@ def main() -> None:
         unit: [batch * 1e3 / w for w in windows],
         "stage_ms": stages,
         "kernel_ms_per_step": kernel_ms,
+        "kernels_per_step": len(kernels) / args.steps,
         "kernel_class_ms_per_step": {k: v / 1e3 / args.steps for k, v in by_class.items()},
         "busy_share": share,
         "traced_span_ms_per_step": span / 1e3 / args.steps,

@@ -1,7 +1,7 @@
 """Entry keys and packaged data paths of the port.
 
 A copy of the keys of ``vltk_tpu/vars.py`` that the OCR processing chain,
-the document predictor and the OCR experiment read and write (the port imports nothing of the
+the predictors, the FRCNN collate and the OCR experiment read and write (the port imports nothing of the
 JAX package), and the path of the port's own copy of the BERT vocabulary.
 """
 
@@ -23,6 +23,11 @@ rawsize = "rawsize"
 scale = "wh_scale"
 tokenbox = "tokenbox"
 visual_attention_mask = "visual_attention_mask"
+img = "image"
+imgid = "imgid"
+input_ids = "input_ids"
+type_ids = "type_ids"
+text_attention_mask = "text_attention_mask"
 
 # text-side keys of a vision dataset renamed with a "v" prefix when joined
 # with a vision-language dataset by image id (the ones the port reads)
