@@ -7,7 +7,7 @@ It drives the port only (``vltk_tpu_torch``; nothing of JAX or of the JAX
 package):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds every CUDA kernel of the five main paths from ``csrc/`` (one
+2. builds every CUDA kernel of the main paths from ``csrc/`` (one
    nvcc per source, started together) and prints the build time and each
    kernel's registers and spills (``-Xptxas -v``);
 3. prints K1's block shape and its registers and spills, and holds the
@@ -117,7 +117,37 @@ package):
 16. trains a small f32 LayoutLM two steps on the card and on the CPU with
    the flash route forced on both sides and compares loss, gradients and
    the parameters after the AdamW update;
-17. prints the ``kernels`` JSON line, then the device line last.
+17. serves document span QA with ``predict.DocSpanQA`` at LayoutLM-base
+   width (bf16, seeded random weights, attention_impl "auto", a 64-token
+   question and a 960-token document, so seq 1024 and the question's pad
+   is a hole in mid-stream): three requests (4, 4 and 3 pairs, so the last
+   bucket has a pad row) of synthetic documents with questions of 5-40
+   words, K3 launched 12 times a forward and no other kernel, each answer
+   a span of its document whose text is the span's words, the padded
+   bucket's log-probabilities and answers bitwise equal to the same pairs
+   in a full bucket; times the span step at B=32, seq 1024, on the dense
+   route and on K3 (questions/s, ms/step, peak memory) and, apart, the host
+   decode (``_best_span`` over up to 959 positions a row);
+18. runs a small f32 DocSpanQA on the card and on the CPU, flash route
+   forced on both sides, and compares log-probabilities at real positions
+   (1e-4) and answers (equal);
+19. trains ``DocVQASpanExperiment`` at LayoutLM-base width for an epoch of
+   8 steps at B=8, seq 1024 (64 question + 960 OCR tokens, a 20% pad tail;
+   hidden dropout 0.1, attention dropout 0, lr 1e-5): finite losses,
+   ``span_acc`` logged, K3, K5 and K4 12 times each a step and no other
+   kernel; times the step (sequences/s, peak memory);
+20. one f32 span training step of a small LayoutLM on the card and on the
+   CPU, flash route forced on both sides: loss (1e-5) and gradients (1e-4);
+21. trains ``LxmertVQAExperiment`` and ``LxmertPretrainExperiment`` (all
+   four tasks) at LXMERT-base (9/5/5 layers, 768, 3129 answers, bf16
+   compute, float32 parameters) for 4 steps each at B=32 (20-token
+   questions, 36 boxes of 2048 features): finite losses, every
+   pretraining term logged, no kernel launched (none is expected on this
+   path); times each step (samples/s, peak memory);
+22. one f32 pretraining step's losses of a small LXMERT on the card and on
+   the CPU, every term within 1e-5;
+23. prints the ``kernels`` JSON line (each kernel also with its launches on
+   the two span paths), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -1494,6 +1524,7 @@ def synthetic_documents(rng: np.random.Generator, words_of_vocab, counts):
     words glued, so they split into several sub-tokens) with seeded boxes
     on a 2200 x 1700 page."""
     docs = []
+    words_of_vocab = np.asarray(words_of_vocab)  # a list would be converted on every draw
     for n_words in counts:
         words = [
             str(rng.choice(words_of_vocab)) + (str(rng.choice(words_of_vocab)) if rng.random() < 0.25 else "")
@@ -1659,7 +1690,9 @@ TRAIN_LR = 1e-5
 ROUTE_GRAD_BOUND = 5e-2
 
 
-def time_train_step(exp, host_batch, steps: int):
+def time_train_step(exp, host_batch, steps: int = 5, batch: int = TRAIN_BATCH):
+    """(samples/s, ms a step, peak GB) of the experiment's train step on one
+    device-resident batch of ``batch`` rows, after a warm-up step."""
     data = next(iter(exp._device_batches([host_batch])))
     exp.train_step(data)  # warm-up
     torch.cuda.synchronize()
@@ -1670,7 +1703,7 @@ def time_train_step(exp, host_batch, steps: int):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     check(bool(torch.isfinite(metrics["loss"])), "timed training step: loss not finite")
-    return TRAIN_BATCH * steps / dt, dt / steps * 1e3, torch.cuda.max_memory_allocated() / 1e9
+    return batch * steps / dt, dt / steps * 1e3, torch.cuda.max_memory_allocated() / 1e9
 
 
 def phase_training(dev, wrappers, smi: str) -> dict:
@@ -1840,6 +1873,457 @@ def phase_small_layoutlm_train(dev) -> None:
     check(loss_err <= 1e-5 and grad_err <= 1e-4 and param_err <= 1e-5, "small LayoutLM training: card != CPU")
 
 
+# ------------------------------------------- document span QA (serving)
+
+SPAN_Q, SPAN_DOC = 64, 960  # question and document budgets: seq 1024, so K3 takes it
+# three requests of four (document, question) pairs, the last of three, so
+# its bucket of 4 has a pad row
+SPAN_REQUESTS = ((40, 300, 700, 1500), (1000, 5, 650, 900), (120, 958, 480))
+SPAN_BATCH = 32  # the timed step: the document step's bench geometry
+
+
+def span_questions(rng: np.random.Generator, words_of_vocab, n: int):
+    """Questions of 5-40 words drawn from the vocabulary, so the question's
+    pad hole in the stream has many widths."""
+    return [" ".join(rng.choice(words_of_vocab, int(rng.integers(5, 41)))) for _ in range(n)]
+
+
+def check_span_answers(docs, results) -> None:
+    check(len(results) == len(docs), "one answer per pair")
+    for doc, res in zip(docs, results):
+        sw, ew = res["start_word"], res["end_word"]
+        check(0 <= sw <= ew < len(doc["words"]), f"span ({sw}, {ew}) outside a document of {len(doc['words'])} words")
+        check(res["answer"] == " ".join(doc["words"][sw:ew + 1]), "answer text is not the span's words")
+        check(bool(np.isfinite(res["score"])) and res["score"] <= 0.0, f"span score {res['score']}")
+
+
+def phase_span(dev, wrappers, smi: str) -> dict:
+    """Document span QA: DocSpanQA at LayoutLM-base width, seq 1024 (64
+    question + 960 OCR sub-tokens), serves three requests (K3 12 times a
+    forward, the question's pad a hole in mid-stream); the padded bucket's
+    rows against a full bucket's; the span step timed at B=32 on both
+    routes, and the host decode apart."""
+    import dataclasses
+
+    from vltk_tpu_torch import vars as V
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.predict import DocSpanQA, _best_span
+
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=SPAN_Q + SPAN_DOC)
+    check(
+        (cfg.l_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim, cfg.intermediate_size,
+         cfg.vocab_size, cfg.coord_vocab, cfg.attention_impl) == (12, 768, 12, 64, 3072, 30522, 1024, "auto"),
+        f"LayoutLM-base config {cfg}",
+    )
+    qa = DocSpanQA(config=cfg, batch_size=4, question_len=SPAN_Q, doc_len=SPAN_DOC, device=dev)
+    with open(V.VOCABPATH) as f:
+        vocab_words = [w for w in f.read().split("\n") if w.isascii() and w.isalpha()]
+    rng = np.random.default_rng(1)
+    requests = [(synthetic_documents(rng, vocab_words, counts), span_questions(rng, vocab_words, len(counts)))
+                for counts in SPAN_REQUESTS]
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    answers = [qa(docs, questions) for docs, questions in requests]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    forwards = len(requests)
+    check(launches["flash_attention"] == 12 * forwards,
+          f"flash attention launched {launches['flash_attention']} times over {forwards} span forwards")
+    others = {k: v for k, v in launches.items() if k != "flash_attention"}
+    check(not any(others.values()), f"other kernels on the span serving path: {others}")
+    for (docs, _), results in zip(requests, answers):
+        check_span_answers(docs, results)
+    (ids, boxes, mask), _, _, _ = qa.prepare(*requests[0])
+    holes = int(((mask[:, :-1] == 0) & (mask[:, 1:] == 1)).sum())
+    check(holes == 4, f"{holes} pad holes in the first bucket's 4 rows")
+    print(
+        f"span requests: 4 + 4 + 3 pairs, {serve_s:.3f} s with host prep; launches {launches} over {forwards} "
+        f"forwards; answers {[[(r['start_word'], r['end_word']) for r in a] for a in answers]}"
+    )
+
+    # the padded bucket (3 pairs + a pad row) against the same 3 pairs in a
+    # full bucket (a fourth real pair): bitwise, log-probabilities and answers
+    docs, questions = requests[2]
+    (ids, boxes, mask), _, _, _ = qa.prepare(docs + requests[0][0][:1], questions + requests[0][1][:1])
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    full = qa.step(put(ids), put(boxes), put(mask))
+    padded = qa.step(*(put(np.concatenate([a[:3], np.zeros_like(a[:1])])) for a in (ids, boxes, mask)))
+    same = all(torch.equal(f[:3], p[:3]) for f, p in zip(full, padded))
+    check(same and qa(docs + requests[0][0][:1], questions + requests[0][1][:1])[:3] == answers[2],
+          "padded span bucket's real rows differ from the full bucket's")
+    print("span padded bucket (3 real + 1 pad row) vs the same pairs in a full bucket: log-probs and answers bitwise equal")
+
+    # the step at B=32, seq 1024, on both routes
+    docs32 = synthetic_documents(rng, vocab_words, rng.integers(200, 1500, SPAN_BATCH))
+    questions32 = span_questions(rng, vocab_words, SPAN_BATCH)
+    (ids, boxes, mask), d_mask, _, _ = qa.prepare(docs32, questions32)
+    ids, boxes, mask = put(ids), put(boxes), put(mask)
+    timed = {}
+    for attn in ("xla", "auto"):
+        model = DocSpanQA(params=qa.model.state_dict(), config=dataclasses.replace(cfg, attention_impl=attn),
+                          batch_size=SPAN_BATCH, question_len=SPAN_Q, doc_len=SPAN_DOC, tokenizer=qa.tokenizer,
+                          device=dev)
+        model.step(ids, boxes, mask)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            s_lp, e_lp = model.step(ids, boxes, mask)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        check(bool(torch.isfinite(s_lp).all() and torch.isfinite(e_lp).all()), "span step output is not finite")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        timed[attn] = {"questions_per_s": SPAN_BATCH * 1e3 / step_ms, "step_ms": step_ms, "peak_mem_gb": peak}
+        route = "dense route" if attn == "xla" else "K3 flash route"
+        print(
+            f"LayoutLM-base span step B={SPAN_BATCH} seq {SPAN_Q + SPAN_DOC} bf16 attention_impl={attn} ({route}): "
+            f"{timed[attn]['questions_per_s']:.2f} questions/s ({step_ms:.3f} ms/step over 5 steps, device queue "
+            f"and host) on {smi}; peak {peak:.2f} GB"
+        )
+        del model
+    s_np, e_np = s_lp.cpu().numpy(), e_lp.cpu().numpy()
+    regions = [SPAN_Q + max(min(int(d_mask[j].sum()), SPAN_DOC - 1), 1) for j in range(SPAN_BATCH)]
+    t0 = time.perf_counter()
+    for j in range(SPAN_BATCH):
+        _best_span(s_np[j], e_np[j], SPAN_Q, regions[j], qa.max_span)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    timed["host_decode_ms"] = decode_ms
+    print(
+        f"span host decode (_best_span, numpy) over the B={SPAN_BATCH} bucket's rows of {min(regions) - SPAN_Q}-"
+        f"{max(regions) - SPAN_Q} positions: {decode_ms:.3f} ms a bucket on the host CPU "
+        f"({decode_ms / SPAN_BATCH:.3f} ms a row), beside {timed['auto']['step_ms']:.3f} ms of the K3 step"
+    )
+    del qa
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timed": timed, "serve_s": serve_s}
+
+
+def phase_small_span(dev) -> None:
+    """A small f32 DocSpanQA on the card against the same one on the CPU,
+    the flash route forced on both sides (K3 on the card, the plain version
+    on the CPU): log-probabilities at real positions (1e-4) and the answers
+    (equal)."""
+    from vltk_tpu_torch import vars as V
+    from vltk_tpu_torch.models import lxmert as PX
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
+    from vltk_tpu_torch.predict import DocSpanQA
+
+    cfg = LayoutLMConfig(hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+                         max_position_embeddings=256, attention_impl="flash")
+    cpu = DocSpanQA(config=cfg, batch_size=2, question_len=24, doc_len=232, device="cpu")
+    gpu = DocSpanQA(params=cpu.model.state_dict(), config=cfg, batch_size=2, question_len=24, doc_len=232,
+                    tokenizer=cpu.tokenizer, device=dev)
+    with open(V.VOCABPATH) as f:
+        vocab_words = [w for w in f.read().split("\n") if w.isascii() and w.isalpha()]
+    rng = np.random.default_rng(9)
+    docs = synthetic_documents(rng, vocab_words, (60, 400, 7))
+    questions = [" ".join(rng.choice(vocab_words, n)) for n in (3, 15, 8)]
+    (ids, boxes, mask), _, _, _ = cpu.prepare(docs, questions)
+    gate = PX._flash_applicable
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    before = flash_attention_auto.launches
+    PX._flash_applicable = lambda s, det, drop, device: s >= 128 and (det or drop == 0.0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = cpu.step(*(torch.from_numpy(a) for a in (ids, boxes, mask)))
+        got = [x.cpu() for x in gpu.step(*(torch.from_numpy(a).to(dev) for a in (ids, boxes, mask)))]
+        answers = (cpu(docs, questions), gpu(docs, questions))
+    finally:
+        PX._flash_applicable = gate
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check(flash_attention_auto.launches - before == 3 * cfg.l_layers, "small DocSpanQA did not run K3 in every layer")
+    real = torch.from_numpy(mask) > 0
+    err = max(float((g[real] - w[real]).abs().max()) for g, w in zip(got, want))
+    same = [(a["start_word"], a["end_word"]) for a in answers[0]] == [(a["start_word"], a["end_word"]) for a in answers[1]]
+    print(f"small f32 DocSpanQA, flash route, card (K3) vs CPU (plain): log-prob err at real positions {err:.2e} "
+          f"(1e-4), answers equal: {same}")
+    check(err <= 1e-4 and same, "small DocSpanQA: card != CPU")
+
+
+# ------------------------------------------- document span QA (training)
+
+
+def span_train_batch(batch: int, vocab_size: int, seed: int = 0, q_len: int = SPAN_Q, doc_len: int = SPAN_DOC):
+    """A DocVQA span batch as the loader gives it: questions of 5-40 real
+    tokens of ``q_len`` (the rest pad, a hole in mid-stream once
+    concatenated), OCR ids with a 20% pad tail, boxes (x0 y0 in [0, 900),
+    w h in [1, 100)), answer spans of 1-8 tokens inside the real OCR, one
+    row unanswerable (-100)."""
+    rng = np.random.default_rng(seed)
+    q_real = rng.integers(5, 41, batch).clip(max=q_len)
+    q_mask = (np.arange(q_len)[None] < q_real[:, None]).astype(np.int32)
+    ocr_real = int(doc_len * 0.8)
+    ocr_mask = (np.arange(doc_len)[None] < ocr_real).astype(np.int32).repeat(batch, 0)
+    xy0 = rng.integers(0, 900, (batch, doc_len, 2))
+    start = rng.integers(0, ocr_real - 8, batch).astype(np.int32)
+    end = (start + rng.integers(0, 8, batch)).astype(np.int32)
+    start[-1] = end[-1] = -100
+    return {
+        "input_ids": (rng.integers(1000, vocab_size, (batch, q_len)) * q_mask).astype(np.int32),
+        "text_attention_mask": q_mask,
+        "vtext": (rng.integers(1000, vocab_size, (batch, doc_len)) * ocr_mask).astype(np.int32),
+        "tokenbox": np.concatenate([xy0, xy0 + rng.integers(1, 100, (batch, doc_len, 2))], -1).astype(np.float32),
+        "visual_attention_mask": ocr_mask,
+        "span_start": start,
+        "span_end": end,
+    }
+
+
+def span_experiment(cfg, logdir: str, loader, lr: float, device, q_len: int = SPAN_Q, doc_len: int = SPAN_DOC):
+    """A ``DocVQASpanExperiment`` for one epoch over ``loader``: seeded
+    random weights, AdamW at ``lr``, weight decay 0.01, warmup 0.1, clip 1."""
+    from vltk_tpu_torch.config import Config
+    from vltk_tpu_torch.experiments import DocVQASpanExperiment
+
+    class Experiment(DocVQASpanExperiment):
+        model_config = cfg
+
+    config = Config()
+    config.logdir = logdir
+    config.data.lang.update({"max_seq_length": q_len, "max_visual_seq_length": doc_len})
+    config.train.update({"epochs": 1, "learning_rate": lr, "weight_decay": 0.01, "warmup_ratio": 0.1,
+                         "clip_grad_norm": 1.0})
+    return Experiment(config, loaders=(loader, None), device=device)
+
+
+def phase_span_training(dev, wrappers, smi: str) -> dict:
+    """DocVQASpanExperiment at LayoutLM-base width: one epoch of 8 steps at
+    B=8, seq 1024 (64 question + 960 OCR, a 20% pad tail), hidden dropout
+    0.1, attention dropout 0, lr 1e-5; K3, K5, K4 12 times each a step."""
+    import tempfile
+
+    from vltk_tpu_torch.trace import layoutlm_train_config
+
+    cfg = layoutlm_train_config("auto")
+    host = span_train_batch(TRAIN_BATCH, cfg.vocab_size)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_span_") as logdir:
+        exp = span_experiment(cfg, logdir, [host] * TRAIN_STEPS, TRAIN_LR, device=dev)
+        check(exp.device == dev, f"experiment on {exp.device}")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        result = exp()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+            log = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in log]
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), f"span training losses {losses}")
+        check(all("span_acc" in r for r in log) and "span_acc" in result["train"], "span_acc not reported")
+        for name in ("flash_attention", "flash_attention_dkv", "flash_attention_dq"):
+            check(launches[name] == 12 * TRAIN_STEPS,
+                  f"{name} launched {launches[name]} times over {TRAIN_STEPS} span steps (want 12 per step)")
+        others = {k: v for k, v in launches.items() if not k.startswith("flash_attention")}
+        check(not any(others.values()), f"other kernels on the span training path: {others}")
+        print(
+            f"span training: DocVQASpanExperiment LayoutLM-base bf16 seq {SPAN_Q}+{SPAN_DOC} B={TRAIN_BATCH}, "
+            f"{TRAIN_STEPS} steps in {train_s:.2f} s with checkpointing; losses {[round(x, 5) for x in losses]}; "
+            f"span_acc {result['train']['span_acc']}; launches {launches}"
+        )
+        seq_s, step_ms, peak = time_train_step(exp, host)
+        print(
+            f"LayoutLM-base span train step B={TRAIN_BATCH} seq 1024 bf16 (K3/K4/K5 flash route): {seq_s:.2f} "
+            f"sequences/s ({step_ms:.3f} ms/step over 5 steps) on {smi}; peak {peak:.2f} GB"
+        )
+        del exp
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "train_s": train_s,
+            "timed": {"sequences_per_s": seq_s, "step_ms": step_ms, "peak_mem_gb": peak}}
+
+
+def phase_small_span_train(dev) -> None:
+    """One f32 span training step of a small LayoutLM on the card and on the
+    CPU, flash route forced on both sides (K3, K5, K4 on the card, the
+    plain versions on the CPU), on a batch whose question pad is a hole in
+    mid-stream: loss 1e-5, gradients 1e-4."""
+    import tempfile
+
+    from vltk_tpu_torch.models import lxmert as PX
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.ops import KERNEL_WRAPPERS
+
+    cfg = LayoutLMConfig(vocab_size=2000, hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+                         max_position_embeddings=256, attention_impl="flash", attention_dropout=0.0,
+                         hidden_dropout=0.0)
+    host = span_train_batch(3, cfg.vocab_size, seed=3, q_len=32, doc_len=224)
+    gate = PX._flash_applicable
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    PX._flash_applicable = lambda s, det, drop, device: s >= 128 and (det or drop == 0.0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = lambda: [KERNEL_WRAPPERS[k].launches for k in ("flash_attention", "flash_attention_dkv", "flash_attention_dq")]  # noqa: E731
+    before = counts()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_small_span_") as logdir:
+            for side, device in (("cpu", "cpu"), ("gpu", dev)):
+                exp = span_experiment(cfg, os.path.join(logdir, side), [host], 1e-3, device, q_len=32, doc_len=224)
+                batch = next(iter(exp._device_batches([host])))
+                exp.model.train()
+                loss, _ = exp.loss_fn(exp.model, batch)
+                loss.backward()
+                out[side] = (float(loss.detach()), {n: p.grad.cpu() for n, p in exp.model.named_parameters()})
+    finally:
+        PX._flash_applicable = gate
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check([a - b for a, b in zip(counts(), before)] == [2, 2, 2], "small span step did not run K3, K4, K5 per layer")
+    loss_err = abs(out["cpu"][0] - out["gpu"][0])
+    grad_err = max(float((out["gpu"][1][n] - g).abs().max()) for n, g in out["cpu"][1].items())
+    print(f"small f32 span training step, flash route, card (K3/K4/K5) vs CPU (plain): loss err {loss_err:.2e} "
+          f"(1e-5), grad err {grad_err:.2e} (1e-4)")
+    check(loss_err <= 1e-5 and grad_err <= 1e-4, "small span training step: card != CPU")
+
+
+# ------------------------------------------------------- LXMERT trainers
+
+LXMERT_TRAIN_BATCH, LXMERT_TRAIN_STEPS = 32, 4
+LXMERT_SEQ, LXMERT_BOXES = 20, 36
+PRETRAIN_TASKS = dict(task_mask_lm=True, task_obj_predict=True, task_matched=True, task_qa=True)
+
+
+def lxmert_train_batch(batch: int, cfg, seed: int = 0, seq: int = LXMERT_SEQ, boxes: int = LXMERT_BOXES):
+    """A VQA batch of precomputed region features as the loader gives it:
+    questions of 6-20 real tokens in the BERT id range, ``boxes`` regions
+    of ``visual_feat_dim`` features (a few rows with fewer valid), raw-pixel
+    boxes with their raw size (normalised by ``prepare_batch``), answers as
+    up to 10 sparse ids with soft scores."""
+    rng = np.random.default_rng(seed)
+    t_real = rng.integers(6, seq + 1, batch)
+    tmask = (np.arange(seq)[None] < t_real[:, None]).astype(np.int32)
+    v_real = np.where(rng.random(batch) < 0.25, rng.integers(10, boxes, batch), boxes)
+    vmask = (np.arange(boxes)[None] < v_real[:, None]).astype(np.float32)
+    raw = np.stack([rng.integers(300, 800, batch), rng.integers(300, 1000, batch)], 1).astype(np.float32)
+    xy0 = rng.uniform(0, 0.8, (batch, boxes, 2))
+    rel = np.concatenate([xy0, xy0 + rng.uniform(0.05, 0.2, (batch, boxes, 2))], -1)
+    labels = np.full((batch, 10), -100, np.int32)
+    n_ans = rng.integers(1, 11, batch)
+    for i, k in enumerate(n_ans):
+        labels[i, :k] = rng.choice(cfg.num_answers, k, replace=False)
+    return {
+        "input_ids": np.where(tmask > 0, rng.integers(1000, cfg.vocab_size, (batch, seq)), 0).astype(np.int32),
+        "text_attention_mask": tmask,
+        "features": (np.abs(rng.normal(size=(batch, boxes, cfg.visual_feat_dim))) * vmask[..., None])
+        .astype(np.float32),
+        "boxes": (rel * np.concatenate([raw[:, ::-1], raw[:, ::-1]], 1)[:, None]).astype(np.float32),
+        "rawsize": raw,
+        "boxes_mask": vmask,
+        "labels": labels,
+        "scores": rng.choice([0.3, 0.6, 0.9, 1.0], (batch, 10)).astype(np.float32),
+    }
+
+
+def lxmert_experiment(cls, cfg, logdir: str, loader, lr: float, device, **tasks):
+    from vltk_tpu_torch.config import Config
+
+    class Experiment(cls):
+        model_config = cfg
+
+    config = Config()
+    config.logdir = logdir
+    config.data.lang.update({"max_seq_length": LXMERT_SEQ})
+    config.data.update({"max_detections": LXMERT_BOXES})
+    config.train.update({"epochs": 1, "learning_rate": lr, "weight_decay": 0.01, "warmup_ratio": 0.1,
+                         "clip_grad_norm": 1.0, **tasks})
+    return Experiment(config, loaders=(loader, None), device=device)
+
+
+def phase_lxmert_train(dev, wrappers, smi: str) -> dict:
+    """LxmertVQAExperiment and LxmertPretrainExperiment (all four tasks) at
+    LXMERT-base (9/5/5 layers, 768, 12 heads, 3129 answers, bf16 compute,
+    float32 parameters), B=32, 20-token questions, 36 boxes of 2048
+    features: an epoch of 4 steps each, finite losses, every pretraining
+    term logged, and no kernel launched (the 20-token stream is below the
+    flash gate and cross-attention never takes flash)."""
+    import tempfile
+
+    from vltk_tpu_torch.experiments import LxmertPretrainExperiment, LxmertVQAExperiment
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+
+    cfg = LxmertConfig(dtype="bfloat16")
+    check(
+        (cfg.l_layers, cfg.r_layers, cfg.x_layers, cfg.hidden_size, cfg.num_heads, cfg.head_dim,
+         cfg.intermediate_size, cfg.vocab_size, cfg.num_answers, cfg.visual_feat_dim) ==
+        (9, 5, 5, 768, 12, 64, 3072, 30522, 3129, 2048),
+        f"LXMERT-base config {cfg}",
+    )
+    out = {}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_lxmert_") as logdir:
+        for name, cls, tasks, terms in (
+            ("vqa", LxmertVQAExperiment, {}, ("vqa_score",)),
+            ("pretrain", LxmertPretrainExperiment, PRETRAIN_TASKS, ("mlm_loss", "matched_loss", "feat_loss",
+                                                                   "qa_loss")),
+        ):
+            host = [lxmert_train_batch(LXMERT_TRAIN_BATCH, cfg, seed=i) for i in range(LXMERT_TRAIN_STEPS)]
+            exp = lxmert_experiment(cls, cfg, os.path.join(logdir, name), host, 1e-5, device=dev, **tasks)
+            check(exp.device == dev, f"experiment on {exp.device}")
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            exp()
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+            check(not any(launches.values()), f"kernels launched on the LXMERT {name} training path: {launches}")
+            with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+                log = [json.loads(line) for line in f]
+            check(len(log) == LXMERT_TRAIN_STEPS and all(np.isfinite(r["loss"]) for r in log),
+                  f"LXMERT {name} losses {log}")
+            for term in terms:
+                check(all(term in r and np.isfinite(r[term]) for r in log), f"LXMERT {name}: {term} not logged")
+            samples_s, step_ms, peak = time_train_step(exp, host[0], batch=LXMERT_TRAIN_BATCH)
+            out[name] = {"launches": launches, "losses": [r["loss"] for r in log], "train_s": train_s,
+                         "samples_per_s": samples_s, "step_ms": step_ms, "peak_mem_gb": peak,
+                         **{term: [r[term] for r in log] for term in terms}}
+            print(
+                f"LXMERT-base {name} training B={LXMERT_TRAIN_BATCH}, {LXMERT_SEQ} tokens, {LXMERT_BOXES} boxes, bf16: "
+                f"{LXMERT_TRAIN_STEPS} steps in {train_s:.2f} s; losses {[round(r['loss'], 5) for r in log]}; "
+                f"no kernel launched (none is expected: the 20-token stream is below the flash gate, "
+                f"cross-attention never takes flash); step {step_ms:.3f} ms, {samples_s:.2f} samples/s "
+                f"over 5 steps on {smi}; peak {peak:.2f} GB"
+            )
+            del exp
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_pretrain(dev) -> None:
+    """One f32 pretraining step's losses (all four tasks) of a small LXMERT
+    on the card and on the CPU, the same weights and the same corrupted
+    batch: every loss term within 1e-5."""
+    import tempfile
+
+    from vltk_tpu_torch.experiments import LxmertPretrainExperiment
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+
+    cfg = LxmertConfig(hidden_size=48, num_heads=2, intermediate_size=96, l_layers=2, x_layers=1, r_layers=1,
+                       visual_feat_dim=64, max_position_embeddings=32, num_answers=50, num_objects=30,
+                       num_attrs=20, vocab_size=2000, hidden_dropout=0.0, attention_dropout=0.0)
+    host = lxmert_train_batch(8, cfg, seed=5)  # 11 MLM labels survive the sentence swap
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_small_pretrain_") as logdir:
+            for side, device in (("cpu", "cpu"), ("gpu", dev)):
+                exp = lxmert_experiment(LxmertPretrainExperiment, cfg, os.path.join(logdir, side), [host], 1e-3,
+                                        device=device, **PRETRAIN_TASKS)
+                batch = next(iter(exp._device_batches([host])))  # each experiment's own generator, one seed
+                exp.model.train()
+                total, aux = exp.loss_fn(exp.model, batch)
+                out[side] = {"total": float(total.detach()), **{k: float(v.detach()) for k, v in aux.items()}}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    check(set(out["cpu"]) == set(out["gpu"]) == {"total", "mlm_loss", "matched_loss", "feat_loss", "qa_loss"}
+          and all(v > 0 for v in out["cpu"].values()), f"small pretraining terms {out}")
+    err = max(abs(out["gpu"][k] - v) / max(abs(v), 1.0) for k, v in out["cpu"].items())
+    print(f"small f32 LXMERT pretraining step, card vs CPU: losses {out['gpu']}, max err {err:.2e} (1e-5)")
+    check(err <= 1e-5, "small LXMERT pretraining: card != CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1927,6 +2411,16 @@ def main() -> int:
     phase_route_gradients(dev)
     phase_small_layoutlm_train(dev)
 
+    span = phase_span(dev, KERNEL_WRAPPERS, smi)
+    print("span_run " + json.dumps(span))
+    phase_small_span(dev)
+    span_train = phase_span_training(dev, KERNEL_WRAPPERS, smi)
+    print("span_training_run " + json.dumps(span_train))
+    phase_small_span_train(dev)
+    lxmert_train = phase_lxmert_train(dev, KERNEL_WRAPPERS, smi)
+    print("lxmert_training_run " + json.dumps(lxmert_train))
+    phase_small_pretrain(dev)
+
     # launches as counted on each kernel's main path: the B=8 extraction
     # run for K1 and K2, the document requests for K3, the training epoch
     # for K4 and K5
@@ -1939,7 +2433,13 @@ def main() -> int:
     }
     for e in entries:
         e["launches"] = launches[e["name"]]
-    # K6-K9: launches counted on the probe's path inside their phase
+    # K6-K9: launches counted on the probe's path inside their phase. Every
+    # kernel also carries its launches on the two span paths (K3 12 a
+    # forward in serving; K3, K5, K4 12 each a step in training)
+    for e in entries + ablation:
+        key = {"nms_fixed": "nms"}.get(e["name"], e["name"])
+        e["span_serving_launches"] = span["launches"].get(key, 0)
+        e["span_training_launches"] = span_train["launches"].get(key, 0)
     print(json.dumps({"kernels": entries + ablation}))
     print(json.dumps({
         "ok": True,

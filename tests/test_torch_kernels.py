@@ -16,7 +16,8 @@ coordinates and scores, one launch a call; sequence lengths around the
 64-key tile and the 128 pad block, padded rows down to length 1, masks
 whose whole key tiles K3 skips, its statistics and its determinism; for the
 backward kernels K5 and K4 also masks whose whole 64-row tiles share no id
-(the tiles the kernels skip), K5's fused di, strided output gradients,
+(the tiles the kernels skip), masks of the span-QA stream
+``[question | pad | OCR | pad]`` (a pad hole in mid-stream), K5's fused di, strided output gradients,
 determinism, and the gradients that a training step on the card hands the
 q/k/v projections; K1's refusal to cut a gradient, both of its paths
 (16-byte vectors and one element a thread), bins wider than its unrolled
@@ -616,6 +617,70 @@ def test_flash_backward_skips_tiles_exactly(dev, s, kind):
         for g, w in zip(got, want):
             assert bool(torch.isfinite(g).all())
             assert _rel_err(g, w) <= BWD_TOL[dtype], _rel_err(g, w)
+
+
+def _span_mask(q_len: int, s: int, q_real, ocr_real) -> torch.Tensor:
+    """The span-QA stream's mask, ``[question | pad | OCR | pad]``: row i
+    has q_real[i] real question tokens of q_len, then ocr_real[i] real OCR
+    tokens, so the question's pad is a hole before the page's."""
+    mask = torch.zeros(len(q_real), s)
+    for i, (ql, ol) in enumerate(zip(q_real, ocr_real)):
+        mask[i, :ql] = 1
+        mask[i, q_len:q_len + ol] = 1
+    return mask
+
+
+# (question budget, s, real question tokens a row, real OCR tokens a row):
+# the slice's serving shape (a full page, a page with a 20% pad tail, a
+# one-token page), and a short stream whose hole straddles a 64-row tile
+SPAN_CASES = [(64, 1024, (64, 5, 40), (960, 768, 1)), (20, 148, (3, 20, 1), (128, 60, 100))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SPAN_CASES, ids=["s1024", "s148"])
+def test_flash_attention_on_span_masks(dev, dtype, case):
+    """K3 on the span stream's mask: the output at every position against
+    the plain version, the row statistics within 1e-5."""
+    q_len, s, q_real, ocr_real = case
+    gen = torch.Generator().manual_seed(s + q_len)
+    q, k, v = (torch.randn(3, s, 2, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    mask = _span_mask(q_len, s, q_real, ocr_real).to(dev)
+    got, stats_k = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+    torch.cuda.synchronize()
+    want, stats = flash_self_attention_fwd_residuals(q, k, v, mask, 64)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_TOL[dtype]
+    assert torch.equal(_bits(got), _bits(flash_attention_cuda(q, k, v, mask, 64)))
+    assert _stats_err(stats_k, stats) <= 1e-5, _stats_err(stats_k, stats)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SPAN_CASES, ids=["s1024", "s148"])
+def test_flash_backward_on_span_masks(dev, dtype, case):
+    """K5 then K4 on the span stream's mask against the plain backward, and
+    the gradients autograd takes through ``flash_attention_auto`` (K3 with
+    its statistics, K5, K4) against autograd of the plain version, at real
+    query positions (the loss of the span head reads no other)."""
+    q_len, s, q_real, ocr_real = case
+    gen = torch.Generator().manual_seed(2 * s + q_len)
+    q, k, v, do = (torch.randn(3, s, 2, 64, generator=gen).to(dev, dtype) for _ in range(4))
+    mask = _span_mask(q_len, s, q_real, ocr_real).to(dev)
+    o, stats = flash_self_attention_fwd_residuals(q, k, v, mask, 64)
+    got = flash_attention_backward_cuda(q, k, v, mask, o, stats, do, 64)
+    torch.cuda.synchronize()
+    want = flash_self_attention_backward(q, k, v, mask, o, stats, do, 64)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel_err(g, w) <= BWD_TOL[dtype], _rel_err(g, w)
+    real = mask.bool()[..., None, None].to(dtype)
+    grads = []
+    for fn in (flash_attention_auto, flash_self_attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves, mask, 64) * real).float().mul(do.float()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for g, w in zip(*grads):
+        assert _rel_err(g, w) <= BWD_TOL[dtype], _rel_err(g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

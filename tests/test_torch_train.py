@@ -576,8 +576,8 @@ class TestExperiment:
 
     def test_registry_and_test_run(self, jax_model, tmp_path):
         assert Experiments.get("OCR_tokens") is OCRTokenExperiment
-        with pytest.raises(KeyError):
-            Experiments.get("docvqa_span")
+        with pytest.raises(KeyError, match="A.8"):
+            Experiments.get("data")
         config = port_config(tmp_path)
         config.test_run = True
         exp = port_experiment(jax_model, config, batches(np.random.default_rng(8), 3))

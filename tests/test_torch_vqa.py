@@ -276,8 +276,10 @@ class TestConverter:
 
     def test_unknown_keys_raise(self, lxmert):
         _, params, _ = lxmert
-        with pytest.raises(KeyError, match="mlm_head"):
-            jax_lxmert_to_torch({**params, "mlm_head": {"decoder": {"bias": np.zeros(3)}}})
+        with pytest.raises(KeyError, match="mlm_head/mystery"):
+            jax_lxmert_to_torch({**params, "mlm_head": {"mystery": {"bias": np.zeros(3)}}})
+        with pytest.raises(KeyError, match="mystery_head"):
+            jax_lxmert_to_torch({**params, "mystery_head": {"bias": np.zeros(3)}})
         with pytest.raises(KeyError, match="x_layer_0/mystery"):
             jax_lxmert_to_torch({"x_layer_0": {"mystery": {"kernel": np.zeros((2, 2))}}})
 

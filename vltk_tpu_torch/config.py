@@ -3,8 +3,8 @@
 A copy of the parts of ``vltk_tpu/config.py`` that the train layer and the
 LayoutLM experiments read: ``BaseConfig`` (iteration, ``to_dict``,
 recursive ``update`` with string coercion and overwrite tracking),
-``LangConfig`` (``ignore_id``, ``max_visual_seq_length``), ``DataConfig``
-(its ``lang`` child), ``TrainConfig`` (every field, same defaults),
+``LangConfig`` (``ignore_id``, the sequence lengths and the pretraining
+corruption rates), ``DataConfig`` (its ``lang`` child, ``max_detections``), ``TrainConfig`` (every field, same defaults),
 ``MeshConfig`` and ``Config`` (``logdir``, ``checkpoint_dir``,
 ``test_run``, ``break_loop_on_test``, ``save_on_crash``). Field names and
 defaults are the JAX package's.
@@ -131,13 +131,20 @@ class BaseConfig:
 
 @dataclass
 class LangConfig(BaseConfig):
+    max_seq_length: int = 128
     max_visual_seq_length: int = 128
+    mask_rate: float = 0.15
+    mask_token_rate: float = 0.8
+    random_token_rate: float = 0.1
+    sentence_match_rate: float = 0.5
+    feature_mask_rate: float = 0.15
     ignore_id: int = -100
 
 
 @dataclass
 class DataConfig(BaseConfig):
     lang: LangConfig = field(default_factory=LangConfig)
+    max_detections: int = 36
 
 
 @dataclass

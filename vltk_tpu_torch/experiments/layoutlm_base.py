@@ -18,9 +18,20 @@ class LayoutLMExperimentBase(SimpleExperiment):
 
     model_cls = None  # LayoutLMFor... module class
 
+    def _seq_length(self) -> int:
+        """The length of the stream the model sees (subclasses add leading
+        tokens, e.g. the question)."""
+        return self.config.data.lang.max_visual_seq_length
+
     def build_model(self) -> nn.Module:
         """Seeded random weights (``init_weights``, seed 0); override to
-        load trained ones."""
+        load trained ones. The stream must fit the position table, as the
+        JAX package's ``init`` at ``_seq_length()`` requires."""
+        length, table = self._seq_length(), self.model_config.max_position_embeddings
+        if length > table:
+            raise ValueError(
+                f"sequence length {length} exceeds max_position_embeddings={table}; raise it in the config"
+            )
         return init_weights(self.model_cls(self.model_config), seed=0)
 
     @staticmethod

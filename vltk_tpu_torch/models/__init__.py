@@ -9,7 +9,7 @@ from vltk_tpu_torch.models.layoutlm import (
     LayoutLMForSpanQA,
     LayoutLMForTokenClassification,
 )
-from vltk_tpu_torch.models.lxmert import Lxmert, LxmertConfig, LxmertForVQA
+from vltk_tpu_torch.models.lxmert import Lxmert, LxmertConfig, LxmertForPretraining, LxmertForVQA
 
 __all__ = [
     "FRCNN",
@@ -20,6 +20,7 @@ __all__ = [
     "LayoutLMForTokenClassification",
     "Lxmert",
     "LxmertConfig",
+    "LxmertForPretraining",
     "LxmertForVQA",
     "init_weights",
     "jax_frcnn_to_torch",

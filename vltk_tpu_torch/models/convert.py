@@ -20,9 +20,9 @@ token-classification / span-QA model with its ``layoutlm`` child) -> the HF
 ``transformers`` LayoutLM names the port's modules carry (no pooler: the
 flax model has none).
 
-``jax_lxmert_to_torch`` does the same for LXMERT (an ``LxmertForVQA`` tree
-with its ``lxmert`` child and ``answer_head``, or a bare ``Lxmert``): HF
-``LxmertForQuestionAnswering`` names, the same keys the JAX package's own
+``jax_lxmert_to_torch`` does the same for LXMERT (an ``LxmertForVQA`` or
+``LxmertForPretraining`` tree with its ``lxmert`` child and heads, or a bare
+``Lxmert``): HF ``LxmertForQuestionAnswering`` / ``LxmertForPreTraining`` names, the same keys the JAX package's own
 ``jax_lxmert_to_torch`` writes (its pair table kept here as a copy).
 """
 
@@ -171,7 +171,23 @@ _LXMERT_STACKS = {
     "r_layer_": ("encoder.r_layers", _BERT_LAYER),
     "x_layer_": ("encoder.x_layers", _X_LAYER),
 }
-_ANSWER_HEAD = {"fc": "answer_head.logit_fc.0", "ln": "answer_head.logit_fc.2", "logit": "answer_head.logit_fc.3"}
+# flax head module path -> HF module path (``LxmertForQuestionAnswering``'s
+# answer head, ``LxmertForPreTraining``'s ``cls`` and ``obj_predict_head``)
+_LXMERT_HEADS = {
+    ("answer_head", "fc"): "answer_head.logit_fc.0",
+    ("answer_head", "ln"): "answer_head.logit_fc.2",
+    ("answer_head", "logit"): "answer_head.logit_fc.3",
+    ("mlm_head", "transform"): "cls.predictions.transform.dense",
+    ("mlm_head", "ln"): "cls.predictions.transform.LayerNorm",
+    ("mlm_head", "decoder"): "cls.predictions.decoder",
+    ("matched_head",): "cls.seq_relationship",
+    ("visual_head", "transform"): "obj_predict_head.transform.dense",
+    ("visual_head", "ln"): "obj_predict_head.transform.LayerNorm",
+    ("visual_head", "obj"): "obj_predict_head.decoder_dict.obj",
+    ("visual_head", "attr"): "obj_predict_head.decoder_dict.attr",
+    ("visual_head", "feat"): "obj_predict_head.decoder_dict.feat",
+}
+_HEAD_ROOTS = {mods[0] for mods in _LXMERT_HEADS}
 
 
 def _lxmert_name(path) -> str:
@@ -187,22 +203,35 @@ def _lxmert_name(path) -> str:
     return f"{module}.{_LEAF[leaf]}"
 
 
+def _lxmert_head_name(path) -> str:
+    """flax path of a head leaf -> HF name. HF keeps the LM decoder's bias
+    at ``cls.predictions.bias``."""
+    *mods, leaf = path
+    module = _LXMERT_HEADS.get(tuple(mods))
+    if module is None or leaf not in _LEAF:
+        raise KeyError(f"unexpected LXMERT param path {'/'.join(path)}")
+    if module == "cls.predictions.decoder" and leaf == "bias":
+        return "cls.predictions.bias"
+    return f"{module}.{_LEAF[leaf]}"
+
+
 def jax_lxmert_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax LXMERT params -> the port's (HF-named) state dict of float32
-    tensors. An ``LxmertForVQA`` tree gives ``lxmert.``-prefixed encoder
-    names plus ``answer_head.logit_fc.{0,2,3}``; a bare ``Lxmert`` tree
-    gives unprefixed names. Any other key raises ``KeyError``."""
+    tensors. An ``LxmertForVQA`` or ``LxmertForPretraining`` tree gives
+    ``lxmert.``-prefixed encoder names plus its heads (``answer_head.logit_fc.*``;
+    ``cls.predictions.*``, ``cls.seq_relationship.*``, ``obj_predict_head.*``);
+    a bare ``Lxmert`` tree gives unprefixed names. Any other key raises
+    ``KeyError``."""
     headed = "lxmert" in params
-    if headed and set(params) - {"lxmert", "answer_head"}:
-        raise KeyError(f"unexpected LXMERT param keys {sorted(set(params) - {'lxmert', 'answer_head'})}")
+    unknown = set(params) - {"lxmert", *_HEAD_ROOTS} if headed else set()
+    if unknown:
+        raise KeyError(f"unexpected LXMERT param keys {sorted(unknown)}")
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(params["lxmert"] if headed else params):
         arr = np.asarray(value, dtype=np.float32)
         out[("lxmert." if headed else "") + _lxmert_name(path)] = _tensor(arr.T if path[-1] == "kernel" else arr)
-    for path, value in _flatten(params.get("answer_head", {}) if headed else {}):
-        mod, leaf = path if len(path) == 2 else (None, None)
-        if mod not in _ANSWER_HEAD or leaf not in _LEAF:
-            raise KeyError(f"unexpected LXMERT param path answer_head/{'/'.join(path)}")
-        arr = np.asarray(value, dtype=np.float32)
-        out[f"{_ANSWER_HEAD[mod]}.{_LEAF[leaf]}"] = _tensor(arr.T if leaf == "kernel" else arr)
+    for root in sorted(set(params) & _HEAD_ROOTS) if headed else ():
+        for path, value in _flatten(params[root], (root,)):
+            arr = np.asarray(value, dtype=np.float32)
+            out[_lxmert_head_name(path)] = _tensor(arr.T if path[-1] == "kernel" else arr)
     return out

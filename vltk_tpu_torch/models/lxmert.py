@@ -7,21 +7,24 @@ its dense and flash branches, ``FeedForward``, ``TransformerLayer`` and
 ``masked_cross_entropy``, which LayoutLM runs on too; and the VQA parts of
 LXMERT: ``Embeddings``, ``VisualFeatEncoder``, ``CrossModalityLayer``,
 ``Pooler``, ``Lxmert``, ``AnswerHead``, ``LxmertForVQA`` and
-``vqa_soft_loss``. The pretraining heads and their losses come later.
+``vqa_soft_loss``; the pretraining parts: ``MLMHead``, ``VisualHead``,
+``LxmertForPretraining``, ``masked_lm_loss``, ``matched_loss``,
+``visual_feat_loss``, ``visual_label_loss`` and ``resize_num_qa_labels``.
 
 Module names follow HF ``transformers`` BERT-style layers
 (``attention.self.{query,key,value}``, ``attention.output.{dense,LayerNorm}``,
 ``intermediate.dense``, ``output.{dense,LayerNorm}``) and HF's
 ``LxmertForQuestionAnswering`` (``lxmert.encoder.{visn_fc,layer,r_layers,
-x_layers}``, ``visual_attention.att``, ``lang_inter``, ``answer_head.logit_fc``),
-so an HF state dict loads as it is.
+x_layers}``, ``visual_attention.att``, ``lang_inter``, ``answer_head.logit_fc``)
+and ``LxmertForPreTraining`` (``cls.predictions``, ``cls.seq_relationship``,
+``obj_predict_head``), so an HF state dict loads as it is.
 
 Mixed precision as in flax: parameters stay float32; every projection
 casts its input and weights to ``compute_dtype`` (``nn.Dense(dtype=bf16)``);
 LayerNorm runs in float32 and returns float32, so the residual stream
 between layers is float32; softmax is taken in float32. The embeddings, the
-pooler and the answer head are flax layers without a ``dtype``, so they run
-in float32 whatever the config says. The dense route
+pooler, the answer head and the pretraining heads are flax layers without a
+``dtype``, so they run in float32 whatever the config says. The dense route
 divides the ``compute_dtype`` scores by sqrt(dh) in that type and adds
 ``(1 - mask) * -10000``; the flash route (``ops/flash_attention_kernel.py``,
 the CUDA kernel K3 on the card) uses segment ids and a float32 scale, so pad
@@ -402,6 +405,89 @@ class LxmertForVQA(nn.Module):
         return self.answer_head(pooled)
 
 
+class _HeadTransform(nn.Module):
+    """dense, GELU, LayerNorm, float32 (HF's ``LxmertPredictionHeadTransform``)."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(F.gelu(self.dense(x.float()), approximate="none"))
+
+
+class MLMHead(nn.Module):
+    """The BERT LM head over the language stream: transform, then decode to
+    the vocabulary, float32. Untied from the word embeddings, as in the
+    JAX package; HF keeps the decoder's bias at ``cls.predictions.bias``."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.transform = _HeadTransform(cfg)
+        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def forward(self, lang: torch.Tensor) -> torch.Tensor:
+        return F.linear(self.transform(lang), self.decoder.weight, self.bias)
+
+
+class VisualHead(nn.Module):
+    """The visual pretraining heads over the visual stream: transform, then
+    object logits, attribute logits and the regressed feature, float32."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.transform = _HeadTransform(cfg)
+        self.decoder_dict = nn.ModuleDict({
+            "obj": nn.Linear(h, cfg.num_objects),
+            "attr": nn.Linear(h, cfg.num_attrs),
+            "feat": nn.Linear(h, cfg.visual_feat_dim),
+        })
+
+    def forward(self, visn: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        x = self.transform(visn)
+        return tuple(self.decoder_dict[k](x) for k in ("obj", "attr", "feat"))
+
+
+class _PretrainingHeads(nn.Module):
+    """HF's ``cls``: the LM head and the matched (sequence relationship) head."""
+
+    def __init__(self, cfg: LxmertConfig):
+        super().__init__()
+        self.predictions = MLMHead(cfg)
+        self.seq_relationship = nn.Linear(cfg.hidden_size, 2)
+
+
+class LxmertForPretraining(nn.Module):
+    """The encoder and every pretraining head. Returns a dict of float32
+    tensors: ``lang``, ``visn``, ``pooled``, ``mlm_logits``,
+    ``matched_logits``, ``obj_logits``, ``attr_logits``, ``feat_pred`` and
+    ``qa_logits``; which losses apply is the train config's task toggles."""
+
+    def __init__(self, cfg: LxmertConfig = LxmertConfig()):
+        super().__init__()
+        self.cfg = cfg
+        self.lxmert = Lxmert(cfg)
+        self.cls = _PretrainingHeads(cfg)
+        self.obj_predict_head = VisualHead(cfg)
+        self.answer_head = AnswerHead(cfg)
+
+    def forward(self, input_ids, visual_feats, visual_pos, attention_mask=None, visual_mask=None,
+                token_type_ids=None):
+        lang, visn, pooled = self.lxmert(input_ids, visual_feats, visual_pos, attention_mask, visual_mask,
+                                         token_type_ids)
+        obj, attr, feat = self.obj_predict_head(visn)
+        return {
+            "lang": lang, "visn": visn, "pooled": pooled,
+            "mlm_logits": self.cls.predictions(lang),
+            "matched_logits": self.cls.seq_relationship(pooled),
+            "obj_logits": obj, "attr_logits": attr, "feat_pred": feat,
+            "qa_logits": self.answer_head(pooled),
+        }
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -100) -> torch.Tensor:
     """Cross entropy averaged over the positions whose label is not
     ``ignore_id``, over the whole batch; 0 (not NaN) when none is. Float32
@@ -422,6 +508,56 @@ def vqa_soft_loss(logits: torch.Tensor, target_scores: torch.Tensor) -> torch.Te
     return per.mean() * x.shape[-1]
 
 
+def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -100) -> torch.Tensor:
+    """Cross entropy over the positions whose ``masked_labels`` are not
+    ``ignore_id`` (``processing.lang.masked_language_modeling`` writes them)."""
+    return masked_cross_entropy(logits, labels, ignore_id)
+
+
+def matched_loss(logits: torch.Tensor, is_matched: torch.Tensor) -> torch.Tensor:
+    """Cross-modality matching cross entropy over (N, 2) logits, float32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, is_matched.long()[:, None]).mean()
+
+
+def visual_feat_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Squared error of the regressed region features, summed over the
+    feature and averaged over the masked regions (``mask`` (N, V), 1 = was
+    masked; at least 1 in the denominator)."""
+    err = ((pred.float() - target) ** 2).sum(-1)
+    return (err * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def visual_label_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Cross entropy of masked regions' object or attribute labels,
+    averaged over the masked regions."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def resize_num_qa_labels(state_dict, num_answers: int, generator: torch.Generator):
+    """A state dict whose answer head's last layer
+    (``answer_head.logit_fc.3``) is resized to ``num_answers``: the rows
+    both sizes share are kept exactly, new rows are drawn normal x 0.02
+    from ``generator`` (on the CPU) and new biases are 0. Returns the
+    state dict itself when the size already matches; raises ``KeyError``
+    when it has no answer head."""
+    wkey, bkey = "answer_head.logit_fc.3.weight", "answer_head.logit_fc.3.bias"
+    if wkey not in state_dict:
+        raise KeyError("state dict has no answer_head.logit_fc.3")
+    weight, bias = state_dict[wkey], state_dict[bkey]
+    old_n, in_dim = weight.shape
+    if old_n == num_answers:
+        return state_dict
+    keep = min(old_n, num_answers)
+    new_weight = (torch.randn((num_answers, in_dim), generator=generator) * 0.02).to(weight.dtype)
+    new_weight[:keep] = weight[:keep].cpu()
+    new_bias = torch.zeros((num_answers,), dtype=bias.dtype)
+    new_bias[:keep] = bias[:keep].cpu()
+    return {**state_dict, wkey: new_weight.to(weight.device), bkey: new_bias.to(bias.device)}
+
+
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: normal(0, initializer_range) for every
     projection and embedding table, zero biases, unit LayerNorms (the flax
@@ -437,5 +573,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                     mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, MLMHead):
                 mod.bias.zero_()
     return model

@@ -1,8 +1,8 @@
-"""Inference compositions of the port: composed VQA and OCR-document token
-labelling.
+"""Inference compositions of the port: composed VQA, OCR-document token
+labelling and document span QA.
 
-Counterpart of ``vltk_tpu/predict.py:VQAPredictor`` and
-``DocTokenClassifier`` and the helpers they use.
+Counterpart of ``vltk_tpu/predict.py:VQAPredictor``, ``DocTokenClassifier``
+and ``DocSpanQA`` and the helpers they use.
 
 ``VQAPredictor``: images + questions -> ranked answers. Each bucket of
 ``batch_size`` (image, question) pairs runs preprocess -> FRCNN -> box
@@ -17,6 +17,13 @@ the OCR chain (``processing/visn.py`` ``AuxTokenize`` + ``OCRBoxFixed``) and
 ``batch_size`` buckets padded to ``max_seq_length``, so every forward has
 one shape; at ``max_seq_length >= 1024`` on the card every self-attention
 runs the flash kernel K3.
+
+``DocSpanQA``: a document and a question -> the answer span, read back as
+words. One LayoutLM stream of ``[question sub-tokens | OCR sub-tokens]``
+(the layout ``experiments/docvqa_span.py`` trains on), so the question's
+pad sits in the middle of the stream; at ``question_len + doc_len >= 1024``
+on the card every self-attention runs K3 on that mask. The span decode
+(``_best_span``) is host numpy over the float32 log-probabilities.
 """
 
 from __future__ import annotations
@@ -120,6 +127,25 @@ def _load_by_name(make, sd: Mapping[str, torch.Tensor], rename, required: str, p
     return out
 
 
+def _layoutlm_params(make, checkpoint: str, head: str, init_weights) -> Dict[str, torch.Tensor]:
+    """An HF LayoutLM(-For...) state dict file -> ``make()``'s state dict:
+    the encoder by name (the pooler and the ``position_ids`` buffer
+    dropped), every encoder weight required (the C.4 rule); the task head
+    ``head`` loaded when the file has it, else seeded (``init_weights``,
+    seed 0)."""
+    sd = read_state_dict(checkpoint)
+    root = "layoutlm." if any(k.startswith("layoutlm.") for k in sd) else ""
+
+    def rename(key: str) -> str:
+        name = key[len(root):] if root and key.startswith(root) else key
+        return "layoutlm." + name if name.startswith(("embeddings.", "encoder.")) else name
+
+    params = _load_by_name(make, sd, rename, "layoutlm.", checkpoint, "encoder")
+    if not all(f"{head}.{leaf}" in params for leaf in ("weight", "bias")):
+        params = {**init_weights(make(), seed=0).state_dict(), **params}
+    return params
+
+
 def _doc_config(config, num_labels: int):
     """LayoutLM-base in bf16 unless given, its head sized to the labels."""
     from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
@@ -216,18 +242,7 @@ class DocTokenClassifier:
         from vltk_tpu_torch.models.layoutlm import LayoutLMForTokenClassification, init_weights
 
         cfg = _doc_config(kwargs.get("config"), len(_load_answer_list(labels)))
-        make = lambda: LayoutLMForTokenClassification(cfg)  # noqa: E731
-        sd = read_state_dict(checkpoint)
-        root = "layoutlm." if any(k.startswith("layoutlm.") for k in sd) else ""
-
-        def rename(key: str) -> str:
-            name = key[len(root):] if root and key.startswith(root) else key
-            return "layoutlm." + name if name.startswith(("embeddings.", "encoder.")) else name
-
-        params = _load_by_name(make, sd, rename, "layoutlm.", checkpoint, "encoder")
-        if not all(k in params for k in ("classifier.weight", "classifier.bias")):
-            seeded = init_weights(make(), seed=0).state_dict()
-            params = {**seeded, **params}
+        params = _layoutlm_params(lambda: LayoutLMForTokenClassification(cfg), checkpoint, "classifier", init_weights)
         return cls(labels, params=params, **kwargs)
 
     def export_bundle(self, path: str, **kwargs) -> str:
@@ -282,6 +297,201 @@ class DocTokenClassifier:
                     lab = int(np.argmax(p))
                     per_word.append({"word": word, "label": self.labels[lab], "score": float(p[lab])})
                 results.append(per_word)
+        return results
+
+
+def _best_span(start_scores: np.ndarray, end_scores: np.ndarray, lo: int, hi: int, max_span: int = 32):
+    """The highest-scoring pair start <= end < start + max_span within
+    [lo, hi): (start, end, start + end score). Host numpy, as in the JAX
+    package: the same pair matrix and ``np.argmax``, so a tie goes to the
+    first pair in row-major order."""
+    s = np.asarray(start_scores[lo:hi], np.float32)
+    e = np.asarray(end_scores[lo:hi], np.float32)
+    n = s.shape[0]
+    if n == 0:
+        return lo, lo, 0.0
+    pair = s[:, None] + e[None, :]
+    keep = np.triu(np.ones((n, n), bool)) & ~np.triu(np.ones((n, n), bool), k=max_span)
+    pair = np.where(keep, pair, -np.inf)
+    idx = int(np.argmax(pair))
+    si, ei = divmod(idx, n)
+    return lo + si, lo + ei, float(pair[si, ei])
+
+
+def _subtoken_word_index(tokenmap: np.ndarray, budget: int) -> np.ndarray:
+    """(budget,) int32: the word index of each sub-token position, -1 past
+    the real tokens, from AuxTokenize's per-word sub-token counts."""
+    counts = tokenmap[tokenmap > 0]
+    out = np.full((budget,), -1, np.int32)
+    pos = 0
+    for w, c in enumerate(counts):
+        for _ in range(int(c)):
+            if pos >= budget:
+                return out
+            out[pos] = w
+            pos += 1
+    return out
+
+
+def _span_config(config, seq: int):
+    """LayoutLM-base in bf16 unless given; its position table must cover
+    ``seq``."""
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+
+    cfg = config or LayoutLMConfig(dtype="bfloat16")
+    if cfg.max_position_embeddings < seq:
+        raise ValueError(f"question_len + doc_len = {seq} exceeds the position table ({cfg.max_position_embeddings})")
+    return cfg
+
+
+class DocSpanQA:
+    """DocVQA extractive QA: document (words + boxes) + question -> the
+    answer span, read back as words.
+
+    Args:
+      params: a state dict of ``LayoutLMForSpanQA`` (HF names, e.g. from
+        ``jax_layoutlm_to_torch``); ``None`` = seeded random weights.
+      config: ``LayoutLMConfig`` override (default LayoutLM-base, bf16);
+        ``max_position_embeddings`` must cover ``question_len + doc_len``.
+      batch_size: static request bucket; inputs are padded up to it.
+      question_len / doc_len: static sub-token budgets of the question
+        (the tokenizer's ``max_seq_length`` must equal it) and of the
+        document (truncated; its last slot is [SEP]).
+      max_span: the longest answer, in sub-tokens.
+      device: CUDA unless ``"cpu"`` is asked for.
+    """
+
+    def __init__(
+        self,
+        *,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
+        config=None,
+        batch_size: int = 4,
+        question_len: int = 20,
+        doc_len: int = 128,
+        max_span: int = 32,
+        tokenizer=None,
+        device: DeviceLike = None,
+    ):
+        from vltk_tpu_torch.data.tokenizer import Tokenizer
+        from vltk_tpu_torch.models.layoutlm import LayoutLMForSpanQA, init_weights
+        from vltk_tpu_torch.processing.visn import AuxTokenize, OCRBoxFixed
+
+        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.q_len = int(question_len)
+        self.doc_len = int(doc_len)
+        self.max_span = int(max_span)
+        cfg = _span_config(config, self.q_len + self.doc_len)
+        self.config = cfg
+        self.tokenizer = tokenizer or Tokenizer(name="NativeWordPiece", max_seq_length=self.q_len)
+        if self.tokenizer.vocab_size > cfg.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab ({self.tokenizer.vocab_size}) exceeds "
+                f"LayoutLMConfig.vocab_size ({cfg.vocab_size})"
+            )
+        if self.tokenizer.max_seq_length != self.q_len:
+            raise ValueError(
+                f"tokenizer.max_seq_length ({self.tokenizer.max_seq_length}) must equal question_len ({self.q_len})"
+            )
+        self._aux = AuxTokenize(tokenizer=self.tokenizer, max_visual_seq_length=self.doc_len)
+        self._boxfix = OCRBoxFixed(max_visual_seq_length=self.doc_len)
+        self.model = _materialise(lambda: LayoutLMForSpanQA(cfg), params, init_weights, 0, self.device)
+
+    @classmethod
+    def from_pretrained(cls, checkpoint: str, **kwargs) -> "DocSpanQA":
+        """HF LayoutLM(-ForQuestionAnswering) state dict file -> predictor.
+        The encoder loads by name (the pooler and the ``position_ids``
+        buffer are dropped), and every encoder weight must be there: a
+        checkpoint that lacks one raises ``KeyError`` naming the missing
+        keys, as the JAX predictor fails on a missing parameter. A
+        ``qa_outputs.*`` span head is loaded too, else it stays random
+        (fine-tune before trusting outputs)."""
+        from vltk_tpu_torch.models.layoutlm import LayoutLMForSpanQA, init_weights
+
+        seq = int(kwargs.get("question_len", 20)) + int(kwargs.get("doc_len", 128))
+        cfg = _span_config(kwargs.get("config"), seq)
+        params = _layoutlm_params(lambda: LayoutLMForSpanQA(cfg), checkpoint, "qa_outputs", init_weights)
+        return cls(params=params, **kwargs)
+
+    def export_bundle(self, path: str, **kwargs) -> str:
+        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+
+    @classmethod
+    def from_bundle(cls, path: str) -> "DocSpanQA":
+        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+
+    @torch.inference_mode()
+    def step(self, ids: torch.Tensor, boxes: torch.Tensor, mask: torch.Tensor):
+        """One forward of the bucket on the device: (B, L) ids, (B, L, 4)
+        boxes, (B, L) mask -> float32 log-softmax of the start and end
+        logits, (B, L) each."""
+        start, end = self.model(ids, boxes, mask)
+        return torch.log_softmax(start.float(), dim=-1), torch.log_softmax(end.float(), dim=-1)
+
+    def prepare(self, documents: Sequence[Dict[str, Any]], questions: Sequence[str]):
+        """Host prep of every pair: (ids, boxes, mask) of the concatenated
+        stream (n, question_len + doc_len), the OCR mask, and per pair the
+        sub-token -> word map and the words."""
+        n = len(documents)
+        budget = self.doc_len - 1  # AuxTokenize keeps the last slot for [SEP]
+        entries = [_prep_ocr_entry(self._aux, self._boxfix, doc) for doc in documents]
+        word_maps = [_subtoken_word_index(np.asarray(e[V.tokenmap]), budget) for e in entries]
+        word_lists = [[str(w) for w in doc["words"]] for doc in documents]
+
+        q_enc = self.tokenizer.encode_batch([str(q) for q in questions])
+        q_ids = np.stack([e[V.input_ids] for e in q_enc]).astype(np.int64)
+        q_mask = np.stack([e[V.text_attention_mask] for e in q_enc]).astype(np.int32)
+        d_ids = np.stack([e[V.text] for e in entries]).astype(np.int64)
+        d_boxes = np.stack([e[V.tokenbox] for e in entries])
+        d_mask = np.stack([e[V.visual_attention_mask] for e in entries]).astype(np.int32)
+
+        ids = np.concatenate([q_ids, d_ids], axis=1)
+        q_boxes = np.zeros((n, self.q_len, 4), np.float32)
+        q_boxes[..., 2:] = 1000.0  # the full-page box, the training convention
+        boxes = np.concatenate([q_boxes, d_boxes], axis=1).astype(np.int32).astype(np.int64)
+        mask = np.concatenate([q_mask, d_mask], axis=1).astype(np.float32)
+        return (ids, boxes, mask), d_mask, word_maps, word_lists
+
+    def __call__(self, documents: Sequence[Dict[str, Any]], questions: Sequence[str]) -> List[Dict[str, Any]]:
+        """Each document as in :class:`DocTokenClassifier`, one question
+        each. Returns per pair: ``answer`` (the span's words joined),
+        ``start_word`` / ``end_word`` (word indices into the input) and
+        ``score`` (the joint log-probability of the span's ends)."""
+        if len(documents) != len(questions):
+            raise ValueError(f"{len(documents)} documents vs {len(questions)} questions")
+        if not documents:
+            return []
+        (ids, boxes, mask), d_mask, word_maps, word_lists = self.prepare(documents, questions)
+        budget = self.doc_len - 1
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(_pad_to(a, self.batch_size)).to(self.device)
+
+        results: List[Dict[str, Any]] = []
+        n = len(documents)
+        for lo in range(0, n, self.batch_size):
+            hi = min(lo + self.batch_size, n)
+            s_lp, e_lp = self.step(put(ids[lo:hi]), put(boxes[lo:hi]), put(mask[lo:hi]))
+            s_lp, e_lp = s_lp.cpu().numpy(), e_lp.cpu().numpy()
+            for j in range(hi - lo):
+                k = lo + j
+                n_real = int(d_mask[k].sum())
+                region_hi = self.q_len + max(min(n_real, budget), 1)
+                si, ei, score = _best_span(s_lp[j], e_lp[j], self.q_len, region_hi, self.max_span)
+                sw = int(word_maps[k][si - self.q_len])
+                ew = int(word_maps[k][ei - self.q_len])
+                if sw < 0:
+                    sw = ew = 0
+                elif ew < sw:
+                    ew = sw
+                words = word_lists[k]
+                results.append({
+                    "answer": " ".join(words[sw:ew + 1]),
+                    "start_word": sw,
+                    "end_word": ew,
+                    "score": score,
+                })
         return results
 
 

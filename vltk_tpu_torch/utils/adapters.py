@@ -1,5 +1,6 @@
-"""List and box helpers of the OCR chain: copies of ``truncate_and_pad_list``
-and ``rescale_box`` from ``vltk_tpu/utils/adapters.py``."""
+"""List and box helpers of the OCR chain and the LXMERT experiments: copies
+of ``truncate_and_pad_list``, ``rescale_box`` and ``normalize_boxes_xyxy``
+from ``vltk_tpu/utils/adapters.py``."""
 
 from __future__ import annotations
 
@@ -25,3 +26,12 @@ def rescale_box(boxes: np.ndarray, wh_scale: Sequence[float]) -> np.ndarray:
     boxes[..., 1] *= sh
     boxes[..., 3] *= sh
     return boxes
+
+
+def normalize_boxes_xyxy(boxes, rawsize_hw) -> np.ndarray:
+    """Raw-pixel xyxy boxes (N, D, 4) -> [0, 1] by each row's raw extent
+    ``rawsize_hw`` (N, 2) as (h, w), at least 1 pixel: the LXMERT position
+    convention."""
+    hw = np.asarray(rawsize_hw, np.float32)
+    wh = np.maximum(hw[:, [1, 0, 1, 0]], 1.0)
+    return np.clip(np.asarray(boxes, np.float32) / wh[:, None, :], 0.0, 1.0)

@@ -1,8 +1,9 @@
 """Entry keys and packaged data paths of the port.
 
 A copy of the keys of ``vltk_tpu/vars.py`` that the OCR processing chain,
-the predictors, the FRCNN collate and the OCR experiment read and write (the port imports nothing of the
-JAX package), and the path of the port's own copy of the BERT vocabulary.
+the predictors, the FRCNN collate and the experiments read and write (the
+port imports nothing of the JAX package), and the path of the port's own
+copy of the BERT vocabulary.
 """
 
 from __future__ import annotations
@@ -28,6 +29,10 @@ imgid = "imgid"
 input_ids = "input_ids"
 type_ids = "type_ids"
 text_attention_mask = "text_attention_mask"
+boxes = "boxes"
+features = "features"
+scores = "scores"
+boxes_mask = "boxes_mask"
 
 # text-side keys of a vision dataset renamed with a "v" prefix when joined
 # with a vision-language dataset by image id (the ones the port reads)
