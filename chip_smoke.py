@@ -146,8 +146,31 @@ package):
    path); times each step (samples/s, peak memory);
 22. one f32 pretraining step's losses of a small LXMERT on the card and on
    the CPU, every term within 1e-5;
-23. prints the ``kernels`` JSON line (each kernel also with its launches on
-   the two span paths), then the device line last.
+23. the int8 presets, after the bf16 paths they mirror: extraction with
+   ``setup(preset="production")`` (int8_300: every bottleneck conv on the
+   int8 path) on the parity run's tamed weights, B=8 and B=16: the first
+   step calibrates on its first 4 images (one unchunked forward: K1 once,
+   K2 twice) and the scales are finite, positive and reused; K1 and K2 as
+   parity_300's; images/s, step ms and peak beside parity_300's of this
+   run, box agreement @IoU 0.5 and matched feature cosine against
+   parity_300 (reported, not gated: tamed random weights); then
+   ``tools.probe_int8`` at 2400 RoIs (bf16 vs int8 per res5 conv, the
+   int8 split into quantize / product / rescale) and the space-to-depth
+   stem against the plain stem (f32 to 1e-5 of the output's scale, both
+   timed in bf16 at B=8); ``VQAPredictor`` with int8_300 and LXMERT-base
+   int8 (both scale sets recorded on the first request, then three
+   requests reuse them: K1 3, K2 6, K3 0; the padded bucket equal to the
+   full one; samples/s beside bf16's); ``DocTokenClassifier`` and
+   ``DocSpanQA`` at LayoutLM-base int8, seq 1024, B=32 (K3 12 a forward,
+   documents/s and questions/s beside bf16's, labels against bf16's
+   reported); tiny f32 int8 FRCNN, LXMERT and LayoutLM card vs CPU with
+   the same scales (1e-4, or 1e-2 of the output's scale where an int8
+   rounding flip reached it); last, the int8 products (``torch._int_mm``
+   behind im2col) against the exact route on the card, bitwise, at every
+   conv geometry and (M, K, N) those paths ran, an M <= 16 product and a
+   NaN activation (0, as on the CPU);
+24. prints the ``kernels`` JSON line (each kernel also with its launches on
+   the two span paths and the four int8 paths), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -2324,6 +2347,430 @@ def phase_small_pretrain(dev) -> None:
     check(err <= 1e-5, "small LXMERT pretraining: card != CPU")
 
 
+# ------------------------------------------------------ the int8 presets
+
+INT8_TOL = 1e-4  # card vs CPU in f32 where no int8 rounding flip reached the output
+INT8_FLIP = 1e-2  # one int8 step carried on, of the output's largest magnitude
+
+
+class Int8Shapes:
+    """Records the geometry of every int8 product the int8 layers run
+    while ``recording()`` is open: each conv's map and kernel shapes,
+    stride, padding, dilation and groups, and each dense product's (M, K,
+    N). Wraps the names the layers call (``ops.int8.int8_conv2d`` and
+    ``int8_matmul``); the products themselves are untouched."""
+
+    def __init__(self):
+        self.convs, self.dense = set(), set()
+
+    def recording(self):
+        import contextlib
+
+        from vltk_tpu_torch.ops import int8 as q8
+
+        @contextlib.contextmanager
+        def ctx():
+            conv, mm = q8.int8_conv2d, q8.int8_matmul
+
+            def conv_rec(x_q, w_q, stride=1, padding=0, dilation=1, groups=1, **kw):
+                self.convs.add((tuple(x_q.shape), tuple(w_q.shape), stride, padding, dilation, groups))
+                return conv(x_q, w_q, stride, padding, dilation, groups, **kw)
+
+            def mm_rec(a, b):
+                self.dense.add((a.shape[0], a.shape[1], b.shape[1]))
+                return mm(a, b)
+
+            q8.int8_conv2d, q8.int8_matmul = conv_rec, mm_rec
+            try:
+                yield
+            finally:
+                q8.int8_conv2d, q8.int8_matmul = conv, mm
+
+        return ctx()
+
+
+def int8_agreement(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Card vs CPU on an int8 model in f32: within INT8_TOL but where a
+    float difference moved an activation across an int8 rounding boundary
+    (at most a third of the elements, within INT8_FLIP of the output's
+    scale). Returns the largest difference."""
+    got, want = got.float().cpu(), want.float().cpu()
+    off = ~torch.isclose(got, want, rtol=INT8_TOL, atol=INT8_TOL)
+    err = float((got - want).abs().max())
+    check(float(off.float().mean()) <= 1 / 3 and err <= INT8_FLIP * float(want.abs().max()),
+          f"{what}: card != CPU ({int(off.sum())} of {off.numel()} off, max {err:.3e})")
+    return err
+
+
+def box_agreement(ref: torch.Tensor, got: torch.Tensor):
+    """bench.py's preset-drift measures of a packed (B, 36, 2054) output
+    against the parity one: the share of parity boxes matched by a box at
+    IoU >= 0.5, and the mean cosine of the matched features."""
+    ref, got = ref.float().cpu().numpy(), got.float().cpu().numpy()
+    dim = ref.shape[-1] - 6
+    ious, cos = [], []
+    for b in range(ref.shape[0]):
+        rb, gb = ref[b, :, dim:dim + 4], got[b, :, dim:dim + 4]
+        rmask, gmask = ref[b, :, -2] >= 0, got[b, :, -2] >= 0
+        for i in np.nonzero(rmask)[0]:
+            a = rb[i]
+            lt, rt = np.maximum(a[None, :2], gb[:, :2]), np.minimum(a[None, 2:], gb[:, 2:])
+            inter = np.prod(np.clip(rt - lt, 0, None), axis=1)
+            union = np.prod(np.clip(a[2:] - a[:2], 0, None)) + np.prod(np.clip(gb[:, 2:] - gb[:, :2], 0, None), 1) - inter
+            iou = np.where(gmask, inter / (union + 1e-9), -1.0)
+            j = int(np.argmax(iou))
+            ious.append(max(iou[j], 0.0))
+            if iou[j] >= 0.5:
+                fa, fb = ref[b, i, :dim], got[b, j, :dim]
+                cos.append(float(fa @ fb / (np.linalg.norm(fa) * np.linalg.norm(fb) + 1e-9)))
+    return float(np.mean(np.array(ious) >= 0.5)), float(np.mean(cos)) if cos else 0.0
+
+
+def check_int8_scales(scales, model, what: str) -> None:
+    from vltk_tpu_torch.models.layers import int8_layers
+
+    check(scales is not None and set(scales) == set(int8_layers(model)),
+          f"{what}: scales not recorded for every int8 layer")
+    vals = torch.stack([v.float().cpu() for v in scales.values()])
+    check(bool(torch.isfinite(vals).all() and (vals >= 0).all() and (vals > 0).float().mean() > 0.5),
+          f"{what}: scales not finite and positive: {vals.min()} .. {vals.max()}")
+
+
+def scales_reused(scales, model) -> bool:
+    """The model's int8 layers still hold the very tensors of ``scales``."""
+    from vltk_tpu_torch.models.layers import int8_scales
+
+    now = int8_scales(model)
+    return set(now) == set(scales) and all(now[k] is v for k, v in scales.items())
+
+
+def phase_int8_extraction(dev, parity, parity_runs, wrappers, smi: str, shapes: Int8Shapes) -> dict:
+    """``setup(preset="production")`` (int8_300) at full width on the parity
+    canvas, on the parity bundle's tamed weights: the first batch
+    calibrates (its first 4 images, unchunked) before the step runs; K1 and
+    K2 launched on the vector path; the scales finite, positive and reused;
+    images/s, step ms, peak beside parity_300's and the agreement with
+    parity_300's boxes and features (reported, not gated)."""
+    from vltk_tpu_torch.adapters.frcnn import setup
+    from vltk_tpu_torch.models.frcnn import FRCNNConfig
+
+    bundle, info = setup(preset="production", batch_size=8, device=dev, resized_canvas=CANVAS, short=800.0,
+                         maximum=1333.0)
+    cfg = bundle["cfg"]
+    check(cfg == FRCNNConfig.named_preset("int8_300") and cfg.int8 and info["preset"] == "production",
+          f"production is not int8_300: {cfg}")
+    bundle["model"].load_state_dict(parity["model"].state_dict())  # the parity run's tamed weights
+    raw, sizes = step_images(dev, 8)
+    for w in wrappers.values():
+        w.launches = 0
+    with shapes.recording():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = bundle["step"](raw, sizes)  # calibrates on raw[:4], then steps
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        calib = {name: w.launches for name, w in wrappers.items()}
+        scales = bundle["int8_scales"]
+        check_int8_scales(scales, bundle["model"], "int8_300 extraction")
+        # the calibration (one unchunked forward of 4 images) and the step
+        check(calib["roi_pool"] == 2 and calib["nms"] == 4, f"first int8 step's launches {calib}")
+        runs = {}
+        for batch, steps in ((8, 5), (16, 3)):
+            torch.cuda.reset_peak_memory_stats()
+            runs[batch] = r = run_extraction(bundle, batch, steps, wrappers)
+            check(bundle["int8_scales"] is scales and scales_reused(scales, bundle["model"]),
+                  f"int8 scales were not reused at B={batch}")
+            p = parity_runs[batch]
+            print(
+                f"extraction int8_300 (production) B={batch} canvas {CANVAS[0]}x{CANVAS[1]}: "
+                f"{r['images_per_s']:.2f} images/s ({r['step_ms']:.2f} ms/step), peak {r['peak_mem_gb']:.2f} GB; "
+                f"parity_300 in this run {p['images_per_s']:.2f} images/s ({p['step_ms']:.2f} ms/step), "
+                f"peak {p['peak_mem_gb']:.2f} GB; launches {r['launches']} over {steps + 1} steps on {smi}"
+            )
+    with torch.inference_mode():
+        ref = parity["step"](raw, sizes)
+        got = bundle["step"](raw, sizes)
+    check(torch.equal(got, first), "the calibrated first step and a later one differ on the same batch")
+    agree, cosine = box_agreement(ref, got)
+    print(f"int8_300 vs parity_300 on the B=8 batch (tamed random weights, reported only): box agreement "
+          f"@IoU0.5 {agree:.4f}, mean matched feature cosine {cosine:.6f}; first step with calibration "
+          f"{first_s:.3f} s; {len(scales)} int8 layers calibrated")
+    return {"runs": runs, "calibration_launches": calib, "box_agreement": agree, "feature_cosine": cosine,
+            "first_step_s": first_s, "layers": len(scales)}
+
+
+def phase_int8_vqa(dev, wrappers, smi: str, bf16_timed: dict, shapes: Int8Shapes) -> dict:
+    """VQAPredictor with the int8_300 FRCNN and LXMERT-base int8 (the JAX
+    bench's composed row): the first request records both scale sets, then
+    three requests reuse them with K1 3, K2 6, K3 0 launches; the padded
+    bucket's real rows equal the full bucket's; samples/s beside bf16's."""
+    from vltk_tpu_torch.trace import build_vqa
+
+    pred = build_vqa(8, dev, int8=True)
+    fc, lc = pred.frcnn_config, pred.lxmert_config
+    check(fc.int8 and lc.int8 and (fc.post_nms_topk, lc.l_layers, lc.hidden_size, lc.dtype) == (300, 9, 768, "bfloat16"),
+          f"int8 VQA configs {fc} {lc}")
+    requests = vqa_requests(np.random.default_rng(0))
+    check(pred.frcnn_scales is None and pred.lxmert_scales is None, "int8 VQA scales before the first request")
+    with shapes.recording():
+        pred(*requests[0])  # the first request: calibrates both models on its first 4 rows
+        fs, ls = pred.frcnn_scales, pred.lxmert_scales
+        check_int8_scales(fs, pred.frcnn, "int8 VQA FRCNN")
+        check_int8_scales(ls, pred.lxmert, "int8 VQA LXMERT")
+        for w in wrappers.values():
+            w.launches = 0
+        paths = wrappers["roi_pool"].path_launches
+        paths.update(dict.fromkeys(paths, 0))
+        answers = [pred(images, questions) for images, questions in requests]
+        torch.cuda.synchronize()
+        launches = {name: w.launches for name, w in wrappers.items()}
+        paths = dict(paths)
+    check(pred.frcnn_scales is fs and pred.lxmert_scales is ls and scales_reused(fs, pred.frcnn)
+          and scales_reused(ls, pred.lxmert), "int8 VQA scales were not reused")
+    check(launches["roi_pool"] == 3 and paths["scalar"] == 0 and launches["nms"] == 6,
+          f"int8 VQA launches {launches} ({paths}) over 3 buckets")
+    others = {k: v for k, v in launches.items() if k not in ("roi_pool", "nms")}
+    check(not any(others.values()), f"other kernels launched on the int8 VQA path: {others}")
+    for (images, _), results in zip(requests, answers):
+        check_vqa_results(images, results)
+    pad = differing(answers[2], answers[0][:5])
+    check(pad["boxes"] == 0 and pad["object_ids"] == 0 and pad["top1"] == 0 and pad["max_score_diff"] == 0.0,
+          f"int8 padded bucket's real rows differ from the full bucket's: {pad}")
+    timed = time_vqa_step(pred, dev, steps=5)
+    print(
+        f"VQA int8 (int8_300 + LXMERT-base int8) B=8: {timed['samples_per_s']:.2f} samples/s "
+        f"({timed['step_ms']:.3f} ms/step), FRCNN alone {timed['frcnn_ms']:.3f} ms, LXMERT by difference "
+        f"{timed['lxmert_ms_by_difference']:.3f} ms, peak {timed['step_peak_mem_gb']:.2f} GB; bf16 in this run "
+        f"{bf16_timed['samples_per_s']:.2f} samples/s ({bf16_timed['step_ms']:.3f} ms/step); launches {launches} "
+        f"over 3 buckets; padded bucket equal to the full one; on {smi}"
+    )
+    return {"launches": launches, "timed": timed, "padded_vs_full": pad, "layers": [len(fs), len(ls)]}
+
+
+def phase_int8_document(dev, wrappers, smi: str, doc_timed: dict, span_timed: dict, shapes: Int8Shapes) -> dict:
+    """DocTokenClassifier and DocSpanQA at LayoutLM-base int8, seq 1024 on
+    K3, B=32: the first request calibrates (its first 4 documents), a
+    second runs K3 12 times a forward; documents/s and questions/s beside
+    bf16's; the int8 and bf16 classifiers' labels compared (reported)."""
+    from vltk_tpu_torch import vars as V
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.predict import DocSpanQA, DocTokenClassifier
+    from vltk_tpu_torch.trace import bench_documents
+
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ, int8=True)
+    clf = DocTokenClassifier(DOC_LABELS, config=cfg, batch_size=32, max_seq_length=DOC_SEQ, device=dev)
+    with open(V.VOCABPATH) as f:
+        vocab_words = [w for w in f.read().split("\n") if w.isascii() and w.isalpha()]
+    rng = np.random.default_rng(2)
+    docs = synthetic_documents(rng, vocab_words, ([c for counts in DOC_REQUESTS for c in counts] * 3)[:32])
+    out = {}
+    with shapes.recording():
+        clf(docs)  # calibrates on the first 4 documents of the bucket
+        check_int8_scales(clf.int8_scales, clf.model, "int8 LayoutLM")
+        scales = clf.int8_scales
+        for w in wrappers.values():
+            w.launches = 0
+        labelled = clf(docs)
+        launches = {name: w.launches for name, w in wrappers.items()}
+        check(launches["flash_attention"] == 12 and sum(launches.values()) == 12,
+              f"int8 document request: launches {launches} over one forward")
+        check(clf.int8_scales is scales and scales_reused(scales, clf.model), "int8 LayoutLM scales were not reused")
+        for doc, res in zip(docs, labelled):
+            check(len(res) == words_within_budget(clf.tokenizer, doc["words"]), "int8 document: words labelled")
+        ids, boxes, mask = bench_documents(32, cfg.vocab_size, dev)
+        docs_s, step_ms, peak = time_doc_step(clf, ids, boxes, mask, steps=5)
+        bf16 = DocTokenClassifier(DOC_LABELS, params=clf.model.state_dict(), config=LayoutLMConfig(
+            dtype="bfloat16", max_position_embeddings=DOC_SEQ), batch_size=32, max_seq_length=DOC_SEQ, device=dev,
+            tokenizer=clf.tokenizer)
+        with torch.inference_mode():
+            p8, pb = clf.step(ids, boxes, mask), bf16.step(ids, boxes, mask)
+        same = float((p8.argmax(-1) == pb.argmax(-1)).float().mean())
+        dprob = float((p8 - pb).abs().max())
+        del bf16
+        out["documents"] = {"launches": launches, "documents_per_s": docs_s, "step_ms": step_ms, "peak_mem_gb": peak,
+                            "label_agreement_vs_bf16": same, "max_dprob_vs_bf16": dprob}
+        b = doc_timed["auto"]
+        print(f"LayoutLM-base int8 doc step B=32 seq {DOC_SEQ} on K3: {docs_s:.2f} documents/s ({step_ms:.3f} ms/step),"
+              f" peak {peak:.2f} GB; bf16 in this run {b['documents_per_s']:.2f} documents/s ({b['step_ms']:.3f} "
+              f"ms/step); labels equal to bf16's {same:.4f}, max |dprob| {dprob:.3e} (reported); launches "
+              f"{launches} a request; on {smi}")
+        del clf
+        torch.cuda.empty_cache()
+
+        scfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=SPAN_Q + SPAN_DOC, int8=True)
+        qa = DocSpanQA(config=scfg, batch_size=SPAN_BATCH, question_len=SPAN_Q, doc_len=SPAN_DOC, device=dev)
+        pages = synthetic_documents(rng, vocab_words, rng.integers(200, 1500, SPAN_BATCH))
+        questions = span_questions(rng, vocab_words, SPAN_BATCH)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = qa(pages, questions)  # one request: calibration forward (4 rows), then the bucket
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        check(launches["flash_attention"] == 24 and sum(launches.values()) == 24,
+              f"int8 span request: launches {launches} (12 calibrating + 12 serving)")
+        check_span_answers(pages, results)
+        check_int8_scales(qa.int8_scales, qa.model, "int8 span QA")
+        (ids, boxes, mask), _, _, _ = qa.prepare(pages, questions)
+        put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        ids, boxes, mask = put(ids), put(boxes), put(mask)
+        qa.step(ids, boxes, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            s_lp, _ = qa.step(ids, boxes, mask)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / 5 * 1e3
+        check(bool(torch.isfinite(s_lp).all()), "int8 span step output is not finite")
+        out["span"] = {"launches": launches, "request_s": request_s, "questions_per_s": SPAN_BATCH * 1e3 / step_ms,
+                       "step_ms": step_ms, "request_questions_per_s": SPAN_BATCH / request_s}
+        b = span_timed["auto"]
+        print(f"DocSpanQA int8 B={SPAN_BATCH} seq {SPAN_Q + SPAN_DOC}: one request {request_s:.3f} s with calibration "
+              f"and host decode; step {step_ms:.3f} ms ({SPAN_BATCH * 1e3 / step_ms:.2f} questions/s); bf16 step in "
+              f"this run {b['step_ms']:.3f} ms ({b['questions_per_s']:.2f} questions/s); launches {launches}")
+        del qa
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_small_int8(dev) -> None:
+    """Tiny int8 FRCNN, LXMERT and LayoutLM in f32 on the card against the
+    CPU with the same (CPU-calibrated) scales: the int8 products are exact
+    on both, so only the float glue differs (TF32 off)."""
+    from vltk_tpu_torch.models import FRCNN, FRCNNConfig, init_weights
+    from vltk_tpu_torch.models import lxmert as PX
+    from vltk_tpu_torch.models.frcnn import calibrate_int8
+    from vltk_tpu_torch.models.layers import calibrate_int8_scales, load_int8_scales
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig, LayoutLMForTokenClassification
+
+    gen = torch.Generator().manual_seed(3)
+    rng = np.random.default_rng(3)
+    fcfg = FRCNNConfig(depth=50, stem_out_channels=8, res2_out_channels=16, width_per_group=4,
+                       rpn_hidden_channels=16, anchor_sizes=(16, 32), pre_nms_topk=64, post_nms_topk=16,
+                       num_classes=7, num_attrs=5, pooler_resolution=7, min_detections=4, max_detections=4, int8=True)
+    lcfg = PX.LxmertConfig(hidden_size=48, num_heads=2, intermediate_size=96, l_layers=2, x_layers=1, r_layers=1,
+                           max_position_embeddings=32, visual_feat_dim=128, num_answers=5, int8=True)
+    dcfg = LayoutLMConfig(vocab_size=1000, hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+                          max_position_embeddings=64, int8=True)
+    images = torch.rand(2, 64, 64, 3, generator=gen) * 100 - 50
+    sizes = torch.tensor([[64.0, 64.0], [48.0, 56.0]])
+    ids = torch.from_numpy(rng.integers(0, 1000, (3, 64)))
+    vis = (torch.from_numpy(rng.integers(0, 1000, (3, 12))), torch.randn(3, 6, 128, generator=gen),
+           torch.rand(3, 6, 4, generator=gen), torch.ones(3, 12), torch.ones(3, 6))
+    doc = (ids, torch.from_numpy(np.sort(rng.integers(0, 1000, (3, 64, 2, 2)), axis=2).reshape(3, 64, 4)),
+           torch.ones(3, 64))
+    cases = (
+        ("FRCNN", FRCNN(fcfg), lambda m: init_weights(m, seed=3),
+         lambda m: calibrate_int8(m, [(images, sizes)]), (images, sizes)),
+        ("LXMERT", PX.LxmertForVQA(lcfg), lambda m: PX.init_weights(m, seed=3),
+         lambda m: calibrate_int8_scales(m, [vis]), vis),
+        ("LayoutLM", LayoutLMForTokenClassification(dcfg), lambda m: PX.init_weights(m, seed=3),
+         lambda m: calibrate_int8_scales(m, [doc]), doc),
+    )
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, cpu, init, calibrate, inputs in cases:
+            cpu = init(cpu.eval())
+            scales = calibrate(cpu)
+            gpu = type(cpu)(cpu.cfg).eval()
+            gpu.load_state_dict(cpu.state_dict())
+            gpu.to(dev)
+            load_int8_scales(gpu, scales)
+            with torch.inference_mode():
+                want = cpu(*inputs)
+                got = gpu(*(x.to(dev) for x in inputs))
+            if name == "FRCNN":
+                for key in ("obj_ids", "attr_ids", "mask"):
+                    check(torch.equal(got[key].cpu(), want[key]), f"small int8 FRCNN {key}: card != CPU")
+                err = max(int8_agreement(got[k], want[k], f"small int8 FRCNN {k}")
+                          for k in ("boxes", "obj_probs", "roi_features"))
+            else:
+                err = int8_agreement(got, want, f"small int8 {name}")
+            print(f"small f32 int8 {name} card vs CPU, the same {len(scales)} scales: max_abs_err={err:.3e} "
+                  f"(1e-4, or 1e-2 of the output's scale where an int8 rounding flip reached it)")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_int8_products(dev, shapes: Int8Shapes) -> dict:
+    """The int8 products on the card (``torch._int_mm`` behind im2col)
+    against the exact route on the card, bitwise, at every conv geometry
+    and dense (M, K, N) the int8 paths above ran, with random int8
+    operands; also an M <= 16 product (padded rows), K and N off a multiple
+    of 8, and a NaN in an activation (quantized to 0 on the card as on the
+    CPU)."""
+    from vltk_tpu_torch.ops import int8 as q8
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=gen)
+
+    t0 = time.perf_counter()
+    for x_shape, w_shape, stride, padding, dilation, groups in sorted(shapes.convs):
+        x, w = rand(x_shape), rand(w_shape)
+        got = q8.int8_conv2d(x, w, stride, padding, dilation, groups)
+        want = q8.int8_conv2d(x, w, stride, padding, dilation, groups, matmul=q8.int8_matmul_exact)
+        check(torch.equal(got, want), f"int8 conv {x_shape} x {w_shape} s{stride} p{padding} d{dilation}: card != exact")
+        del x, w, got, want
+    dense = sorted(shapes.dense | {(8, 768, 768), (33, 12, 20)})
+    for m, k, n in dense:
+        a, b = rand((m, k)), rand((n, k)).t()
+        check(torch.equal(q8.int8_matmul(a, b), q8.int8_matmul_exact(a, b)), f"int8 product {(m, k, n)}: card != exact")
+    torch.cuda.synchronize()
+    x = torch.randn((4096, 768), device=dev, dtype=torch.bfloat16)
+    x[5, 7] = float("nan")
+    q_card, _ = q8.quantize_per_tensor(x, torch.tensor(3.0, device=dev))
+    q_cpu, _ = q8.quantize_per_tensor(x.cpu(), torch.tensor(3.0))
+    check(torch.equal(q_card.cpu(), q_cpu) and int(q_card[5, 7]) == 0, "int8 quantize on the card != CPU (NaN -> 0)")
+    secs = time.perf_counter() - t0
+    print(f"int8 products, card route (torch._int_mm) vs exact route on the card: {len(shapes.convs)} conv geometries "
+          f"and {len(dense)} dense (M, K, N) bitwise equal (M from {min(d[0] for d in dense)}); NaN -> 0 as on the "
+          f"CPU; {secs:.1f} s")
+    return {"convs": len(shapes.convs), "dense": len(dense), "seconds": secs}
+
+
+def phase_probe_int8_and_stem(dev, parity, smi: str) -> dict:
+    """``tools.probe_int8`` at roi_chunk RoIs (bf16 against int8 for each
+    res5 conv, int8 split into quantize / product / rescale), and the s2d
+    stem against the plain stem: f32 to 1e-5 of the output's scale (TF32
+    off), both timed in bf16 at B=8 on the parity canvas."""
+    from vltk_tpu_torch.models.layers import StemConvNorm
+    from vltk_tpu_torch.tools import probe_int8
+    from vltk_tpu_torch.tools.variants import queued_ms
+
+    probe = probe_int8.run(dev, rois=2400, reps=5)
+    check(all(r["int8_equals_exact"] for r in probe["convs"]), "probe_int8: card product != exact")
+    raw, sizes = step_images(dev, 8)
+    with torch.inference_mode():
+        pre = parity["pre_fn"](raw, sizes)
+        x = pre["img"].permute(0, 3, 1, 2)
+        sd = parity["model"].backbone.stem.conv1.state_dict()
+        stems = {}
+        for s2d in (False, True):
+            for dtype in (None, torch.bfloat16):
+                stem = StemConvNorm(3, 64, dtype=dtype, use_s2d=s2d).eval()
+                stem.load_state_dict(sd)
+                stems[s2d, dtype] = stem.to(dev)
+        saved = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            want, got = stems[False, None](x), stems[True, None](x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(err <= 1e-5 * scale, f"s2d stem != plain stem in f32: {err:.3e} of {scale:.3e}")
+        plain_ms = queued_ms(lambda: stems[False, torch.bfloat16](x), 10)
+        s2d_ms = queued_ms(lambda: stems[True, torch.bfloat16](x), 10)
+    print(f"stem at B=8 on {CANVAS[0]}x{CANVAS[1]}: s2d vs plain in f32 max_abs_err {err:.3e} (1e-5 of {scale:.3e}); "
+          f"bf16 plain {plain_ms:.3f} ms, s2d {s2d_ms:.3f} ms on {smi}")
+    return {"probe": probe, "stem": {"f32_max_abs_err": err, "plain_ms": plain_ms, "s2d_ms": s2d_ms}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2391,6 +2838,13 @@ def main() -> int:
     time_nms_on_step(next(e for e in entries if e["name"] == "nms_fixed"), nms_calls)
     del proposals, nms_calls
 
+    int8_shapes = Int8Shapes()  # every int8 product geometry of the int8 paths, checked at the end
+    int8_extraction = phase_int8_extraction(dev, bundle, runs, KERNEL_WRAPPERS, smi, int8_shapes)
+    print("int8_extraction_run " + json.dumps(int8_extraction))
+    torch.cuda.empty_cache()
+    print("probe_int8_and_stem " + json.dumps(phase_probe_int8_and_stem(dev, bundle, smi)))
+    torch.cuda.empty_cache()
+
     phase_small_reference(dev)
     del bundle
     torch.cuda.empty_cache()
@@ -2400,6 +2854,9 @@ def main() -> int:
     k2["max_abs_err"] = max(k2["max_abs_err"], vqa["pad_rows"].pop("nms_max_abs_err"))
     print("vqa_run " + json.dumps(vqa))
     phase_small_vqa(dev)
+    torch.cuda.empty_cache()
+    vqa_int8 = phase_int8_vqa(dev, KERNEL_WRAPPERS, smi, vqa["timed"], int8_shapes)
+    print("int8_vqa_run " + json.dumps(vqa_int8))
     torch.cuda.empty_cache()
 
     doc = phase_document(dev, KERNEL_WRAPPERS, smi)
@@ -2414,12 +2871,16 @@ def main() -> int:
     span = phase_span(dev, KERNEL_WRAPPERS, smi)
     print("span_run " + json.dumps(span))
     phase_small_span(dev)
+    doc_int8 = phase_int8_document(dev, KERNEL_WRAPPERS, smi, doc["timed"], span["timed"], int8_shapes)
+    print("int8_document_run " + json.dumps(doc_int8))
+    phase_small_int8(dev)
     span_train = phase_span_training(dev, KERNEL_WRAPPERS, smi)
     print("span_training_run " + json.dumps(span_train))
     phase_small_span_train(dev)
     lxmert_train = phase_lxmert_train(dev, KERNEL_WRAPPERS, smi)
     print("lxmert_training_run " + json.dumps(lxmert_train))
     phase_small_pretrain(dev)
+    print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
     # run for K1 and K2, the document requests for K3, the training epoch
@@ -2440,6 +2901,12 @@ def main() -> int:
         key = {"nms_fixed": "nms"}.get(e["name"], e["name"])
         e["span_serving_launches"] = span["launches"].get(key, 0)
         e["span_training_launches"] = span_train["launches"].get(key, 0)
+        # the int8 paths: extraction B=8 (6 steps), VQA (3 buckets), one
+        # document and one span request
+        e["int8_extraction_launches"] = int8_extraction["runs"][8]["launches"].get(key, 0)
+        e["int8_vqa_launches"] = vqa_int8["launches"].get(key, 0)
+        e["int8_document_launches"] = doc_int8["documents"]["launches"].get(key, 0)
+        e["int8_span_launches"] = doc_int8["span"]["launches"].get(key, 0)
     print(json.dumps({"kernels": entries + ablation}))
     print(json.dumps({
         "ok": True,

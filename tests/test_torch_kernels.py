@@ -26,7 +26,10 @@ for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
 multiple of the kernel's chunk, and groups of RoIs; K6 and K7 on both of
 their paths (16-byte vectors and one element a thread), with NaN and -inf
-cells, and their per-path launch counts.
+cells, and their per-path launch counts; the int8 products of the int8
+presets (``torch._int_mm`` behind ``ops/int8.py``, not a kernel of this
+package) bitwise against the exact route, with M <= 16 and K, N off a
+multiple of 8, and the quantize's NaN -> 0 on the card.
 """
 
 import functools
@@ -1048,3 +1051,50 @@ def test_ablation_kernels_reject_what_they_do_not_take(dev):
         pool_cuda(feat[:, :13], boxes, "noBoth")  # H < 14
     with pytest.raises(ValueError):
         pool_cuda(feat, boxes[..., :3], "full")
+
+
+# ------------------------------------------------- int8 products (cuBLASLt)
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 8, 8), (1, 768, 768), (16, 64, 64), (160, 768, 3072), (4096, 3072, 768),
+                                   (301, 4, 12), (2400 * 196 // 64, 4608, 512)])
+def test_int8_matmul_card_route_is_exact(dev, m, k, n):
+    """``torch._int_mm`` (padded where its shape rules ask) against the exact
+    route on the card, bitwise; M <= 16 and K, N off a multiple of 8 are
+    padded; ``card_launches`` counts each product."""
+    from vltk_tpu_torch.ops import int8 as q8
+
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=gen)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=gen).t()  # column-major
+    before = q8.int8_matmul.card_launches
+    got = q8.int8_matmul(a, b)
+    assert q8.int8_matmul.card_launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, q8.int8_matmul_exact(a, b))
+    assert torch.equal(q8.int8_matmul(a, b.contiguous()), got)  # a row-major b too
+
+
+@pytest.mark.parametrize("geom", [(1, 1, 0, 1, 1), (1, 2, 0, 1, 1), (3, 1, 1, 1, 1), (3, 1, 2, 2, 1), (3, 2, 1, 1, 2)])
+def test_int8_conv2d_card_route_is_exact(dev, geom):
+    from vltk_tpu_torch.ops import int8 as q8
+
+    k, s, p, d, g = geom
+    gen = torch.Generator(device=dev).manual_seed(k * 10 + s)
+    x = torch.randint(-127, 128, (4, 14, 14, 64), dtype=torch.int8, device=dev, generator=gen)
+    w = torch.randint(-127, 128, (k, k, 64 // g, 32), dtype=torch.int8, device=dev, generator=gen)
+    got = q8.int8_conv2d(x, w, s, p, d, g)
+    assert torch.equal(got, q8.int8_conv2d(x, w, s, p, d, g, matmul=q8.int8_matmul_exact))
+
+
+def test_int8_quantize_nan_is_zero_on_the_card(dev):
+    from vltk_tpu_torch.ops import int8 as q8
+
+    x = torch.tensor([float("nan"), 200.0, -200.0, 2.5, 3.5, -2.5, float("inf")], device=dev)
+    x_q, _ = q8.quantize_per_tensor(x, torch.tensor(127.0, device=dev))
+    assert x_q.cpu().tolist() == [0, 127, -127, 2, 4, -2, 127]
+    big = torch.randn((4096, 768), device=dev, dtype=torch.bfloat16)
+    big[7, 9] = float("nan")
+    q_card, _ = q8.quantize_per_tensor(big, torch.tensor(3.0, device=dev))
+    q_cpu, _ = q8.quantize_per_tensor(big.cpu(), torch.tensor(3.0))
+    assert torch.equal(q_card.cpu(), q_cpu) and int(q_card[7, 9]) == 0

@@ -170,9 +170,10 @@ class TestModules:
         for port, ref in ((PX.LxmertConfig, JX.LxmertConfig), (LayoutLMConfig, JL.LayoutLMConfig)):
             assert {f.name for f in dataclasses.fields(port)} == {f.name for f in dataclasses.fields(ref)}
         assert dataclasses.asdict(LayoutLMConfig()) == dataclasses.asdict(JL.LayoutLMConfig())
-        for flag in ("int8", "remat", "activation_sharding", "seq_attention_sharding"):
+        for flag in ("remat", "activation_sharding", "seq_attention_sharding"):
             with pytest.raises(NotImplementedError):
                 LayoutLMConfig(**{flag: True})
+        assert LayoutLMConfig(int8=True).int8  # ported: the int8 serving preset
         with pytest.raises(NotImplementedError):
             LayoutLMConfig(moe_experts=4)
 

@@ -326,5 +326,7 @@ class TestGuards:
             pytest.skip("a CUDA device is present: the default device is valid")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pt_adapter.setup()
-        with pytest.raises(NotImplementedError):
-            pt_adapter.setup(device="cpu", preset="int8_300")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pt_adapter.setup(preset="int8_300")  # the int8 presets too: no CPU fallback
+        with pytest.raises(ValueError, match="unknown preset"):
+            pt_adapter.setup(device="cpu", preset="int4_300")

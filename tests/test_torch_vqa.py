@@ -244,11 +244,12 @@ class TestModules:
         np.testing.assert_allclose(got, want, rtol=1e-6)
 
     def test_unported_options_name_their_roadmap_item(self):
-        for flag, item in (("int8", "A.9"), ("remat", "A.13"), ("activation_sharding", "A.14")):
+        for flag, item in (("remat", "A.13"), ("activation_sharding", "A.14")):
             with pytest.raises(NotImplementedError, match=item):
                 PX.LxmertConfig(**{flag: True})
         with pytest.raises(NotImplementedError, match="A.11b"):
             PX.LxmertConfig(moe_experts=4)
+        assert PX.LxmertConfig(int8=True).int8  # A.9 is ported
 
 
 # --------------------------------------------------------------- converter
@@ -520,8 +521,8 @@ class TestGuards:
             VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, max_seq_length=S + 1))
         tok = Tokenizer(vocab_path=tiny_vocab, max_seq_length=S)
         assert VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, tokenizer=tok, max_seq_length=S)).tokenizer is tok
-        with pytest.raises(NotImplementedError, match="A.9"):
-            VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, frcnn_config=FRCNNConfig(**TINY_FRCNN, int8=True)))
+        int8 = VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, frcnn_config=FRCNNConfig(**TINY_FRCNN, int8=True)))
+        assert int8.frcnn_config.int8 and int8.frcnn_scales is None  # calibrates on its first request
         with pytest.raises(NotImplementedError, match="A.15"):
             port.export_bundle("vqa.bundle")
         with pytest.raises(NotImplementedError, match="A.15"):

@@ -8,14 +8,18 @@ returns (features, raw-coordinate boxes, object ids, attribute ids).
 onto the static raw canvas as uint8.
 
 Weights come from a local reference-named torch state dict
-(``checkpoint=``), or are seeded random without one. The arrow writer and
-the rest of the host data plane of the reference adapter are a later
-slice.
+(``checkpoint=``), or are seeded random without one. Every preset of
+``FRCNNConfig.PRESETS`` is taken; an int8 one (``production`` is
+``int8_300``) is calibrated once, on the first at most 4 images of the
+step's first batch, before that step runs, as the JAX adapter does, and
+its scales are kept in ``bundle["int8_scales"]``. The arrow writer and the
+rest of the host data plane of the reference adapter are a later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -23,11 +27,8 @@ import torch
 
 from vltk_tpu_torch import DeviceLike, read_state_dict, resolve_device
 from vltk_tpu_torch import vars as V
-from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
+from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, calibrate_int8, init_weights
 from vltk_tpu_torch.ops.image_ops import preprocess_batch
-
-#: presets whose recipe this slice has (the int8 ones come later)
-SUPPORTED_PRESETS = ("parity_300", "props_200", "props_150", "props_100", "fast")
 
 # static canvases and the shortest-edge targets of the reference adapter
 RAW_CANVAS: Tuple[int, int] = (1344, 1344)
@@ -41,10 +42,6 @@ def _resolve_config(preset, dtype, config_overrides) -> FRCNNConfig:
     explicit ``dtype`` wins over it, explicit overrides win over both.
     Keys that are no config field are left to the caller."""
     fields = {f.name for f in dataclasses.fields(FRCNNConfig)}
-    if preset is not None and preset not in SUPPORTED_PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} is not ported yet; supported: {SUPPORTED_PRESETS}"
-        )
     base = dataclasses.asdict(FRCNNConfig.named_preset(preset)) if preset else {}
     if dtype is not None:
         base["dtype"] = dtype
@@ -126,7 +123,8 @@ def setup(
     (``resized_canvas``, ``short``, ``maximum``, ``seed`` of the random
     weights). Returns (bundle, model_config); ``bundle["step"](raw_uint8,
     raw_sizes)`` maps (B, Hr, Wr, 3) raw pixels and (B, 2) raw sizes to the
-    packed (B, D, 2048+4+1+1) float32 output.
+    packed (B, D, 2048+4+1+1) float32 output. With an int8 preset the first
+    call calibrates (``bundle["int8_scales"]``, None until then).
     """
     dev = resolve_device(device)
     cfg = _resolve_config(preset, dtype, overrides)
@@ -147,8 +145,20 @@ def setup(
             short=short, maximum=maximum,
         )
 
+    lock = threading.Lock()
+
+    def calibrate_once(raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> None:
+        """int8: static scales from the first at most 4 images of the first
+        batch; concurrent first calls calibrate once."""
+        with lock:
+            if bundle["int8_scales"] is None:
+                pre = pre_fn(raw_images[:4], raw_sizes[:4])
+                bundle["int8_scales"] = calibrate_int8(model, [(pre["img"], pre["sizes"], pre["scales_yx"])])
+
     @torch.inference_mode()
     def forward(raw_images: torch.Tensor, raw_sizes: torch.Tensor):
+        if cfg.int8 and bundle["int8_scales"] is None:
+            calibrate_once(raw_images, raw_sizes)
         pre = pre_fn(raw_images, raw_sizes)
         return model(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
 
@@ -173,6 +183,7 @@ def setup(
         "cfg": cfg,
         "device": dev,
         "batch_size": batch_size,
+        "int8_scales": None,
     }
     model_config = {
         "model": "frcnn-resnet101-c4-vg",

@@ -8,7 +8,10 @@ state dict loads as it is.
 
 Carried over: the stem's ceil-mode max pool, ``stride_in_1x1``, and the VG
 res5 variant (stride 1 in the first block, dilation/padding 2 in every
-conv2, ``halve=False``). ``remat`` is a training-memory option of the
+conv2, ``halve=False``). ``int8`` puts the three convs of every
+bottleneck block on the int8 path (the projection shortcut and the stem
+stay float), ``stem_s2d`` the stem on its exact space-to-depth form; both
+default off, as in JAX. ``remat`` is a training-memory option of the
 reference and is not ported.
 """
 
@@ -42,10 +45,10 @@ class BasicStem(nn.Module):
     """conv1 7x7/2 (+ frozen BN, relu) + 3x3/2 max pool: total stride 4."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 64,
-                 caffe_maxpool: bool = True, dtype: Optional[torch.dtype] = None):
+                 caffe_maxpool: bool = True, dtype: Optional[torch.dtype] = None, s2d: bool = False):
         super().__init__()
         self.caffe_maxpool = caffe_maxpool
-        self.conv1 = StemConvNorm(in_channels, out_channels, dtype=dtype)
+        self.conv1 = StemConvNorm(in_channels, out_channels, dtype=dtype, use_s2d=s2d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NHWC
         y = self.conv1(_nchw(x))
@@ -67,19 +70,20 @@ class BottleneckBlock(nn.Module):
         stride_in_1x1: bool = True,
         dilation: int = 1,
         dtype: Optional[torch.dtype] = None,
+        int8: bool = False,
     ):
         super().__init__()
         stride_1x1, stride_3x3 = (stride, 1) if stride_in_1x1 else (1, stride)
         self.conv1 = ConvNorm(
             in_channels, bottleneck_channels, 1, stride=stride_1x1,
-            activation=F.relu, dtype=dtype,
+            activation=F.relu, dtype=dtype, int8=int8,
         )
         self.conv2 = ConvNorm(
             bottleneck_channels, bottleneck_channels, 3, stride=stride_3x3,
             padding=dilation, dilation=dilation, groups=num_groups,
-            activation=F.relu, dtype=dtype,
+            activation=F.relu, dtype=dtype, int8=int8,
         )
-        self.conv3 = ConvNorm(bottleneck_channels, out_channels, 1, dtype=dtype)
+        self.conv3 = ConvNorm(bottleneck_channels, out_channels, 1, dtype=dtype, int8=int8)
         self.shortcut = (
             ConvNorm(in_channels, out_channels, 1, stride=stride, dtype=dtype)
             if in_channels != out_channels
@@ -103,6 +107,7 @@ def res_stage(
     stride_in_1x1: bool = True,
     dilation: int = 1,
     dtype: Optional[torch.dtype] = None,
+    int8: bool = False,
 ) -> nn.Sequential:
     """A sequence of bottleneck blocks named "0", "1", ...; the first block
     may stride."""
@@ -118,6 +123,7 @@ def res_stage(
                 stride_in_1x1=stride_in_1x1,
                 dilation=dilation,
                 dtype=dtype,
+                int8=int8,
             )
         )
     return nn.Sequential(*blocks)
@@ -137,9 +143,11 @@ class ResNetC4(nn.Module):
         stride_in_1x1: bool = True,
         caffe_maxpool: bool = True,
         dtype: Optional[torch.dtype] = None,
+        int8: bool = False,
+        stem_s2d: bool = False,
     ):
         super().__init__()
-        self.stem = BasicStem(3, stem_out_channels, caffe_maxpool, dtype=dtype)
+        self.stem = BasicStem(3, stem_out_channels, caffe_maxpool, dtype=dtype, s2d=stem_s2d)
         blocks = NUM_BLOCKS_PER_STAGE[depth]
         bottleneck = num_groups * width_per_group
         in_ch, out_ch = stem_out_channels, res2_out_channels
@@ -147,7 +155,7 @@ class ResNetC4(nn.Module):
             stage = res_stage(
                 blocks[idx], in_ch, out_ch, bottleneck,
                 first_stride=1 if idx == 0 else 2,
-                num_groups=num_groups, stride_in_1x1=stride_in_1x1, dtype=dtype,
+                num_groups=num_groups, stride_in_1x1=stride_in_1x1, dtype=dtype, int8=int8,
             )
             self.add_module(f"res{stage_idx}", stage)
             in_ch = out_ch
@@ -175,6 +183,7 @@ class Res5Head(nn.Sequential):
         stride_in_1x1: bool = True,
         halve: bool = False,
         dtype: Optional[torch.dtype] = None,
+        int8: bool = False,
     ):
         factor = 2 ** 3
         out_channels = res2_out_channels * factor
@@ -182,6 +191,6 @@ class Res5Head(nn.Sequential):
         stage = res_stage(
             3, out_channels // 2, out_channels, bottleneck,
             first_stride=2 if halve else 1, num_groups=num_groups,
-            stride_in_1x1=stride_in_1x1, dilation=1 if halve else 2, dtype=dtype,
+            stride_in_1x1=stride_in_1x1, dilation=1 if halve else 2, dtype=dtype, int8=int8,
         )
         super().__init__(*stage)

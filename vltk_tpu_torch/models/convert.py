@@ -20,6 +20,10 @@ token-classification / span-QA model with its ``layoutlm`` child) -> the HF
 ``transformers`` LayoutLM names the port's modules carry (no pooler: the
 flax model has none).
 
+``jax_quant_to_torch`` maps a flax ``"quant"`` collection (the int8
+layers' recorded ``act_max``) of an FRCNN, LXMERT or LayoutLM to
+``{module name: act_max}`` for ``models.layers.load_int8_scales``.
+
 ``jax_lxmert_to_torch`` does the same for LXMERT (an ``LxmertForVQA`` or
 ``LxmertForPretraining`` tree with its ``lxmert`` child and heads, or a bare
 ``Lxmert``): HF ``LxmertForQuestionAnswering`` / ``LxmertForPreTraining`` names, the same keys the JAX package's own
@@ -234,4 +238,41 @@ def jax_lxmert_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for path, value in _flatten(params[root], (root,)):
             arr = np.asarray(value, dtype=np.float32)
             out[_lxmert_head_name(path)] = _tensor(arr.T if path[-1] == "kernel" else arr)
+    return out
+
+
+def _quant_module(path, kind: str) -> str:
+    """flax path of an int8 layer (without ``act_max``) -> the port's module
+    name: the ConvNorm of an FRCNN ``.../conv`` path, the HF-named
+    projection of an LXMERT or LayoutLM path."""
+    if kind == "frcnn":
+        top, *mods = path
+        if top not in _PREFIX or not mods or mods[-1] != "conv":
+            raise KeyError(f"unexpected FRCNN quant path {'/'.join(path)}")
+        return _PREFIX[top] + ".".join(mods[:-1])
+    headed = path[0] == kind
+    rest = tuple(path[1:]) if headed else tuple(path)
+    name = (_lxmert_name if kind == "lxmert" else _layoutlm_name)((*rest, "kernel"))
+    return (f"{kind}." if headed else "") + name[: -len(".weight")]
+
+
+def jax_quant_to_torch(quant: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
+    """A flax ``"quant"`` collection (nested dicts of arrays, each int8
+    layer's ``act_max``) -> ``{module name: act_max}`` of ``model``, the
+    port's ``FRCNN``, an LXMERT model or a LayoutLM model. Every name must be
+    one of ``model``'s int8 layers."""
+    from vltk_tpu_torch.models.frcnn import FRCNN
+    from vltk_tpu_torch.models.layers import int8_layers
+
+    kind = "frcnn" if isinstance(model, FRCNN) else (
+        "layoutlm" if type(model).__name__.startswith("LayoutLM") else "lxmert")
+    layers = int8_layers(model)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(quant):
+        if path[-1] != "act_max":
+            raise KeyError(f"unexpected quant leaf {'/'.join(path)}")
+        name = _quant_module(path[:-1], kind)
+        if name not in layers:
+            raise KeyError(f"{'/'.join(path)} -> {name}, which is no int8 layer of the model")
+        out[name] = torch.tensor(np.asarray(value, dtype=np.float32))
     return out

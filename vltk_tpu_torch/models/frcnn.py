@@ -21,7 +21,7 @@ from torch import nn
 
 from vltk_tpu_torch.models.anchors import grid_anchors
 from vltk_tpu_torch.models.backbone import ResNetC4
-from vltk_tpu_torch.models.layers import ConvNorm, FrozenBatchNorm, lecun_normal_
+from vltk_tpu_torch.models.layers import ConvNorm, FrozenBatchNorm, calibrate_int8_scales, lecun_normal_
 from vltk_tpu_torch.models.roi_heads import Res5RoIHeads
 from vltk_tpu_torch.models.rpn import RPNHead, propose
 from vltk_tpu_torch.ops.boxes import apply_deltas, clip_boxes
@@ -75,7 +75,9 @@ class FRCNNConfig:
     max_detections: int = 36
     # compute dtype for convs/matmuls (None -> float32); params stay f32
     dtype: Optional[str] = None
-    # int8 conv path: a later slice of the port; FRCNN raises on it
+    # int8 path for every bottleneck conv (res2-4 and res5): per-channel
+    # weights, per-tensor activations, int32 sums; calibrate_int8 records
+    # static activation scales
     int8: bool = False
     # res5 RoI chunking: pool + res5 run per chunk of this many RoIs when
     # batch * proposals exceeds it. None = one pass.
@@ -103,7 +105,8 @@ class FRCNNConfig:
 
     @classmethod
     def int8_extraction(cls, **overrides) -> "FRCNNConfig":
-        """The parity geometry on the int8 conv path (a later slice)."""
+        """The parity geometry on the int8 conv path; the extraction step
+        calibrates it on its first batch (``calibrate_int8``)."""
         kwargs = dict(dtype="bfloat16", int8=True, pre_nms_topk=6000, post_nms_topk=300)
         kwargs.update(overrides)
         return cls(**kwargs)
@@ -218,10 +221,6 @@ class FRCNN(nn.Module):
 
     def __init__(self, cfg: FRCNNConfig = FRCNNConfig()):
         super().__init__()
-        if cfg.int8:
-            raise NotImplementedError(
-                "int8 presets are not ported yet (ROADMAP A.9); use a bf16 or f32 preset"
-            )
         self.cfg = cfg
         dtype = cfg.compute_dtype
         self.backbone = ResNetC4(
@@ -233,6 +232,7 @@ class FRCNN(nn.Module):
             stride_in_1x1=cfg.stride_in_1x1,
             caffe_maxpool=cfg.caffe_maxpool,
             dtype=dtype,
+            int8=cfg.int8,
         )
         self.proposal_generator = RPN(cfg, self.backbone.out_channels)
         self.roi_heads = Res5RoIHeads(
@@ -249,6 +249,7 @@ class FRCNN(nn.Module):
             cls_agnostic_bbox_reg=cfg.cls_agnostic_bbox_reg,
             dtype=dtype,
             roi_chunk=cfg.roi_chunk,
+            int8=cfg.int8,
         )
 
     def forward(
@@ -383,6 +384,23 @@ def _postprocess(
         "preds_per_image": m.sum(dim=1).to(torch.int32),
         "mask": m,
     }
+
+
+def calibrate_int8(model: FRCNN, batches) -> Dict[str, torch.Tensor]:
+    """Static int8 calibration of an int8 FRCNN (JAX's ``calibrate_int8``):
+    each ``(images, image_sizes[, scales_yx])`` batch runs through the
+    model's unchunked twin (the same modules with ``roi_chunk=None``), so
+    every res5 conv sees all of a batch's RoIs at once, as the JAX package
+    calibrates; the recorded scales then serve the chunked model too.
+    Returns ``{module name: act_max}``, loaded in ``model`` as well. Keep
+    calibration batches small (at most 4 images at the parity geometry):
+    the unchunked pooled tensor is large."""
+    heads = model.roi_heads
+    saved, heads.roi_chunk = heads.roi_chunk, None
+    try:
+        return calibrate_int8_scales(model, [tuple(batch) for batch in batches])
+    finally:
+        heads.roi_chunk = saved
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:

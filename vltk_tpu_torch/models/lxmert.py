@@ -21,6 +21,11 @@ and ``LxmertForPreTraining`` (``cls.predictions``, ``cls.seq_relationship``,
 
 Mixed precision as in flax: parameters stay float32; every projection
 casts its input and weights to ``compute_dtype`` (``nn.Dense(dtype=bf16)``);
+under ``int8`` the six encoder projection sites (query, key, value, the
+attention output, intermediate and the MLP output: the JAX package's
+``_proj``) are ``Int8Linear`` layers instead (per-channel int8 weights,
+per-tensor int8 activations, int32 sums, output in ``compute_dtype``), with
+the same parameter names, and the other dense layers keep the float route;
 LayerNorm runs in float32 and returns float32, so the residual stream
 between layers is float32; softmax is taken in float32. The embeddings, the
 pooler, the answer head and the pretraining heads are flax layers without a
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vltk_tpu_torch.models.layers import Int8Linear
 from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
 
 NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
@@ -51,8 +57,8 @@ NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
 @dataclasses.dataclass(frozen=True)
 class LxmertConfig:
     """Static hyper-parameters; the field set of the JAX package's
-    ``LxmertConfig``. The options that need a mesh, MoE, int8 or remat
-    raise ``NotImplementedError`` in the port for now."""
+    ``LxmertConfig``. The options that need a mesh, MoE or remat raise
+    ``NotImplementedError`` in the port for now."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -93,7 +99,6 @@ class LxmertConfig:
             "activation_sharding (ROADMAP A.14)": self.activation_sharding,
             "seq_attention_sharding (ROADMAP A.14)": self.seq_attention_sharding,
             "moe_experts > 0 (ROADMAP A.11b)": self.moe_experts > 0,
-            "int8 (ROADMAP A.9)": self.int8,
             "remat (ROADMAP A.13)": self.remat,
         }
         on = [name for name, value in unported.items() if value]
@@ -142,13 +147,25 @@ def dense(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
 
+def _proj_layer(cfg: LxmertConfig, in_features: int, out_features: int) -> nn.Linear:
+    """An encoder projection site: ``Int8Linear`` under ``cfg.int8``, else
+    ``nn.Linear`` (the same parameters either way)."""
+    return Int8Linear(in_features, out_features) if cfg.int8 else nn.Linear(in_features, out_features)
+
+
+def proj(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A projection site's forward: the int8 route for an ``Int8Linear``,
+    else ``dense``."""
+    return layer(x, dt) if isinstance(layer, Int8Linear) else dense(layer, x, dt)
+
+
 class _QKV(nn.Module):
     def __init__(self, cfg: LxmertConfig):
         super().__init__()
         h = cfg.hidden_size
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
+        self.query = _proj_layer(cfg, h, h)
+        self.key = _proj_layer(cfg, h, h)
+        self.value = _proj_layer(cfg, h, h)
 
 
 class _DenseNorm(nn.Module):
@@ -157,20 +174,20 @@ class _DenseNorm(nn.Module):
 
     def __init__(self, cfg: LxmertConfig, in_features: int):
         super().__init__()
-        self.dense = nn.Linear(in_features, cfg.hidden_size)
+        self.dense = _proj_layer(cfg, in_features, cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
         self.dt = cfg.compute_dtype
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        y = self.dropout(dense(self.dense, x, self.dt))
+        y = self.dropout(proj(self.dense, x, self.dt))
         return self.LayerNorm(residual.float() + y.float())
 
 
 class _Intermediate(nn.Module):
     def __init__(self, cfg: LxmertConfig):
         super().__init__()
-        self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.dense = _proj_layer(cfg, cfg.hidden_size, cfg.intermediate_size)
 
 
 class MultiHeadAttention(nn.Module):
@@ -194,9 +211,9 @@ class MultiHeadAttention(nn.Module):
         n, s, h = x.shape
         nh, dh = cfg.num_heads, cfg.head_dim
         qkv = getattr(self, self.qkv_name)
-        q = dense(qkv.query, x, dt).view(n, s, nh, dh)
-        k = dense(qkv.key, ctx, dt).view(n, ctx.shape[1], nh, dh)
-        v = dense(qkv.value, ctx, dt).view(n, ctx.shape[1], nh, dh)
+        q = proj(qkv.query, x, dt).view(n, s, nh, dh)
+        k = proj(qkv.key, ctx, dt).view(n, ctx.shape[1], nh, dh)
+        v = proj(qkv.value, ctx, dt).view(n, ctx.shape[1], nh, dh)
         if _impl_wants_flash(cfg, s) and _flash_eligible(x, ctx, s, not self.training, cfg):
             out4 = flash_attention_auto(q, k, v, ctx_mask, dh)
             return self.output(out4.reshape(n, s, h), x)
@@ -213,7 +230,7 @@ class MultiHeadAttention(nn.Module):
 
 def _feed_forward(inter: _Intermediate, out: _DenseNorm, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """Exact-erf GELU MLP with post-LN residual."""
-    y = F.gelu(dense(inter.dense, x, dt), approximate="none")
+    y = F.gelu(proj(inter.dense, x, dt), approximate="none")
     return out(y, x)
 
 

@@ -6,7 +6,11 @@ reference's ``roi_chunk`` scan becomes a loop over chunks of
 ``max(roi_chunk // N, 1)`` RoIs per image: each chunk pools its own box
 slice (``ops.roi_pool_kernel.roi_pool_auto``, the CUDA kernel on the card)
 and reduces it through res5 at once, so the full (N*P, 14, 14, C) pooled
-tensor never exists.
+tensor never exists. Every chunk runs the same res5 modules, so the int8
+path (``int8=True``) uses one set of recorded scales for all; without
+them each chunk quantizes by its own maxima, the last chunk padded with
+zero boxes to the chunk size as JAX's scan pads it. RoIPool reads the
+float res4 map either way.
 """
 
 from __future__ import annotations
@@ -85,11 +89,13 @@ class Res5RoIHeads(nn.Module):
         cls_agnostic_bbox_reg: bool = False,
         dtype: Optional[torch.dtype] = None,
         roi_chunk: Optional[int] = None,
+        int8: bool = False,
     ):
         super().__init__()
         self.pooler_resolution = pooler_resolution
         self.feature_stride = feature_stride
         self.roi_chunk = roi_chunk
+        self.int8 = int8
         self.res5 = Res5Head(
             res2_out_channels=res2_out_channels,
             num_groups=num_groups,
@@ -97,6 +103,7 @@ class Res5RoIHeads(nn.Module):
             stride_in_1x1=stride_in_1x1,
             halve=res5_halve,
             dtype=dtype,
+            int8=int8,
         )
         self.box_predictor = FastRCNNOutputLayers(
             num_classes=num_classes,
@@ -129,10 +136,13 @@ class Res5RoIHeads(nn.Module):
         features = features.contiguous()
         if self.roi_chunk is not None and n * p > self.roi_chunk:
             pc = max(int(self.roi_chunk) // n, 1)
+            if self.int8 and p % pc:
+                # a chunk's dynamic int8 scales read its pad rows too
+                boxes = torch.cat([boxes, boxes.new_zeros((n, pc - p % pc, 4))], dim=1)
             chunks = [
-                self._pool_res5(features, boxes[:, s:s + pc]) for s in range(0, p, pc)
+                self._pool_res5(features, boxes[:, s:s + pc]) for s in range(0, boxes.shape[1], pc)
             ]
-            feat = torch.cat(chunks, dim=1).reshape(n * p, -1)
+            feat = torch.cat(chunks, dim=1)[:, :p].reshape(n * p, -1)
         else:
             feat = self._pool_res5(features, boxes).reshape(n * p, -1)
         obj_logits, attr_logits, deltas = self.box_predictor(feat)

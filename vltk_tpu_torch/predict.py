@@ -24,12 +24,20 @@ words. One LayoutLM stream of ``[question sub-tokens | OCR sub-tokens]``
 pad sits in the middle of the stream; at ``question_len + doc_len >= 1024``
 on the card every self-attention runs K3 on that mask. The span decode
 (``_best_span``) is host numpy over the float32 log-probabilities.
+
+int8 presets (an int8 ``FRCNNConfig``, ``LxmertConfig(int8=True)``,
+``LayoutLMConfig(int8=True)``): each predictor calibrates its static int8
+scales once, under a lock, on the first request, as the JAX predictors do
+(``VQAPredictor.calibrate_int8``, ``_maybe_calibrate_doc_int8``), keeps them in
+``frcnn_scales`` / ``lxmert_scales`` / ``int8_scales`` and reuses them for
+every later request.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -170,6 +178,20 @@ def _vqa_configs(frcnn_config, lxmert_config, num_answers: int):
     return fcfg, lcfg
 
 
+def _maybe_calibrate_doc_int8(obj, ids: torch.Tensor, boxes: torch.Tensor, mask: torch.Tensor) -> None:
+    """LayoutLM int8 (``config.int8``): static scales of the encoder's
+    ``Int8Linear`` layers from the first at most 4 documents of the first
+    (padded) bucket, once, under the predictor's lock (JAX's
+    ``_maybe_calibrate_doc_int8``)."""
+    if not obj.config.int8 or obj.int8_scales is not None:
+        return
+    from vltk_tpu_torch.models.layers import calibrate_int8_scales
+
+    with obj._calib_lock:
+        if obj.int8_scales is None:
+            obj.int8_scales = calibrate_int8_scales(obj.model, [(ids[:4], boxes[:4], mask[:4])])
+
+
 class DocTokenClassifier:
     """OCR documents (words + boxes) -> per-word labels via LayoutLM.
 
@@ -229,6 +251,8 @@ class DocTokenClassifier:
         if params is not None:
             _check_head_width(params, "classifier.weight", len(self.labels), "label")
         self.model = _materialise(lambda: LayoutLMForTokenClassification(cfg), params, init_weights, 0, self.device)
+        self.int8_scales = None  # int8: set on the first request
+        self._calib_lock = threading.Lock()
 
     @classmethod
     def from_pretrained(cls, checkpoint: str, labels, **kwargs) -> "DocTokenClassifier":
@@ -282,7 +306,9 @@ class DocTokenClassifier:
         n = len(documents)
         for lo in range(0, n, self.batch_size):
             hi = min(lo + self.batch_size, n)
-            probs = self.step(put(ids[lo:hi]), put(boxes[lo:hi]), put(mask[lo:hi])).cpu().numpy()
+            chunk = (put(ids[lo:hi]), put(boxes[lo:hi]), put(mask[lo:hi]))
+            _maybe_calibrate_doc_int8(self, *chunk)
+            probs = self.step(*chunk).cpu().numpy()
             for j in range(hi - lo):
                 tokenmap = np.asarray(entries[lo + j][V.tokenmap])
                 counts = tokenmap[tokenmap > 0]
@@ -397,6 +423,8 @@ class DocSpanQA:
         self._aux = AuxTokenize(tokenizer=self.tokenizer, max_visual_seq_length=self.doc_len)
         self._boxfix = OCRBoxFixed(max_visual_seq_length=self.doc_len)
         self.model = _materialise(lambda: LayoutLMForSpanQA(cfg), params, init_weights, 0, self.device)
+        self.int8_scales = None  # int8: set on the first request
+        self._calib_lock = threading.Lock()
 
     @classmethod
     def from_pretrained(cls, checkpoint: str, **kwargs) -> "DocSpanQA":
@@ -472,7 +500,9 @@ class DocSpanQA:
         n = len(documents)
         for lo in range(0, n, self.batch_size):
             hi = min(lo + self.batch_size, n)
-            s_lp, e_lp = self.step(put(ids[lo:hi]), put(boxes[lo:hi]), put(mask[lo:hi]))
+            chunk = (put(ids[lo:hi]), put(boxes[lo:hi]), put(mask[lo:hi]))
+            _maybe_calibrate_doc_int8(self, *chunk)
+            s_lp, e_lp = self.step(*chunk)
             s_lp, e_lp = s_lp.cpu().numpy(), e_lp.cpu().numpy()
             for j in range(hi - lo):
                 k = lo + j
@@ -583,6 +613,10 @@ class VQAPredictor:
             _check_head_width(lxmert_params, "answer_head.logit_fc.3.weight", len(self.answers), "answer")
         self.frcnn = _materialise(lambda: FRCNN(fcfg), frcnn_params, init_frcnn, 0, self.device)
         self.lxmert = _materialise(lambda: LxmertForVQA(lcfg), lxmert_params, init_weights, 1, self.device)
+        # int8: static scales, set on the first request
+        self.frcnn_scales: Optional[Dict[str, torch.Tensor]] = None
+        self.lxmert_scales: Optional[Dict[str, torch.Tensor]] = None
+        self._calib_lock = threading.Lock()
 
     @classmethod
     def from_pretrained(
@@ -620,16 +654,51 @@ class VQAPredictor:
 
     # ------------------------------------------------------------ device
 
+    def _preprocess(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        from vltk_tpu_torch.ops.image_ops import preprocess_batch
+
+        return preprocess_batch(
+            raw_images, raw_sizes, canvas_hw=self._resized_canvas, short=self._short, maximum=self._maximum,
+        )
+
     @torch.inference_mode()
     def detect(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Preprocess and FRCNN: (B, Hr, Wr, 3) uint8 raw pixels and (B, 2)
         raw (h, w) -> the FRCNN output dict, boxes in raw pixels."""
-        from vltk_tpu_torch.ops.image_ops import preprocess_batch
-
-        pre = preprocess_batch(
-            raw_images, raw_sizes, canvas_hw=self._resized_canvas, short=self._short, maximum=self._maximum,
-        )
+        pre = self._preprocess(raw_images, raw_sizes)
         return self.frcnn(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+
+    @torch.inference_mode()
+    def calibrate_int8(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor, ids: torch.Tensor,
+                       tmask: torch.Tensor) -> None:
+        """int8: static scales from the first at most 4 rows of a (padded)
+        bucket, once, under a lock (JAX's ``_maybe_calibrate_int8``). An
+        int8 FRCNN calibrates first; an int8 LXMERT then calibrates on that
+        FRCNN's own features and normalised boxes of the same rows, pad
+        rows zeroed with ``where``. ``__call__`` calls it before each
+        bucket; it does nothing once the scales are set."""
+        from vltk_tpu_torch.models.frcnn import calibrate_int8
+        from vltk_tpu_torch.models.layers import calibrate_int8_scales
+
+        want_f = self.frcnn_config.int8 and self.frcnn_scales is None
+        want_l = self.lxmert_config.int8 and self.lxmert_scales is None
+        if not (want_f or want_l):
+            return
+        with self._calib_lock:
+            raw, sizes = raw_images[:4], raw_sizes[:4]
+            pre = None
+            if self.frcnn_config.int8 and self.frcnn_scales is None:
+                pre = self._preprocess(raw, sizes)
+                self.frcnn_scales = calibrate_int8(self.frcnn, [(pre["img"], pre["sizes"], pre["scales_yx"])])
+            if self.lxmert_config.int8 and self.lxmert_scales is None:
+                if pre is None:
+                    pre = self._preprocess(raw, sizes)
+                det = self.frcnn(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+                feats, norm, vmask = visual_inputs(det, sizes)
+                nb = vmask.shape[0]
+                self.lxmert_scales = calibrate_int8_scales(
+                    self.lxmert, [(ids[:nb], feats, norm, tmask[:nb], vmask)]
+                )
 
     @torch.inference_mode()
     def answer(self, det: Dict[str, torch.Tensor], raw_sizes: torch.Tensor, ids: torch.Tensor,
@@ -714,10 +783,10 @@ class VQAPredictor:
             # collate shrinks raws larger than the canvas; this maps boxes
             # back into the caller's pixel frame (1 where nothing shrank)
             unshrink = (orig_hw[:, [1, 0, 1, 0]] / np.maximum(collated[V.rawsize][:, [1, 0, 1, 0]], 1.0))[:, None, :]
-            out = self.step(
-                put(collated[V.img]), put(collated[V.rawsize].astype(np.float32)),
-                put(ids[lo:hi]), put(tmask[lo:hi]),
-            )
+            bucket = (put(collated[V.img]), put(collated[V.rawsize].astype(np.float32)),
+                      put(ids[lo:hi]), put(tmask[lo:hi]))
+            self.calibrate_int8(*bucket)
+            out = self.step(*bucket)
             out = {k: v.cpu().numpy() for k, v in out.items()}
             for j in range(hi - lo):
                 order = np.argsort(-out["scores"][j])[:top_k]

@@ -1,14 +1,17 @@
 """Where the device time of a main path goes, on the card.
 
-    python -m vltk_tpu_torch.trace [--batch 8] [--steps 3] [--repeats 3]
-    python -m vltk_tpu_torch.trace --model layoutlm [--attn auto|xla] [--batch 32]
+    python -m vltk_tpu_torch.trace [--batch 8] [--steps 3] [--repeats 3] [--preset parity_300|production|...]
+    python -m vltk_tpu_torch.trace --model layoutlm [--attn auto|xla] [--batch 32] [--int8]
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] [--batch 8]
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] --lrs 1e-4 1e-5
-    python -m vltk_tpu_torch.trace --model vqa [--batch 8]
+    python -m vltk_tpu_torch.trace --model vqa [--batch 8] [--int8]
 
-``--model frcnn`` (default) builds the ``parity_300`` extraction (R-101-C4,
-1600 classes, 400 attributes, bf16) on the 832x1344 canvas with seeded
-random tamed weights, as ``chip_smoke.py`` does. ``--model layoutlm``
+``--model frcnn`` (default) builds the ``--preset`` extraction (default
+``parity_300``: R-101-C4, 1600 classes, 400 attributes, bf16; ``production``
+is ``int8_300``, calibrated by its first step) on the 832x1344 canvas with
+seeded random tamed weights, as ``chip_smoke.py`` does. ``--int8`` puts
+``--model vqa`` on the int8 FRCNN and LXMERT and ``--model layoutlm`` on
+int8 LayoutLM, calibrated on the traced inputs before the first step. ``--model layoutlm``
 builds the document classifier step (``predict.DocTokenClassifier.step``:
 LayoutLM-base, 12 layers, hidden 768, bf16, seeded random weights) at the
 JAX bench.py geometry: seq 1024, batch 32, ids and boxes from
@@ -35,7 +38,10 @@ tokens. It prints:
   backward, optimizer);
 * from a ``torch.profiler`` trace of ``--steps`` steps: device time by
   kernel class and the top kernels, and the device's busy share of the
-  traced span (union of kernel intervals over first-start..last-end).
+  traced span (union of kernel intervals over first-start..last-end); on
+  an int8 path also the device time under the int8 layers' quantize,
+  int8 product and rescale ranges (``ops.int8.profile_scopes``, on only
+  while the profiler runs).
 
 The last line is one JSON object with all of it. Needs a CUDA device.
 """
@@ -62,6 +68,8 @@ _CLASSES = (
     ("flash_bwd_dkv", "flash dk/dv kernel (K4)"),
     ("flash_bwd_dq", "flash dq kernel (K5)"),
     ("roi_pool_", "roi_pool kernel"),  # K1: roi_pool_{bf16,f32}_{vector,scalar}
+    ("gemm_s8", "int8 gemm"),  # torch._int_mm's cuBLASLt products (cutlass_80_..._i16832gemm_s8_...)
+    ("imma", "int8 gemm"),
     ("nms_", "nms kernels"),
     ("sort", "sort"),
     ("radix", "sort"),
@@ -94,11 +102,11 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def build_frcnn(batch: int):
+def build_frcnn(batch: int, preset: str = "parity_300"):
     from vltk_tpu_torch.adapters.frcnn import setup, tame_random_weights
 
     bundle, _ = setup(
-        preset="parity_300", batch_size=batch, device="cuda",
+        preset=preset, batch_size=batch, device="cuda",
         resized_canvas=CANVAS, short=800.0, maximum=1333.0,
     )
     tame_random_weights(bundle["model"])
@@ -113,13 +121,13 @@ def build_frcnn(batch: int):
 DOC_SEQ = 1024  # bench.py --infer layoutlm: --seq default, batch 32 * 1024 // seq
 
 
-def build_layoutlm(batch: int, attn: str):
+def build_layoutlm(batch: int, attn: str, int8: bool = False):
     """The document classifier at LayoutLM-base width and the bench.py
     inputs: ids and boxes from default_rng(0), an all-real mask."""
     from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
     from vltk_tpu_torch.predict import DocTokenClassifier
 
-    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ, attention_impl=attn)
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ, attention_impl=attn, int8=int8)
     clf = DocTokenClassifier(
         ["other", "question", "answer", "header"], config=cfg,
         batch_size=batch, max_seq_length=DOC_SEQ, device="cuda",
@@ -136,14 +144,19 @@ VQA_QUESTIONS = (
 )
 
 
-def build_vqa(batch: int, device="cuda"):
+def build_vqa(batch: int, device="cuda", int8: bool = False):
     """The composed VQA predictor at full width on the extraction canvas:
-    parity_300 (tamed seeded weights), LXMERT-base bf16, 3129 answers."""
+    parity_300 (tamed seeded weights), LXMERT-base bf16, 3129 answers; with
+    ``int8`` the FRCNN is ``int8_300`` and LXMERT-base int8 (the JAX
+    bench's composed row)."""
     from vltk_tpu_torch.adapters.frcnn import tame_random_weights
+    from vltk_tpu_torch.models.frcnn import FRCNNConfig
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
     from vltk_tpu_torch.predict import VQAPredictor
 
+    configs = dict(frcnn_config=FRCNNConfig.int8_extraction(), lxmert_config=LxmertConfig(dtype="bfloat16", int8=True))
     pred = VQAPredictor(
-        [f"answer {i}" for i in range(3129)], batch_size=batch, max_seq_length=VQA_SEQ,
+        [f"answer {i}" for i in range(3129)], batch_size=batch, max_seq_length=VQA_SEQ, **(configs if int8 else {}),
         raw_canvas=RAW_CANVAS, resized_canvas=CANVAS, short=800.0, maximum=1333.0, device=device,
     )
     tame_random_weights(pred.frcnn)
@@ -403,9 +416,13 @@ def main() -> None:
                          "8-step epoch at each of these learning rates")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 8 (frcnn, vqa), 32 (layoutlm), 8 (layoutlm --train)")
+    ap.add_argument("--preset", default="parity_300", help="frcnn: the extraction preset (production = int8_300)")
+    ap.add_argument("--int8", action="store_true", help="vqa, layoutlm: the int8 serving presets")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
+    if args.train and args.int8:
+        ap.error("the int8 presets are for serving (round has a zero gradient)")
     if not torch.cuda.is_available():
         raise SystemExit("trace: needs a CUDA device")
     smi = subprocess.run(
@@ -425,14 +442,15 @@ def main() -> None:
         return
     if args.model == "frcnn":
         batch = args.batch or 8
-        bundle, raw, sizes = build_frcnn(batch)
+        bundle, raw, sizes = build_frcnn(batch, args.preset)
         step = lambda: bundle["step"](raw, sizes)  # noqa: E731
         stages_fn = lambda: stage_times(bundle, raw, sizes, args.steps)  # noqa: E731
         unit = "images_per_s"
     elif args.model == "vqa":
         batch = args.batch or 8
-        pred = build_vqa(batch)
+        pred = build_vqa(batch, int8=args.int8)
         raw, sizes, ids, tmask = vqa_inputs(pred, batch, "cuda")
+        pred.calibrate_int8(raw, sizes, ids, tmask)  # int8: first bucket's scales
         step = lambda: pred.step(raw, sizes, ids, tmask)  # noqa: E731
         stages_fn = lambda: stage_times_vqa(pred, raw, sizes, ids, tmask, args.steps)  # noqa: E731
         unit = "samples_per_s"
@@ -447,7 +465,10 @@ def main() -> None:
         unit = "sequences_per_s"
     else:
         batch = args.batch or 32
-        clf, ids, boxes, mask = build_layoutlm(batch, args.attn)
+        from vltk_tpu_torch.predict import _maybe_calibrate_doc_int8
+
+        clf, ids, boxes, mask = build_layoutlm(batch, args.attn, args.int8)
+        _maybe_calibrate_doc_int8(clf, ids, boxes, mask)
         step = lambda: clf.step(ids, boxes, mask)  # noqa: E731
         stages_fn = lambda: stage_times_layoutlm(clf, ids, boxes, mask, args.steps)  # noqa: E731
         unit = "documents_per_s"
@@ -470,10 +491,19 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from vltk_tpu_torch.ops.int8 import profile_scopes
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, profile_scopes():
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
+    # the int8 layers' ranges (host events): the device time of the kernels
+    # that the ops inside each launched (its children's, not the range's
+    # own, which is the range's span on the device timeline)
+    int8_split = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("int8 "):
+            int8_split[e.name[len("int8 "):]] += sum(c.device_time_total for c in e.cpu_children)
     # device events without the spans of user annotations (such as the
     # optimizer's ``Optimizer.step#...`` record), which are not kernels
     kernels = [e for e in prof.events()
@@ -491,6 +521,8 @@ def main() -> None:
     share, span = busy_share(intervals)
     kernel_ms = sum(by_class.values()) / 1e3 / args.steps
     print(f"profiler: {len(kernels)} kernels, {kernel_ms:.3f} device ms/step, busy share {share}")
+    for part, us in int8_split.items():
+        print(f"int8 {part:10s} {us / 1e3 / args.steps:9.3f} device ms/step")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"class {cls:22s} {us / 1e3 / args.steps:9.3f} ms/step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
@@ -503,6 +535,9 @@ def main() -> None:
         "train": bool(args.train),
         "peak_mem_gb": peak_gb,
         "attn": args.attn if args.model == "layoutlm" else None,
+        "preset": args.preset if args.model == "frcnn" else None,
+        "int8": bool(args.int8) if args.model != "frcnn" else bundle["cfg"].int8,
+        "int8_ms_per_step": {k: v / 1e3 / args.steps for k, v in int8_split.items()},
         "batch": batch,
         "step_ms_windows": windows,
         unit: [batch * 1e3 / w for w in windows],
