@@ -165,12 +165,39 @@ package):
    documents/s and questions/s beside bf16's, labels against bf16's
    reported); tiny f32 int8 FRCNN, LXMERT and LayoutLM card vs CPU with
    the same scales (1e-4, or 1e-2 of the output's scale where an int8
-   rounding flip reached it); last, the int8 products (``torch._int_mm``
+   rounding flip reached it); last (after 24-28), the int8 products (``torch._int_mm``
    behind im2col) against the exact route on the card, bitwise, at every
    conv geometry and (M, K, N) those paths ran, an M <= 16 product and a
    NaN activation (0, as on the CPU);
-24. prints the ``kernels`` JSON line (each kernel also with its launches on
-   the two span paths and the four int8 paths), then the device line last.
+24. ViT-B/16 at 224, bf16, B=64 (seeded random weights): the K3 route
+   (``attention_impl="flash"``: 12 launches a forward, no other kernel),
+   the dense route and int8 (the six projection sites of each layer,
+   calibrated on the first 8 images; its product geometries join those
+   checked last), the two float routes' pooled outputs within 2^-4, every
+   output finite; images/s of each; then K3 at (64, 197, 12, 64) with no
+   mask against its plain version, timed beside SDPA without a mask and
+   its byte bound;
+25. VisualBERT at visualbert-vqa width (12 layers, 768, 2048-d regions),
+   bf16, B=32, 128 text tokens of 8-128 real and 36 regions (164 positions,
+   the text pad a hole in mid-stream): the K3 route (12 launches) against
+   the dense route on the logits (2^-6), both timed; K3 at (32, 164, 12,
+   64) with that mask against its plain version, timed beside SDPA with the
+   boolean mask;
+26. LXMERT-base with the MoE feed-forward (8 experts, top 2, capacity
+   factor 1.25) at all 24 sites, bf16, B=32, 20 tokens, 36 boxes (~0.9 B
+   parameters): one forward with 24 finite, positive aux terms, then 4
+   steps of ``LxmertVQAExperiment`` (finite losses, no kernel), the step
+   timed with its peak memory;
+27. ``serving.for_doc`` over LayoutLM-base's ``DocTokenClassifier`` (seq
+   1024, batch 4): 11 concurrent single documents from threads, answers
+   equal to one direct batched call, K3 12 launches a bucket, latency
+   percentiles; every wait with a timeout;
+28. small f32 ViT (K3 vs dense), VisualBERT (K3 vs plain flash) and MoE
+   LXMERT (logits and aux terms) card vs CPU;
+29. prints the ``kernels`` JSON line (each kernel also with its launches on
+   the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT
+   and the server; K3 also with its times and bounds at ViT's and
+   VisualBERT's shapes), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -2771,6 +2798,389 @@ def phase_probe_int8_and_stem(dev, parity, smi: str) -> dict:
     return {"probe": probe, "stem": {"f32_max_abs_err": err, "plain_ms": plain_ms, "s2d_ms": s2d_ms}}
 
 
+# ------------------------------------- ViT, VisualBERT, the MoE block, the server
+
+VIT_SHAPE = (64, 197, 12, 64)  # (n, s, nh, dh) of ViT-B/16's self-attention at B=64: bench.py --infer vit
+VIT_STEPS = 10
+# pooled outputs, K3 route against the dense route, bf16: the residual
+# stream is bf16, so one rounding of the probabilities that differs between
+# the routes can flip the stream's rounding (2^-7 at |x| ~ 1) in any of 24
+# residual adds
+VIT_ROUTE_TOL = 2.0 ** -4
+VB_BATCH = 32
+# classification logits, K3 route against the dense route, bf16 compute on
+# a float32 residual stream: the probabilities round differently
+VB_ROUTE_TOL = 2.0 ** -6
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25
+SERVER_BATCH = 4
+SERVER_WAIT_S = 600  # every wait of the server phase ends by then
+
+
+def time_forward(fn, batch: int, steps: int):
+    """(items/s, ms a step, peak GB) of ``fn()`` under inference mode over
+    ``steps`` calls after a warm-up, host clock around synchronised work."""
+    with torch.inference_mode():
+        out = fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = fn()
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    outs = out if isinstance(out, tuple) else (out,)
+    check(all(bool(torch.isfinite(o).all()) for o in outs), "timed forward: output not finite")
+    return batch * steps / dt, dt / steps * 1e3, torch.cuda.max_memory_allocated() / 1e9
+
+
+def counted(wrappers, fn):
+    """``fn()`` under inference mode with every launch count set to 0 just
+    before; returns its output and the counts read just after."""
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.inference_mode():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def k3_at(label: str, shape, mask, gen, dev) -> dict:
+    """K3 at one model's attention shape (random bf16 q, k, v): held against
+    its plain version at every position (FLASH_TOL), two calls bitwise
+    equal; timed (median of five readings queued ahead) beside the plain
+    version and ``scaled_dot_product_attention`` computing the same
+    function (no mask where every key is real, else the boolean mask of
+    equal ids). The bound counts the s^2 (query, key) pairs of a row and
+    head without a mask (ViT: 197^2, the function SDPA computes), else
+    every pair whose ids match, the pad tail to 128 included."""
+    from vltk_tpu_torch.ops.flash_attention import flash_self_attention
+    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_cuda
+
+    n, s, nh, dh = shape
+    q, k, v = (torch.randn(n, s, nh, dh, generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    got = flash_attention_cuda(q, k, v, mask, dh)
+    again = flash_attention_cuda(q, k, v, mask, dh)
+    want = flash_self_attention(q, k, v, mask, dh)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    print(f"flash_attention at the {label} shape {tuple(shape)} bf16 mask={'None' if mask is None else 'ids'}: "
+          f"max_abs_err={err} (tol {FLASH_TOL[torch.bfloat16]}); bitwise repeatable {bitwise_equal(got, again)}")
+    check(bool(torch.isfinite(got).all()) and err <= FLASH_TOL[torch.bfloat16], f"K3 != plain at the {label} shape")
+    check(bitwise_equal(got, again), f"K3 not deterministic at the {label} shape")
+    runs = spread_ms(lambda: flash_attention_cuda(q, k, v, mask, dh))
+    plain_ms = cuda_ms(lambda: flash_self_attention(q, k, v, mask, dh), reps=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if mask is None:
+        sdpa_runs = spread_ms(lambda: sdpa(qt, kt, vt))
+        nbytes, nops = 4 * n * s * nh * dh * 2, 4 * dh * nh * n * s * s
+    else:
+        ids = mask.to(torch.int32)
+        same = ids[:, None, :, None] == ids[:, None, None, :]
+        sdpa_runs = spread_ms(lambda: sdpa(qt, kt, vt, attn_mask=same))
+        nbytes, nops = flash_work(ids, nh, dh, 2)
+    bound_ms, bound_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    print(f"flash_attention timing at the {label} shape: kernel {show(runs)}, plain {plain_ms:.4f} ms, SDPA "
+          f"{'without a mask' if mask is None else 'with the boolean mask'} {show(sdpa_runs)}, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {nops:.3e} operations, {nbytes:.3e} bytes), {runs[2] / bound_ms:.2f}x the bound, "
+          f"{sdpa_runs[2] / runs[2]:.2f}x SDPA's time")
+    return {"shape": list(shape), "max_abs_err": err, "ms": runs[2], "ms_range": [runs[0], runs[-1]],
+            "plain_ms": plain_ms, "library_ms": sdpa_runs[2], "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_vit(dev, wrappers, smi: str, shapes: "Int8Shapes") -> dict:
+    """ViT-B/16 at 224, bf16, B=64 (bench.py --infer vit): the K3 route
+    ("flash": 12 launches a forward, nothing else), the dense route and
+    int8 (calibrated on the first 8 images, as bench.py), the pooled
+    outputs of the two float routes against each other, images/s of each;
+    then K3 at (64, 197, 12, 64) with no mask against its plain version,
+    timed beside SDPA without a mask."""
+    import dataclasses
+
+    from vltk_tpu_torch.models.layers import calibrate_int8_scales
+    from vltk_tpu_torch.models.vit import ViT
+    from vltk_tpu_torch.trace import VIT_BATCH, build_vit
+
+    flash, images = build_vit(VIT_BATCH, "flash", device=dev)
+    cfg = flash.cfg
+    check((cfg.hidden_size, cfg.num_heads, cfg.num_layers, cfg.intermediate_size, cfg.image_size, cfg.patch_size,
+           cfg.num_patches, cfg.dtype) == (768, 12, 12, 3072, 224, 16, 196, "bfloat16"), f"ViT-B/16 config {cfg}")
+    models = {"flash": flash}
+    for name, over in (("xla", {}), ("int8", {"int8": True})):
+        models[name] = ViT(dataclasses.replace(cfg, attention_impl="xla", **over)).to(dev).eval()
+        models[name].load_state_dict(flash.state_dict())
+    outs, launches = {}, {}
+    for name in ("flash", "xla"):
+        outs[name], launches[name] = counted(wrappers, lambda: models[name](images))
+    check(launches["flash"]["flash_attention"] == cfg.num_layers and sum(launches["flash"].values()) == cfg.num_layers,
+          f"ViT flash route launches {launches['flash']}")
+    check(not any(launches["xla"].values()), f"kernels on ViT's dense route: {launches['xla']}")
+    with shapes.recording():
+        scales = calibrate_int8_scales(models["int8"], [(images[:8],)])
+        outs["int8"], launches["int8"] = counted(wrappers, lambda: models["int8"](images))
+    check(len(scales) == 6 * cfg.num_layers and all(bool(torch.isfinite(s) and s > 0) for s in scales.values()),
+          "ViT int8 scales")
+    for name, (seq, pooled) in outs.items():
+        check(seq.shape == (VIT_BATCH, 197, 768) and pooled.shape == (VIT_BATCH, 768) and seq.dtype == torch.float32
+              and bool(torch.isfinite(seq).all() and torch.isfinite(pooled).all()), f"ViT {name} outputs")
+    route_err = float((outs["flash"][1] - outs["xla"][1]).abs().max())
+    route_rel = float((outs["flash"][1] - outs["xla"][1]).norm() / outs["xla"][1].norm())
+    seq_err = float((outs["flash"][0] - outs["xla"][0]).abs().max())
+    int8_err = float((outs["int8"][1] - outs["xla"][1]).abs().max())
+    print(f"ViT-B/16 B={VIT_BATCH} bf16: pooled, K3 route vs dense route max |d| = {route_err:.3e} "
+          f"(tol {VIT_ROUTE_TOL}; relative L2 {route_rel:.3e}; sequence {seq_err:.3e}); int8 vs dense {int8_err:.3e} "
+          f"(reported); "
+          f"launches flash {launches['flash']['flash_attention']}, int8 {launches['int8']['flash_attention']}")
+    check(route_err <= VIT_ROUTE_TOL, "ViT: K3 route != dense route")
+    timed = {}
+    for name in ("xla", "flash", "int8"):
+        images_s, step_ms, peak = time_forward(lambda: models[name](images), VIT_BATCH, VIT_STEPS)
+        timed[name] = {"images_per_s": images_s, "step_ms": step_ms, "peak_mem_gb": peak}
+        print(f"ViT-B/16 224 B={VIT_BATCH} bf16 {name}: {images_s:.2f} images/s ({step_ms:.3f} ms/step over "
+              f"{VIT_STEPS} steps) on {smi}; peak {peak:.2f} GB")
+    del models, outs
+    torch.cuda.empty_cache()
+    k3 = k3_at("ViT", VIT_SHAPE, None, torch.Generator().manual_seed(15), dev)
+    return {"launches": launches["flash"], "launches_by_route": launches, "route_err": route_err, "route_rel": route_rel,
+            "int8_vs_dense": int8_err, "timed": timed, "k3": k3}
+
+
+def phase_visualbert(dev, wrappers, smi: str) -> dict:
+    """VisualBERT at visualbert-vqa width (12 layers, 768, 2048-d regions),
+    bf16, B=32: 128 text tokens of varied real length and 36 regions (164
+    positions, padded to 256 by K3; the text pad is a hole in mid-stream);
+    the K3 route (12 launches a forward, nothing else) against the dense
+    route on the classification logits; both timed; K3 at this shape with
+    its mask against its plain version, timed beside SDPA with the boolean
+    mask."""
+    import dataclasses
+
+    from vltk_tpu_torch.models.visualbert import VisualBertForClassification
+    from vltk_tpu_torch.trace import VB_REGIONS, VB_TEXT, build_visualbert
+
+    flash, (ids, feats, tmask, vmask) = build_visualbert(VB_BATCH, "flash", device=dev)
+    cfg = flash.cfg
+    check((cfg.l_layers, cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, cfg.visual_feat_dim, cfg.vocab_size,
+           cfg.dtype) == (12, 768, 12, 3072, 2048, 30522, "bfloat16"), f"VisualBERT config {cfg}")
+    check(bool((tmask == 0).any()) and int(tmask.sum(1).min()) < VB_TEXT, "no text pad hole in the VisualBERT rows")
+    dense = VisualBertForClassification(dataclasses.replace(cfg, attention_impl="xla")).to(dev).eval()
+    dense.load_state_dict(flash.state_dict())
+    models = {"flash": flash, "xla": dense}
+    logits, launches = {}, {}
+    for name, model in models.items():
+        logits[name], launches[name] = counted(wrappers, lambda: model(ids, feats, None, tmask, vmask))
+        check(logits[name].shape == (VB_BATCH, 2) and bool(torch.isfinite(logits[name]).all()),
+              f"VisualBERT {name} logits")
+    check(launches["flash"]["flash_attention"] == cfg.l_layers and sum(launches["flash"].values()) == cfg.l_layers,
+          f"VisualBERT flash route launches {launches['flash']}")
+    check(not any(launches["xla"].values()), f"kernels on VisualBERT's dense route: {launches['xla']}")
+    err = float((logits["flash"] - logits["xla"]).abs().max())
+    print(f"VisualBERT B={VB_BATCH} ({VB_TEXT} text of {int(tmask.sum(1).min())}-{int(tmask.sum(1).max())} real + "
+          f"{VB_REGIONS} regions) bf16: logits, K3 route vs dense route max |d| = {err:.3e} (tol {VB_ROUTE_TOL})")
+    check(err <= VB_ROUTE_TOL, "VisualBERT: K3 route != dense route")
+    timed = {}
+    for name, model in models.items():
+        samples_s, step_ms, peak = time_forward(lambda: model(ids, feats, None, tmask, vmask), VB_BATCH, 10)
+        timed[name] = {"samples_per_s": samples_s, "step_ms": step_ms, "peak_mem_gb": peak}
+        print(f"VisualBERT B={VB_BATCH} bf16 {name}: {samples_s:.2f} samples/s ({step_ms:.3f} ms/step over 10 steps) "
+              f"on {smi}; peak {peak:.2f} GB")
+    mask = torch.cat([tmask, vmask], dim=1)
+    del models, dense, flash
+    torch.cuda.empty_cache()
+    k3 = k3_at("VisualBERT", (VB_BATCH, VB_TEXT + VB_REGIONS, 12, 64), mask, torch.Generator().manual_seed(16), dev)
+    return {"launches": launches["flash"], "route_err": err, "timed": timed, "k3": k3}
+
+
+def phase_moe(dev, wrappers, smi: str) -> dict:
+    """LXMERT-base with the MoE feed-forward (8 experts, top 2, capacity
+    factor 1.25) in all 24 of its feed-forward sites, bf16, B=32, 20 tokens
+    and 36 boxes: a forward whose 24 aux terms are finite and positive and
+    logits finite, then ``LxmertVQAExperiment`` for an epoch of 4 steps
+    (finite losses, no kernel: the streams are below the flash gate), the
+    step timed with its peak memory."""
+    import tempfile
+
+    from vltk_tpu_torch.experiments import LxmertVQAExperiment
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.models.moe import moe_aux_losses
+
+    cfg = LxmertConfig(dtype="bfloat16", moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                       moe_capacity_factor=MOE_CAPACITY)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_moe_") as logdir:
+        host = [lxmert_train_batch(LXMERT_TRAIN_BATCH, cfg, seed=i) for i in range(LXMERT_TRAIN_STEPS)]
+        t0 = time.perf_counter()
+        exp = lxmert_experiment(LxmertVQAExperiment, cfg, logdir, host, 1e-5, device=dev)
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in exp.model.parameters())
+        check(9e8 < n_params < 1.1e9, f"MoE LXMERT-base has {n_params} parameters")
+        data = next(iter(exp._device_batches([host[0]])))
+        exp.model.eval()
+        logits, launches = counted(wrappers, lambda: exp._logits(exp.model, data))
+        aux = moe_aux_losses(exp.model)
+        exp.model.train()
+        check(len(aux) == cfg.l_layers + cfg.r_layers + 2 * cfg.x_layers == 24, f"{len(aux)} MoE aux terms")
+        check(all(bool(torch.isfinite(v) and v > 0) for v in aux.values()), "MoE aux terms not finite and positive")
+        check(bool(torch.isfinite(logits).all()) and logits.shape == (LXMERT_TRAIN_BATCH, cfg.num_answers),
+              "MoE LXMERT logits")
+        check(not any(launches.values()), f"kernels on the MoE LXMERT forward: {launches}")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        exp()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = {k: w.launches for k, w in wrappers.items()}
+        check(not any(train_launches.values()), f"kernels on the MoE LXMERT training path: {train_launches}")
+        with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+            log = [json.loads(line) for line in f]
+        check(len(log) == LXMERT_TRAIN_STEPS and all(np.isfinite(r["loss"]) for r in log), f"MoE losses {log}")
+        samples_s, step_ms, peak = time_train_step(exp, host[0], batch=LXMERT_TRAIN_BATCH)
+        aux_values = [float(v) for v in aux.values()]
+        print(
+            f"MoE LXMERT-base ({MOE_EXPERTS} experts, top {MOE_TOP_K}, capacity factor {MOE_CAPACITY}; "
+            f"{n_params / 1e9:.3f} B parameters, built in {build_s:.1f} s) B={LXMERT_TRAIN_BATCH} bf16: 24 aux terms "
+            f"{min(aux_values):.5f}-{max(aux_values):.5f}; {LXMERT_TRAIN_STEPS} training steps in {train_s:.2f} s, "
+            f"losses {[round(r['loss'], 5) for r in log]}; no kernel launched; step {step_ms:.3f} ms, "
+            f"{samples_s:.2f} samples/s over 5 steps on {smi}; peak {peak:.2f} GB"
+        )
+        del exp
+    torch.cuda.empty_cache()
+    return {"launches": train_launches, "parameters": n_params, "aux": aux_values, "losses": [r["loss"] for r in log],
+            "samples_per_s": samples_s, "step_ms": step_ms, "peak_mem_gb": peak}
+
+
+def phase_server(dev, wrappers, smi: str) -> dict:
+    """``serving.for_doc`` in front of the card's LayoutLM-base
+    ``DocTokenClassifier`` (seq 1024, batch 4): a burst of 2 x 4 + 3
+    concurrent single documents from threads released together; every
+    caller's labels and scores equal the same document in one direct
+    batched call, K3 launched 12 times a bucket the server ran; latency
+    percentiles. Every wait has a timeout."""
+    import threading
+
+    from vltk_tpu_torch import vars as V
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.predict import DocTokenClassifier
+    from vltk_tpu_torch.serving import for_doc
+
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ)
+    clf = DocTokenClassifier(DOC_LABELS, config=cfg, batch_size=SERVER_BATCH, max_seq_length=DOC_SEQ, device=dev)
+    with open(V.VOCABPATH) as f:
+        vocab_words = [w for w in f.read().split("\n") if w.isascii() and w.isalpha()]
+    rng = np.random.default_rng(15)
+    docs = synthetic_documents(rng, vocab_words, rng.integers(5, 1500, 2 * SERVER_BATCH + 3).tolist())
+    want = clf(docs)  # one direct call: three buckets
+    results, errors = {}, []
+    barrier = threading.Barrier(len(docs))
+
+    def caller(i):
+        try:
+            barrier.wait(timeout=SERVER_WAIT_S)
+            t0 = time.perf_counter()
+            results[i] = (srv.submit(docs[i]).result(timeout=SERVER_WAIT_S), time.perf_counter() - t0)
+        except Exception as exc:  # reported below: the phase fails
+            errors.append(repr(exc))
+
+    for w in wrappers.values():
+        w.launches = 0
+    srv = for_doc(clf, max_delay_ms=20)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=caller, args=(i,)) for i in range(len(docs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=SERVER_WAIT_S)
+    srv.close(timeout=SERVER_WAIT_S)
+    torch.cuda.synchronize()
+    burst_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(not any(th.is_alive() for th in threads) and not errors, f"server callers: {errors}")
+    stats = srv.stats
+    check(len(results) == len(docs) and stats["requests_served"] == len(docs), f"server stats {stats}")
+    check(all(results[i][0] == want[i] for i in range(len(docs))), "server answers != one direct batched call")
+    check(launches["flash_attention"] == 12 * stats["batches_run"]
+          and sum(launches.values()) == launches["flash_attention"], f"server launches {launches}, {stats}")
+    print(f"for_doc server (LayoutLM-base seq {DOC_SEQ}, batch {SERVER_BATCH}): {len(docs)} concurrent single "
+          f"documents in {stats['batches_run']} buckets, {burst_s:.3f} s, {len(docs) / burst_s:.2f} documents/s on "
+          f"{smi}; latency ms {stats['latency_ms']}; slowest bucket {stats['slowest_batch_ms']} ms; answers equal to "
+          f"one direct call; K3 launches {launches['flash_attention']}")
+    return {"launches": launches, "stats": stats, "burst_s": burst_s, "requests": len(docs)}
+
+
+def phase_small_encoders(dev) -> None:
+    """Small f32 ViT, VisualBERT and MoE LXMERT on the card against the same
+    models on the CPU (TF32 off). ViT: the K3 route on the card (145 tokens,
+    no mask) against the dense route on the CPU; VisualBERT: the flash route
+    forced on both sides (K3 and the plain version), real positions; MoE:
+    logits and the 24 aux terms."""
+    from vltk_tpu_torch.models import lxmert as PX
+    from vltk_tpu_torch.models.moe import moe_aux_losses
+    from vltk_tpu_torch.models.visualbert import VisualBert, VisualBertConfig
+    from vltk_tpu_torch.models.vit import ViT, ViTConfig, init_vit_weights
+    from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
+    from vltk_tpu_torch.trace import visualbert_inputs
+
+    gate = PX._flash_applicable
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    try:
+        vcfg = ViTConfig(hidden_size=128, num_heads=2, num_layers=2, intermediate_size=256, image_size=192,
+                         attention_impl="flash")
+        cpu = init_vit_weights(ViT(vcfg), seed=7).eval()
+        gpu = ViT(vcfg).to(dev).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        images = torch.from_numpy(np.random.default_rng(7).normal(size=(3, 192, 192, 3)).astype(np.float32))
+        before = flash_attention_auto.launches
+        with torch.inference_mode():
+            want, got = cpu(images), gpu(images.to(dev))
+        check(flash_attention_auto.launches - before == vcfg.num_layers, "small ViT did not run K3 in every layer")
+        errs["vit"] = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+
+        bcfg = VisualBertConfig(vocab_size=2000, hidden_size=128, num_heads=2, intermediate_size=256, l_layers=2,
+                                visual_feat_dim=64, attention_impl="flash")
+        cpu = PX.init_weights(VisualBert(bcfg), seed=8).eval()
+        gpu = VisualBert(bcfg).to(dev).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        ids, feats, tmask, vmask = visualbert_inputs(3, bcfg, "cpu", seed=8)
+        PX._flash_applicable = lambda s, det, drop, device: s >= 128 and (det or drop == 0.0)
+        before = flash_attention_auto.launches
+        with torch.inference_mode():
+            want = cpu(ids, feats, None, tmask, vmask)
+            got = gpu(ids.to(dev), feats.to(dev), None, tmask.to(dev), vmask.to(dev))
+        PX._flash_applicable = gate
+        check(flash_attention_auto.launches - before == bcfg.l_layers, "small VisualBERT did not run K3")
+        real = torch.cat([tmask, vmask], 1).bool()
+        errs["visualbert"] = max(float((got[0].cpu() - want[0])[real].abs().max()),
+                                 float((got[1].cpu() - want[1]).abs().max()))
+
+        mcfg = PX.LxmertConfig(vocab_size=2000, hidden_size=64, num_heads=2, intermediate_size=128, visual_feat_dim=32,
+                               num_answers=10, moe_experts=4, moe_top_k=2)
+        cpu = PX.init_weights(PX.LxmertForVQA(mcfg), seed=9).eval()
+        gpu = PX.LxmertForVQA(mcfg).to(dev).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        batch = lxmert_train_batch(4, mcfg, seed=9)
+        ins = [torch.from_numpy(batch[k]) for k in ("input_ids", "features", "boxes", "text_attention_mask",
+                                                      "boxes_mask")]
+        ins[0], ins[2] = ins[0].long(), ins[2] / 1000.0
+        with torch.inference_mode():
+            want = cpu(*ins)
+            want_aux = moe_aux_losses(cpu)
+            got = gpu(*(x.to(dev) for x in ins)).cpu()
+            got_aux = moe_aux_losses(gpu)
+        check(list(want_aux) == list(got_aux) and len(got_aux) == 24, "small MoE LXMERT aux terms")
+        errs["moe"] = float((got - want).abs().max())
+        errs["moe_aux"] = max(abs(float(got_aux[k]) - float(v)) / float(v) for k, v in want_aux.items())
+    finally:
+        PX._flash_applicable = gate
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    print(f"small f32 encoders, card vs CPU: ViT (K3 vs dense) {errs['vit']:.2e}, VisualBERT (K3 vs plain flash, real "
+          f"positions) {errs['visualbert']:.2e}, MoE LXMERT logits {errs['moe']:.2e} (1e-4 each), aux terms "
+          f"{errs['moe_aux']:.2e} relative (1e-5)")
+    check(max(errs["vit"], errs["visualbert"], errs["moe"]) <= 1e-4 and errs["moe_aux"] <= 1e-5,
+          "small encoders: card != CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2880,6 +3290,15 @@ def main() -> int:
     lxmert_train = phase_lxmert_train(dev, KERNEL_WRAPPERS, smi)
     print("lxmert_training_run " + json.dumps(lxmert_train))
     phase_small_pretrain(dev)
+    vit = phase_vit(dev, KERNEL_WRAPPERS, smi, int8_shapes)
+    print("vit_run " + json.dumps(vit))
+    visualbert = phase_visualbert(dev, KERNEL_WRAPPERS, smi)
+    print("visualbert_run " + json.dumps(visualbert))
+    moe = phase_moe(dev, KERNEL_WRAPPERS, smi)
+    print("moe_run " + json.dumps(moe))
+    server = phase_server(dev, KERNEL_WRAPPERS, smi)
+    print("server_run " + json.dumps(server))
+    phase_small_encoders(dev)
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
@@ -2907,6 +3326,16 @@ def main() -> int:
         e["int8_vqa_launches"] = vqa_int8["launches"].get(key, 0)
         e["int8_document_launches"] = doc_int8["documents"]["launches"].get(key, 0)
         e["int8_span_launches"] = doc_int8["span"]["launches"].get(key, 0)
+        # the other encoders (one forward each), MoE LXMERT's 4 training
+        # steps and the server's burst
+        e["vit_launches"] = vit["launches"].get(key, 0)
+        e["visualbert_launches"] = visualbert["launches"].get(key, 0)
+        e["moe_lxmert_launches"] = moe["launches"].get(key, 0)
+        e["server_launches"] = server["launches"].get(key, 0)
+    # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
+    k3 = next(e for e in entries if e["name"] == "flash_attention")
+    for model, run in (("vit", vit), ("visualbert", visualbert)):
+        k3.update({f"{model}_{k}": v for k, v in run["k3"].items()})
     print(json.dumps({"kernels": entries + ablation}))
     print(json.dumps({
         "ok": True,

@@ -174,8 +174,7 @@ class TestModules:
             with pytest.raises(NotImplementedError):
                 LayoutLMConfig(**{flag: True})
         assert LayoutLMConfig(int8=True).int8  # ported: the int8 serving preset
-        with pytest.raises(NotImplementedError):
-            LayoutLMConfig(moe_experts=4)
+        assert LayoutLMConfig(moe_experts=4).moe_experts == 4  # ported: the MoE feed-forward
 
     def test_embeddings_with_clipped_boxes(self, jax_model, port_sd, rng):
         """Coordinates clipped to [0, 1023], h and w clipped after the

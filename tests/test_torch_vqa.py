@@ -247,8 +247,7 @@ class TestModules:
         for flag, item in (("remat", "A.13"), ("activation_sharding", "A.14")):
             with pytest.raises(NotImplementedError, match=item):
                 PX.LxmertConfig(**{flag: True})
-        with pytest.raises(NotImplementedError, match="A.11b"):
-            PX.LxmertConfig(moe_experts=4)
+        assert PX.LxmertConfig(moe_experts=4).moe_experts == 4  # A.11b is ported
         assert PX.LxmertConfig(int8=True).int8  # A.9 is ported
 
 

@@ -21,8 +21,19 @@ token-classification / span-QA model with its ``layoutlm`` child) -> the HF
 flax model has none).
 
 ``jax_quant_to_torch`` maps a flax ``"quant"`` collection (the int8
-layers' recorded ``act_max``) of an FRCNN, LXMERT or LayoutLM to
+layers' recorded ``act_max``) of an FRCNN, LXMERT, LayoutLM or ViT to
 ``{module name: act_max}`` for ``models.layers.load_int8_scales``.
+
+``jax_vit_to_torch`` and ``jax_visualbert_to_torch`` give HF ``ViTModel`` and
+``VisualBertModel`` names (a headed VisualBERT tree: ``visual_bert.`` and
+HF ``VisualBertForVisualReasoning``'s ``cls``), the keys the JAX package's
+converters of the same names write.
+
+MoE layers (``moe_experts > 0``) have no HF names; the port's are
+``models/moe.py``'s: flax ``.../ffn/{router,wi,bi,wo,bo,ln}`` ->
+``....moe.{router.weight/bias,wi,bi,wo,bo,LayerNorm.weight/bias}`` (in
+LXMERT's cross layers ``lang_ffn`` / ``visn_ffn`` -> ``lang_moe`` /
+``visn_moe``); the expert stacks keep flax's (E, in, out) layout.
 
 ``jax_lxmert_to_torch`` does the same for LXMERT (an ``LxmertForVQA`` or
 ``LxmertForPretraining`` tree with its ``lxmert`` child and heads, or a bare
@@ -95,7 +106,12 @@ def _attention_names(flax: str, qkv: str, out: str) -> Dict[tuple, str]:
     }
 
 
-def _ffn_names(flax: str, inter: str, out: str) -> Dict[tuple, str]:
+def _ffn_names(flax: str, inter: str, out: str, moe: str, is_moe: bool) -> Dict[tuple, str]:
+    """A feed-forward's flax module paths -> the port's: HF's dense
+    ``inter`` / ``out``, or the port's MoE block ``moe`` (its expert
+    stacks are leaves of the block itself)."""
+    if is_moe:
+        return {(flax,): moe, (flax, "router"): f"{moe}.router", (flax, "ln"): f"{moe}.LayerNorm"}
     return {
         (flax, "intermediate"): f"{inter}.dense",
         (flax, "mlp_out"): f"{out}.dense",
@@ -103,27 +119,48 @@ def _ffn_names(flax: str, inter: str, out: str) -> Dict[tuple, str]:
     }
 
 
-# flax module path inside a BERT-style layer (LayoutLM's, LXMERT's
-# language and visual layers) -> HF module path
-_BERT_LAYER = {
-    **_attention_names("att", "attention.self", "attention.output"),
-    **_ffn_names("ffn", "intermediate", "output"),
-}
-_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+def _bert_layer(is_moe: bool) -> Dict[tuple, str]:
+    """flax module path inside a BERT-style layer (LayoutLM's, VisualBERT's,
+    LXMERT's language and visual layers) -> HF module path."""
+    return {
+        **_attention_names("att", "attention.self", "attention.output"),
+        **_ffn_names("ffn", "intermediate", "output", "moe", is_moe),
+    }
+
+
+_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight",
+         **{w: w for w in ("wi", "bi", "wo", "bo")}}
 _HEADS = ("classifier", "qa_outputs")
 
 
-def _layoutlm_name(path) -> str:
-    """flax path inside the encoder (``embeddings/...`` or
-    ``layer_i/...``) -> HF name without the ``layoutlm.`` prefix."""
+def _is_moe(tree: Mapping[str, Any]) -> bool:
+    return any(path[-1] == "wi" for path, _ in _flatten(tree))
+
+
+def _bert_name(path, is_moe: bool = False) -> str:
+    """flax path inside a single-stream encoder (``embeddings/...``,
+    ``layer_i/...`` or ``pooler/dense/...``) -> HF name without the model's
+    prefix."""
     top, *mods, leaf = path
+    layer = _bert_layer(is_moe)
     if top == "embeddings":
         mod = "LayerNorm" if mods == ["ln"] else ".".join(mods)
         return f"embeddings.{mod}.{_LEAF[leaf]}"
-    if top.startswith("layer_") and tuple(mods) in _BERT_LAYER:
+    if top == "pooler" and mods == ["dense"]:
+        return f"pooler.dense.{_LEAF[leaf]}"
+    if top.startswith("layer_") and tuple(mods) in layer:
         i = int(top[len("layer_"):])
-        return f"encoder.layer.{i}.{_BERT_LAYER[tuple(mods)]}.{_LEAF[leaf]}"
-    raise KeyError(f"unexpected LayoutLM param path {'/'.join(path)}")
+        return f"encoder.layer.{i}.{layer[tuple(mods)]}.{_LEAF[leaf]}"
+    raise KeyError(f"unexpected encoder param path {'/'.join(path)}")
+
+
+def _bert_state_dict(encoder: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    is_moe = _is_moe(encoder)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(encoder):
+        arr = np.asarray(value, dtype=np.float32)
+        out[prefix + _bert_name(path, is_moe)] = _tensor(arr.T if path[-1] == "kernel" else arr)
+    return out
 
 
 def jax_layoutlm_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -133,12 +170,7 @@ def jax_layoutlm_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     its ``classifier`` / ``qa_outputs`` head; a bare encoder tree gives
     unprefixed names (``LayoutLM``)."""
     headed = "layoutlm" in params
-    encoder = params["layoutlm"] if headed else params
-    out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(encoder):
-        arr = np.asarray(value, dtype=np.float32)
-        name = ("layoutlm." if headed else "") + _layoutlm_name(path)
-        out[name] = _tensor(arr.T if path[-1] == "kernel" else arr)
+    out = _bert_state_dict(params["layoutlm"] if headed else params, "layoutlm." if headed else "")
     for head in _HEADS:
         if head in params:
             out[f"{head}.weight"] = _tensor(np.asarray(params[head]["kernel"]).T)
@@ -149,15 +181,18 @@ def jax_layoutlm_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-# LXMERT's cross-modality layer: one cross-attention (HF's ``att`` child),
-# then per-stream self-attention and feed-forward
-_X_LAYER = {
-    **_attention_names("cross_att", "visual_attention.att", "visual_attention.output"),
-    **_attention_names("lang_self_att", "lang_self_att.self", "lang_self_att.output"),
-    **_attention_names("visn_self_att", "visn_self_att.self", "visn_self_att.output"),
-    **_ffn_names("lang_ffn", "lang_inter", "lang_output"),
-    **_ffn_names("visn_ffn", "visn_inter", "visn_output"),
-}
+def _x_layer(is_moe: bool) -> Dict[tuple, str]:
+    """LXMERT's cross-modality layer: one cross-attention (HF's ``att``
+    child), then per-stream self-attention and feed-forward."""
+    return {
+        **_attention_names("cross_att", "visual_attention.att", "visual_attention.output"),
+        **_attention_names("lang_self_att", "lang_self_att.self", "lang_self_att.output"),
+        **_attention_names("visn_self_att", "visn_self_att.self", "visn_self_att.output"),
+        **_ffn_names("lang_ffn", "lang_inter", "lang_output", "lang_moe", is_moe),
+        **_ffn_names("visn_ffn", "visn_inter", "visn_output", "visn_moe", is_moe),
+    }
+
+
 _LXMERT_MODULES = {
     ("embeddings", "word_embeddings"): "embeddings.word_embeddings",
     ("embeddings", "position_embeddings"): "embeddings.position_embeddings",
@@ -171,9 +206,9 @@ _LXMERT_MODULES = {
 }
 # flax layer-name prefix -> (HF stack, layer table)
 _LXMERT_STACKS = {
-    "layer_": ("encoder.layer", _BERT_LAYER),
-    "r_layer_": ("encoder.r_layers", _BERT_LAYER),
-    "x_layer_": ("encoder.x_layers", _X_LAYER),
+    "layer_": ("encoder.layer", _bert_layer),
+    "r_layer_": ("encoder.r_layers", _bert_layer),
+    "x_layer_": ("encoder.x_layers", _x_layer),
 }
 # flax head module path -> HF module path (``LxmertForQuestionAnswering``'s
 # answer head, ``LxmertForPreTraining``'s ``cls`` and ``obj_predict_head``)
@@ -194,12 +229,12 @@ _LXMERT_HEADS = {
 _HEAD_ROOTS = {mods[0] for mods in _LXMERT_HEADS}
 
 
-def _lxmert_name(path) -> str:
+def _lxmert_name(path, is_moe: bool = False) -> str:
     """flax path inside the encoder -> HF name without ``lxmert.``."""
     top, *mods, leaf = path
     module = _LXMERT_MODULES.get((top, *mods))
-    for prefix, (stack, table) in _LXMERT_STACKS.items():
-        index = top[len(prefix):]
+    for prefix, (stack, layer) in _LXMERT_STACKS.items():
+        index, table = top[len(prefix):], layer(is_moe)
         if module is None and top.startswith(prefix) and index.isdigit() and tuple(mods) in table:
             module = f"{stack}.{int(index)}.{table[tuple(mods)]}"
     if module is None or leaf not in _LEAF:
@@ -230,10 +265,13 @@ def jax_lxmert_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     unknown = set(params) - {"lxmert", *_HEAD_ROOTS} if headed else set()
     if unknown:
         raise KeyError(f"unexpected LXMERT param keys {sorted(unknown)}")
+    encoder = params["lxmert"] if headed else params
+    is_moe = _is_moe(encoder)
     out: Dict[str, torch.Tensor] = {}
-    for path, value in _flatten(params["lxmert"] if headed else params):
+    for path, value in _flatten(encoder):
         arr = np.asarray(value, dtype=np.float32)
-        out[("lxmert." if headed else "") + _lxmert_name(path)] = _tensor(arr.T if path[-1] == "kernel" else arr)
+        out[("lxmert." if headed else "") + _lxmert_name(path, is_moe)] = _tensor(
+            arr.T if path[-1] == "kernel" else arr)
     for root in sorted(set(params) & _HEAD_ROOTS) if headed else ():
         for path, value in _flatten(params[root], (root,)):
             arr = np.asarray(value, dtype=np.float32)
@@ -244,27 +282,30 @@ def jax_lxmert_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def _quant_module(path, kind: str) -> str:
     """flax path of an int8 layer (without ``act_max``) -> the port's module
     name: the ConvNorm of an FRCNN ``.../conv`` path, the HF-named
-    projection of an LXMERT or LayoutLM path."""
+    projection of an LXMERT, LayoutLM or ViT path."""
     if kind == "frcnn":
         top, *mods = path
         if top not in _PREFIX or not mods or mods[-1] != "conv":
             raise KeyError(f"unexpected FRCNN quant path {'/'.join(path)}")
         return _PREFIX[top] + ".".join(mods[:-1])
+    if kind == "vit":
+        return _vit_name((*path, "kernel"))[: -len(".weight")]
     headed = path[0] == kind
     rest = tuple(path[1:]) if headed else tuple(path)
-    name = (_lxmert_name if kind == "lxmert" else _layoutlm_name)((*rest, "kernel"))
+    name = (_lxmert_name if kind == "lxmert" else _bert_name)((*rest, "kernel"))
     return (f"{kind}." if headed else "") + name[: -len(".weight")]
 
 
 def jax_quant_to_torch(quant: Mapping[str, Any], model) -> Dict[str, torch.Tensor]:
     """A flax ``"quant"`` collection (nested dicts of arrays, each int8
     layer's ``act_max``) -> ``{module name: act_max}`` of ``model``, the
-    port's ``FRCNN``, an LXMERT model or a LayoutLM model. Every name must be
+    port's ``FRCNN``, an LXMERT model, a LayoutLM model or a ``ViT``. Every name must be
     one of ``model``'s int8 layers."""
     from vltk_tpu_torch.models.frcnn import FRCNN
     from vltk_tpu_torch.models.layers import int8_layers
+    from vltk_tpu_torch.models.vit import ViT
 
-    kind = "frcnn" if isinstance(model, FRCNN) else (
+    kind = "frcnn" if isinstance(model, FRCNN) else "vit" if isinstance(model, ViT) else (
         "layoutlm" if type(model).__name__.startswith("LayoutLM") else "lxmert")
     layers = int8_layers(model)
     out: Dict[str, torch.Tensor] = {}
@@ -275,4 +316,71 @@ def jax_quant_to_torch(quant: Mapping[str, Any], model) -> Dict[str, torch.Tenso
         if name not in layers:
             raise KeyError(f"{'/'.join(path)} -> {name}, which is no int8 layer of the model")
         out[name] = torch.tensor(np.asarray(value, dtype=np.float32))
+    return out
+
+
+# flax module inside ``layer_i_att`` / ``layer_i_mlp`` -> HF ``ViTLayer`` module
+_VIT_ATT = {
+    ("ln_before",): "layernorm_before",
+    ("query",): "attention.attention.query",
+    ("key",): "attention.attention.key",
+    ("value",): "attention.attention.value",
+    ("att_out",): "attention.output.dense",
+}
+_VIT_MLP = {
+    ("ln_after",): "layernorm_after",
+    ("intermediate",): "intermediate.dense",
+    ("mlp_out",): "output.dense",
+}
+_VIT_TOP = {
+    ("ln",): "layernorm",
+    ("pooler",): "pooler.dense",
+    ("patch_embed",): "embeddings.patch_embeddings.projection",
+}
+
+
+def _vit_name(path) -> str:
+    """flax ViT path -> HF ``ViTModel`` name."""
+    top, *mods, leaf = path
+    module = _VIT_TOP.get((top, *mods))
+    for suffix, table in (("_att", _VIT_ATT), ("_mlp", _VIT_MLP)):
+        index = top[len("layer_"):-len(suffix)]
+        if module is None and top.startswith("layer_") and top.endswith(suffix) and index.isdigit() \
+                and tuple(mods) in table:
+            module = f"encoder.layer.{int(index)}.{table[tuple(mods)]}"
+    if module is None or leaf not in _LEAF:
+        raise KeyError(f"unexpected ViT param path {'/'.join(path)}")
+    return f"{module}.{_LEAF[leaf]}"
+
+
+def jax_vit_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ViT params -> the port's (HF ``ViTModel``-named) state dict of
+    float32 tensors: the patch kernel HWIO -> OIHW, dense kernels
+    transposed, the CLS token and the position table as they are."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        arr = np.asarray(value, dtype=np.float32)
+        if path in (("cls_token",), ("position_embeddings",)):
+            out[f"embeddings.{path[0]}"] = _tensor(arr)
+            continue
+        if path[-1] == "kernel":
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        out[_vit_name(path)] = _tensor(arr)
+    return out
+
+
+def jax_visualbert_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax VisualBERT params -> the port's (HF-named) state dict of float32
+    tensors. A ``VisualBertForClassification`` tree (``visualbert`` and
+    ``classifier`` children) gives ``visual_bert.``-prefixed encoder names
+    and HF ``VisualBertForVisualReasoning``'s ``cls`` head; a bare
+    ``VisualBert`` tree gives ``VisualBertModel`` names."""
+    headed = "visualbert" in params
+    unknown = set(params) - {"visualbert", "classifier"} if headed else set()
+    if unknown:
+        raise KeyError(f"unexpected VisualBERT param keys {sorted(unknown)}")
+    out = _bert_state_dict(params["visualbert"] if headed else params, "visual_bert." if headed else "")
+    if headed:
+        out["cls.weight"] = _tensor(np.asarray(params["classifier"]["kernel"]).T)
+        out["cls.bias"] = _tensor(params["classifier"]["bias"])
     return out

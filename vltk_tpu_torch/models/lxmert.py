@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vltk_tpu_torch.models.layers import Int8Linear
+from vltk_tpu_torch.models.moe import MoEFeedForward
 from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
 
 NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
@@ -57,8 +58,9 @@ NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
 @dataclasses.dataclass(frozen=True)
 class LxmertConfig:
     """Static hyper-parameters; the field set of the JAX package's
-    ``LxmertConfig``. The options that need a mesh, MoE or remat raise
-    ``NotImplementedError`` in the port for now."""
+    ``LxmertConfig``. The options that need a mesh or remat raise
+    ``NotImplementedError`` in the port for now; ``moe_experts > 0`` puts
+    ``models.moe.MoEFeedForward`` in every feed-forward's place."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -98,7 +100,6 @@ class LxmertConfig:
         unported = {
             "activation_sharding (ROADMAP A.14)": self.activation_sharding,
             "seq_attention_sharding (ROADMAP A.14)": self.seq_attention_sharding,
-            "moe_experts > 0 (ROADMAP A.11b)": self.moe_experts > 0,
             "remat (ROADMAP A.13)": self.remat,
         }
         on = [name for name, value in unported.items() if value]
@@ -228,24 +229,47 @@ class MultiHeadAttention(nn.Module):
         return self.output(out4.reshape(n, s, h), x)
 
 
-def _feed_forward(inter: _Intermediate, out: _DenseNorm, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """Exact-erf GELU MLP with post-LN residual."""
-    y = F.gelu(proj(inter.dense, x, dt), approximate="none")
-    return out(y, x)
+# a feed-forward's module names: HF's dense intermediate and output, and
+# the port's MoE block in their place
+_FFN = ("intermediate", "output", "moe")
+_LANG_FFN = ("lang_inter", "lang_output", "lang_moe")
+_VISN_FFN = ("visn_inter", "visn_output", "visn_moe")
+
+
+def _add_ffn(module: nn.Module, cfg: LxmertConfig, names: Tuple[str, str, str]) -> None:
+    """A layer's feed-forward (the JAX package's ``_ffn_cls``): the dense
+    intermediate and output modules, or the MoE block when
+    ``cfg.moe_experts > 0``."""
+    inter, out, moe = names
+    if cfg.moe_experts > 0:
+        module.add_module(moe, MoEFeedForward(cfg))
+    else:
+        module.add_module(inter, _Intermediate(cfg))
+        module.add_module(out, _DenseNorm(cfg, cfg.intermediate_size))
+
+
+def _feed_forward(module: nn.Module, names: Tuple[str, str, str], x: torch.Tensor,
+                  dt: torch.dtype) -> torch.Tensor:
+    """The feed-forward ``_add_ffn`` built: the MoE block, or the exact-erf
+    GELU MLP with post-LN residual."""
+    inter, out, moe = names
+    if moe in module._modules:
+        return module._modules[moe](x)
+    y = F.gelu(proj(getattr(module, inter).dense, x, dt), approximate="none")
+    return getattr(module, out)(y, x)
 
 
 class FeedForward(nn.Module):
     """Exact-erf GELU MLP with post-LN residual (BERT intermediate +
-    output)."""
+    output), or the MoE block ``moe`` under ``cfg.moe_experts > 0``."""
 
     def __init__(self, cfg: LxmertConfig):
         super().__init__()
-        self.intermediate = _Intermediate(cfg)
-        self.output = _DenseNorm(cfg, cfg.intermediate_size)
+        _add_ffn(self, cfg, _FFN)
         self.dt = cfg.compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _feed_forward(self.intermediate, self.output, x, self.dt)
+        return _feed_forward(self, _FFN, x, self.dt)
 
 
 class TransformerLayer(FeedForward):
@@ -273,10 +297,8 @@ class CrossModalityLayer(nn.Module):
         self.visual_attention = MultiHeadAttention(cfg, qkv_name="att")
         self.lang_self_att = MultiHeadAttention(cfg)
         self.visn_self_att = MultiHeadAttention(cfg)
-        self.lang_inter = _Intermediate(cfg)
-        self.lang_output = _DenseNorm(cfg, cfg.intermediate_size)
-        self.visn_inter = _Intermediate(cfg)
-        self.visn_output = _DenseNorm(cfg, cfg.intermediate_size)
+        _add_ffn(self, cfg, _LANG_FFN)
+        _add_ffn(self, cfg, _VISN_FFN)
 
     def forward(self, lang: torch.Tensor, lang_mask: Optional[torch.Tensor], visn: torch.Tensor,
                 visn_mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -284,8 +306,8 @@ class CrossModalityLayer(nn.Module):
         visn2 = self.visual_attention(visn, lang, lang_mask)
         lang2 = self.lang_self_att(lang2, lang2, lang_mask)
         visn2 = self.visn_self_att(visn2, visn2, visn_mask)
-        lang2 = _feed_forward(self.lang_inter, self.lang_output, lang2, self.dt)
-        visn2 = _feed_forward(self.visn_inter, self.visn_output, visn2, self.dt)
+        lang2 = _feed_forward(self, _LANG_FFN, lang2, self.dt)
+        visn2 = _feed_forward(self, _VISN_FFN, visn2, self.dt)
         return lang2, visn2
 
 
@@ -577,7 +599,7 @@ def resize_num_qa_labels(state_dict, num_answers: int, generator: torch.Generato
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: normal(0, initializer_range) for every
-    projection and embedding table, zero biases, unit LayerNorms (the flax
+    projection, embedding table and MoE expert stack, zero biases, unit LayerNorms (the flax
     initialisers of the JAX package, not its random draws). Deterministic
     for a seed whatever the device: the numbers are drawn on the CPU."""
     gen = torch.Generator().manual_seed(seed)
@@ -593,4 +615,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 mod.bias.zero_()
             elif isinstance(mod, MLMHead):
                 mod.bias.zero_()
+            elif isinstance(mod, MoEFeedForward):
+                for w in (mod.wi, mod.wo):
+                    w.copy_(torch.randn(w.shape, generator=gen) * std)
+                mod.bi.zero_()
+                mod.bo.zero_()
     return model

@@ -5,6 +5,8 @@
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] [--batch 8]
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] --lrs 1e-4 1e-5
     python -m vltk_tpu_torch.trace --model vqa [--batch 8] [--int8]
+    python -m vltk_tpu_torch.trace --model vit [--attn flash|xla] [--batch 64] [--int8]
+    python -m vltk_tpu_torch.trace --model visualbert [--attn flash|xla] [--batch 32]
 
 ``--model frcnn`` (default) builds the ``--preset`` extraction (default
 ``parity_300``: R-101-C4, 1600 classes, 400 attributes, bf16; ``production``
@@ -26,7 +28,14 @@ its statistics in the forward and K4 and K5 in the backward. ``--model
 vqa`` builds the composed VQA step (``predict.VQAPredictor.step``: the
 ``parity_300`` FRCNN, tamed, then LXMERT-base in bf16 with seeded random
 weights, 3129 answers) on the extraction canvas, with 8 questions of 20
-tokens. It prints:
+tokens. ``--model vit`` builds ViT-B/16 at 224 (bf16, seeded random
+weights; ``--int8`` calibrated on the first 8 images) over bench.py's 64
+images from ``default_rng(0)``; ``--attn flash`` (its default) sends
+each layer's self-attention (197 tokens, no mask) to K3. ``--model
+visualbert`` builds the VisualBERT classifier at visualbert-vqa width (12
+layers, 768, 2048-d regions; bf16) over 32 rows of 128 text tokens of
+varied real length and 36 regions (164 positions, padded to 256 by K3),
+``--attn flash`` (default) or ``xla``. It prints:
 
 * the step time over ``--repeats`` windows of ``--steps`` steps (host
   clock, synchronised), to show the spread;
@@ -34,8 +43,8 @@ tokens. It prints:
   stages: preprocess, backbone, RPN head, propose, RoI heads, postprocess
   (and for VQA then LXMERT's embeddings with the box normalisation and
   the visual projection, language layers, visual layers, cross layers,
-  pooler and answer head); or embeddings, encoder, head; or forward,
-  backward, optimizer);
+  pooler and answer head); or embeddings, encoder, head (also for ViT
+  and VisualBERT); or forward, backward, optimizer);
 * from a ``torch.profiler`` trace of ``--steps`` steps: device time by
   kernel class and the top kernels, and the device's busy share of the
   traced span (union of kernel intervals over first-start..last-end); on
@@ -175,6 +184,55 @@ def vqa_inputs(pred, batch: int, device):
     return raw, sizes, ids, tmask
 
 
+VIT_BATCH = 64  # bench.py --infer vit
+
+
+def build_vit(batch: int, attn: str, int8: bool = False, device="cuda"):
+    """ViT-B/16 at 224, bf16, seeded random weights, over bench.py's images
+    (``default_rng(0)`` normal, NHWC, on the device); with ``int8`` the
+    scales are calibrated on the first 8 images, as bench.py does."""
+    from vltk_tpu_torch.models.layers import calibrate_int8_scales
+    from vltk_tpu_torch.models.vit import ViT, ViTConfig, init_vit_weights
+
+    cfg = ViTConfig(dtype="bfloat16", attention_impl=attn, int8=int8)
+    model = init_vit_weights(ViT(cfg), seed=0).to(device).eval()
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.normal(size=(batch, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    images = images.to(device)
+    if int8:
+        calibrate_int8_scales(model, [(images[:min(batch, 8)],)])
+    return model, images
+
+
+VB_TEXT, VB_REGIONS = 128, 36  # visualbert-vqa: 128 text tokens, 36 regions
+
+
+def visualbert_inputs(batch: int, cfg, device, seed: int = 0):
+    """ids, region features, a text mask of real lengths 8-128 (the pad
+    leaves a hole between text and regions), a visual mask (a quarter of
+    the rows with 10-35 real regions), token types 0; on the device."""
+    rng = np.random.default_rng(seed)
+    t_real = rng.integers(8, VB_TEXT + 1, batch)
+    tmask = (np.arange(VB_TEXT)[None] < t_real[:, None]).astype(np.float32)
+    v_real = np.where(rng.random(batch) < 0.25, rng.integers(10, VB_REGIONS, batch), VB_REGIONS)
+    vmask = (np.arange(VB_REGIONS)[None] < v_real[:, None]).astype(np.float32)
+    ids = np.where(tmask > 0, rng.integers(1000, cfg.vocab_size, (batch, VB_TEXT)), 0)
+    feats = np.abs(rng.normal(size=(batch, VB_REGIONS, cfg.visual_feat_dim))) * vmask[..., None]
+    put = lambda a, dt: torch.from_numpy(np.asarray(a)).to(device, dt)  # noqa: E731
+    return put(ids, torch.int64), put(feats, torch.float32), put(tmask, torch.float32), put(vmask, torch.float32)
+
+
+def build_visualbert(batch: int, attn: str, device="cuda"):
+    """The VisualBERT classifier at visualbert-vqa width (12 layers, 768,
+    12 heads, 2048-d regions), bf16, seeded random weights, and its inputs."""
+    from vltk_tpu_torch.models.lxmert import init_weights
+    from vltk_tpu_torch.models.visualbert import VisualBertConfig, VisualBertForClassification
+
+    cfg = VisualBertConfig(dtype="bfloat16", attention_impl=attn)
+    model = init_weights(VisualBertForClassification(cfg), seed=0).to(device).eval()
+    return model, visualbert_inputs(batch, cfg, device)
+
+
 def bench_documents(batch: int, vocab_size: int, device):
     """bench.py's LayoutLM inputs (--infer layoutlm), on the device."""
     rng = np.random.default_rng(0)
@@ -308,6 +366,41 @@ def stage_times_layoutlm(clf, ids, boxes, mask, steps: int):
     return timed_stages(("embeddings", "encoder", "head"), run, steps)
 
 
+@torch.inference_mode()
+def stage_times_vit(model, images, steps: int):
+    """Mean device ms of embeddings (patch conv, CLS, positions), encoder
+    and head (final LayerNorm, pooler) over ``steps``."""
+    def run(mark):
+        x = model.embed(images)
+        mark()
+        for layer in model.encoder.layer:
+            x = layer(x)
+        mark()
+        x = model.layernorm(x.float())
+        torch.tanh(model.pooler.dense(x[:, 0]))
+        mark()
+
+    return timed_stages(("embeddings", "encoder", "head"), run, steps)
+
+
+@torch.inference_mode()
+def stage_times_visualbert(model, ids, feats, tmask, vmask, steps: int):
+    """Mean device ms of embeddings, encoder and head (pooler, classifier)."""
+    vb = model.visual_bert
+    mask = torch.cat([tmask, vmask], dim=1)
+
+    def run(mark):
+        x = vb.embeddings(ids, feats)
+        mark()
+        for layer in vb.encoder.layer:
+            x = layer(x, mask)
+        mark()
+        model.cls(vb.pooler(x.float()))
+        mark()
+
+    return timed_stages(("embeddings", "encoder", "head"), run, steps)
+
+
 FRCNN_STAGES = ("preprocess", "backbone", "rpn_head", "propose", "roi_heads", "postprocess")
 
 
@@ -407,20 +500,26 @@ def busy_share(intervals):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("frcnn", "layoutlm", "vqa"), default="frcnn")
-    ap.add_argument("--attn", choices=("auto", "xla"), default="auto",
-                    help="layoutlm: attention_impl (auto = the flash kernel at seq 1024)")
+    ap.add_argument("--model", choices=("frcnn", "layoutlm", "vqa", "vit", "visualbert"), default="frcnn")
+    ap.add_argument("--attn", choices=("auto", "flash", "xla"), default=None,
+                    help="layoutlm: attention_impl auto (the flash kernel at seq 1024, default) or xla; "
+                         "vit, visualbert: flash (default) or xla")
     ap.add_argument("--train", action="store_true", help="layoutlm: the training step (bench.py --train)")
     ap.add_argument("--lrs", type=float, nargs="+", default=None,
                     help="layoutlm --train: instead of tracing, print the losses of chip_smoke.py's "
                          "8-step epoch at each of these learning rates")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 (frcnn, vqa), 32 (layoutlm), 8 (layoutlm --train)")
+                    help="default 8 (frcnn, vqa), 32 (layoutlm, visualbert), 8 (layoutlm --train), 64 (vit)")
     ap.add_argument("--preset", default="parity_300", help="frcnn: the extraction preset (production = int8_300)")
-    ap.add_argument("--int8", action="store_true", help="vqa, layoutlm: the int8 serving presets")
+    ap.add_argument("--int8", action="store_true", help="vqa, layoutlm, vit: the int8 serving presets")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
+    wants_flash = args.model in ("vit", "visualbert")
+    if args.attn is None:
+        args.attn = "flash" if wants_flash else "auto"
+    if (args.attn == "flash") != wants_flash and args.attn != "xla":
+        ap.error(f"--attn {args.attn} is not a route of --model {args.model}")
     if args.train and args.int8:
         ap.error("the int8 presets are for serving (round has a zero gradient)")
     if not torch.cuda.is_available():
@@ -453,6 +552,18 @@ def main() -> None:
         pred.calibrate_int8(raw, sizes, ids, tmask)  # int8: first bucket's scales
         step = lambda: pred.step(raw, sizes, ids, tmask)  # noqa: E731
         stages_fn = lambda: stage_times_vqa(pred, raw, sizes, ids, tmask, args.steps)  # noqa: E731
+        unit = "samples_per_s"
+    elif args.model == "vit":
+        batch = args.batch or VIT_BATCH
+        model, images = build_vit(batch, args.attn, args.int8)
+        step = torch.inference_mode()(lambda: model(images))
+        stages_fn = lambda: stage_times_vit(model, images, args.steps)  # noqa: E731
+        unit = "images_per_s"
+    elif args.model == "visualbert":
+        batch = args.batch or 32
+        model, (ids, feats, tmask, vmask) = build_visualbert(batch, args.attn)
+        step = torch.inference_mode()(lambda: model(ids, feats, None, tmask, vmask))
+        stages_fn = lambda: stage_times_visualbert(model, ids, feats, tmask, vmask, args.steps)  # noqa: E731
         unit = "samples_per_s"
     elif args.train:
         import tempfile
@@ -534,7 +645,7 @@ def main() -> None:
         "model": args.model,
         "train": bool(args.train),
         "peak_mem_gb": peak_gb,
-        "attn": args.attn if args.model == "layoutlm" else None,
+        "attn": args.attn if args.model in ("layoutlm", "vit", "visualbert") else None,
         "preset": args.preset if args.model == "frcnn" else None,
         "int8": bool(args.int8) if args.model != "frcnn" else bundle["cfg"].int8,
         "int8_ms_per_step": {k: v / 1e3 / args.steps for k, v in int8_split.items()},
