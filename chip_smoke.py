@@ -165,7 +165,7 @@ package):
    documents/s and questions/s beside bf16's, labels against bf16's
    reported); tiny f32 int8 FRCNN, LXMERT and LayoutLM card vs CPU with
    the same scales (1e-4, or 1e-2 of the output's scale where an int8
-   rounding flip reached it); last (after 24-28), the int8 products (``torch._int_mm``
+   rounding flip reached it); last (after 24-29), the int8 products (``torch._int_mm``
    behind im2col) against the exact route on the card, bitwise, at every
    conv geometry and (M, K, N) those paths ran, an M <= 16 product and a
    NaN activation (0, as on the CPU);
@@ -194,10 +194,26 @@ package):
    percentiles; every wait with a timeout;
 28. small f32 ViT (K3 vs dense), VisualBERT (K3 vs plain flash) and MoE
    LXMERT (logits and aux terms) card vs CPU;
-29. prints the ``kernels`` JSON line (each kernel also with its launches on
-   the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT
-   and the server; K3 also with its times and bounds at ViT's and
-   VisualBERT's shapes), then the device line last.
+29. the host data plane through the user's entry points: a raw COCO-2014 +
+   VQA corpus from seed 0 (64 JPEGs of 480 x 640, 512 questions, 4
+   answers) -> the coco2014 and vqa adapters' Arrow tables ->
+   ``FRCNN.extract`` (parity_300, B=8, seeded tamed weights from a state
+   dict: K1 8 and K2 16 launches, no other kernel) -> 8 stored rows
+   bitwise equal to a direct call of the step on the same decoded batch ->
+   ``Experiments.get("data")`` on ``build(config)`` (extractor "frcnn",
+   B=32, 4 loader threads) -> ``LxmertVQAExperiment`` with
+   ``loaders=None``, LXMERT-base bf16, an epoch of 16 steps (finite
+   losses, no kernel); prints the ETL seconds, images/s through the
+   extraction pipeline, the host fetch a batch (median, p90), the step in
+   two more epochs each with the loader and without it (one host batch
+   16 times through the same loop and feed), alternated, the bare step on
+   one device-resident batch, and whether the loader kept up (with it
+   within 10% of without);
+30. prints the ``kernels`` JSON line (each kernel also with its launches on
+   the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT,
+   the server and the data plane's extraction and training; K3 also with
+   its times and bounds at ViT's and VisualBERT's shapes), then the device
+   line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -3181,6 +3197,247 @@ def phase_small_encoders(dev) -> None:
           "small encoders: card != CPU")
 
 
+# ------------------------------------------------------- the host data plane
+
+DATA_IMAGES, DATA_QUESTIONS = 64, 512  # 8 questions an image, 4 answers of 128 each
+DATA_EXTRACT_BATCH = 8
+DATA_TRAIN_BATCH = 32  # 16 steps an epoch
+DATA_CHECKED_IMAGES = 8
+
+
+def phase_data(dev, wrappers, smi: str) -> dict:
+    """The reference's canonical pipeline through the port's user entry
+    points: a raw COCO-2014 + VQA corpus drawn from seed 0 (64 JPEGs of
+    480 x 640, instances, 512 questions with 4 answers) -> the coco2014 and
+    vqa adapters' Arrow tables -> ``FRCNN.extract`` (parity_300, B=8, the
+    extraction phases' canvases, seeded and tamed weights read from a state
+    dict: K1 8 and K2 16 launches, no other kernel) -> the stored features
+    and boxes of 8 images bitwise equal to one direct call of the step on
+    the same decoded batch -> ``Experiments.get("data")`` on ``build(config)``
+    (extractor "frcnn", B=32, 4 loader threads) -> ``LxmertVQAExperiment``
+    with ``loaders=None`` at LXMERT-base bf16, one epoch of 16 steps, finite
+    losses and no kernel. Prints the ETL seconds, images/s through the
+    extraction pipeline, the host fetch time a batch, the step with the
+    loader and without it in the same loop, and the bare step on one
+    device-resident batch."""
+    import tempfile
+
+    from vltk_tpu_torch import build
+    from vltk_tpu_torch.adapters import Adapters
+    from vltk_tpu_torch.adapters.frcnn import FRCNN, tame_random_weights, unpack
+    from vltk_tpu_torch.config import Config
+    from vltk_tpu_torch.experiments import Experiments, LxmertVQAExperiment
+    from vltk_tpu_torch.models.frcnn import FRCNN as FRCNNModel, FRCNNConfig, init_weights
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.tools.synthetic_corpus import write_corpus
+
+    class ExtractionFRCNN(FRCNN):
+        # the extraction phases' geometry (bench.py GEOM["full"])
+        model_batch_size = DATA_EXTRACT_BATCH
+        raw_canvas, resized_canvas = RAW_CANVAS, CANVAS
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_data_") as root:
+        datadir = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        write_corpus(datadir, DATA_IMAGES, DATA_QUESTIONS, hw=RAW_HW, seed=0)
+        out["corpus_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        coco = Adapters.get("coco2014").extract(datadir)
+        vqa = Adapters.get("vqa").extract(datadir)["train"]
+        out["etl_s"] = time.perf_counter() - t0
+        check(len(coco) == DATA_IMAGES and len(vqa) == DATA_QUESTIONS
+              and sorted(vqa.answer_frequencies) == ["2", "no", "red", "yes"],
+              f"ETL: {len(coco)} images, {len(vqa)} questions, answers {vqa.answer_frequencies}")
+
+        ckpt = os.path.join(root, "frcnn.pt")
+        model = tame_random_weights(init_weights(FRCNNModel(FRCNNConfig.vg_extraction()), seed=0))
+        torch.save(model.state_dict(), ckpt)
+        del model
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extracted = ExtractionFRCNN.extract(datadir, dataset_name="coco2014", checkpoint=ckpt,
+                                            preset="parity_300", device=dev)["train"]
+        torch.cuda.synchronize()
+        out["extract_s"] = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        steps = DATA_IMAGES // DATA_EXTRACT_BATCH
+        check(launches["roi_pool"] == steps and launches["nms"] == 2 * steps
+              and not any(v for k, v in launches.items() if k not in ("roi_pool", "nms")),
+              f"extraction pipeline launches {launches} over {steps} steps (K1 {steps}, K2 {2 * steps} expected)")
+        out["extraction_launches"] = launches
+        check(len(extracted) == DATA_IMAGES and extracted.metadata["model_config"]["preset"] == "parity_300",
+              f"extracted table: {len(extracted)} rows")
+        # once more, warm: the first run also pays the card's first calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extracted = ExtractionFRCNN.extract(datadir, dataset_name="coco2014", checkpoint=ckpt,
+                                            preset="parity_300", device=dev)["train"]
+        torch.cuda.synchronize()
+        out["extract_warm_s"] = time.perf_counter() - t0
+
+        # the pipeline adds nothing: the stored rows of 8 images against one
+        # direct call of the step on the same decoded batch
+        t0 = time.perf_counter()
+        bundle, _ = ExtractionFRCNN.setup(checkpoint=ckpt, preset="parity_300", device=dev)
+        out["setup_s"] = time.perf_counter() - t0
+        decode = ExtractionFRCNN.default_processor.build()
+        ids = sorted(extracted.img_to_row_map)[-DATA_CHECKED_IMAGES:]
+        entries = []
+        for imgid in ids:
+            entry = decode(os.path.join(datadir, "coco2014", "train", imgid + ".jpg"))
+            entry["imgid"] = imgid
+            entries.append(entry)
+        batch = ExtractionFRCNN.collate(entries)
+        packed = bundle["step"](torch.from_numpy(batch["image"]).to(dev),
+                                torch.from_numpy(batch["rawsize"]).to(dev)).cpu().numpy()
+        n_boxes = 0
+        for want in unpack(packed, ids, batch["rawsize"]):
+            got = extracted.get(want["imgid"])
+            check(np.array_equal(got["features"], want["features"])
+                  and np.array_equal(got["boxes"], np.asarray(want["boxes"], np.float32))
+                  and got["object_ids"] == want["object_ids"] and got["attr_ids"] == want["attr_ids"],
+                  f"stored row of {want['imgid']} != the direct step")
+            check(bool(np.isfinite(got["features"]).all()), f"{want['imgid']}: features not finite")
+            n_boxes += sum(1 for o in got["object_ids"] if o >= 0)
+        check(n_boxes > 0, "no detection in the checked images")
+        # the same step on device-resident inputs, beside the pipeline's
+        # time a batch
+        images, sizes = torch.from_numpy(batch["image"]).to(dev), torch.from_numpy(batch["rawsize"]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bundle["step"](images, sizes)
+        torch.cuda.synchronize()
+        out["direct_step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        del bundle, images, sizes
+        torch.cuda.empty_cache()
+
+        config = Config()
+        config.logdir = os.path.join(root, "logs")
+        config.data.update({"datadir": datadir, "train_datasets": [["vqa", "train"]], "extractor": "frcnn",
+                            "train_batch_size": DATA_TRAIN_BATCH, "num_workers": 4,
+                            "max_detections": LXMERT_BOXES, "visual_dim": 2048})
+        config.data.lang.update({"max_seq_length": LXMERT_SEQ})
+        config.train.update({"epochs": 1, "learning_rate": 1e-5})
+        report = Experiments.get("data")(config)()
+        want_shapes = {"input_ids": (DATA_TRAIN_BATCH, LXMERT_SEQ), "features": (DATA_TRAIN_BATCH, LXMERT_BOXES, 2048),
+                       "boxes": (DATA_TRAIN_BATCH, LXMERT_BOXES, 4), "rawsize": (DATA_TRAIN_BATCH, 2),
+                       "labels": (DATA_TRAIN_BATCH, 16), "scores": (DATA_TRAIN_BATCH, 16)}
+        check(all(report["train"].get(k) == v for k, v in want_shapes.items()), f"data experiment {report}")
+
+        # the host alone: one epoch of the loader, no consumer
+        loader, _ = build(config)
+        fetch = []
+        t0 = time.perf_counter()
+        for _ in loader:
+            fetch.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+        check(len(fetch) == DATA_QUESTIONS // DATA_TRAIN_BATCH, f"loader gave {len(fetch)} batches")
+        out["fetch_ms"] = {"median": float(np.median(fetch[1:])), "p90": float(np.percentile(fetch[1:], 90)),
+                           "first": fetch[0]}
+
+        cfg = LxmertConfig(dtype="bfloat16")
+
+        class VQA(LxmertVQAExperiment):
+            model_config = cfg
+
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        exp = VQA(config, device=dev)
+        out["experiment_init_s"] = time.perf_counter() - t0
+        check(exp.model_config.num_answers == 4 and len(exp.train_loader) == DATA_QUESTIONS // DATA_TRAIN_BATCH,
+              f"experiment: {exp.model_config.num_answers} answers, {len(exp.train_loader)} batches")
+        t0 = time.perf_counter()
+        exp()
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(not any(launches.values()), f"kernels launched on the LXMERT training path from build: {launches}")
+        with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+            log = [json.loads(line) for line in f]
+        check(len(log) == DATA_QUESTIONS // DATA_TRAIN_BATCH and all(np.isfinite(r["loss"]) for r in log),
+              f"LXMERT from build: losses {log}")
+        # the step with and without the loader in the same loop: more
+        # epochs of inner_loop (prepare, device feed, one-step-late drain,
+        # the log), over the loader and over 16 copies of one host batch (no
+        # loader threads), alternated; the step is the log's clock between
+        # drained steps (each step's metrics are read once the next step is
+        # queued)
+        log_path = os.path.join(exp.logdir, "steps_log.json")
+        loader_it, host_batch = exp.train_loader, next(iter(exp.train_loader))
+        n_steps = DATA_QUESTIONS // DATA_TRAIN_BATCH
+
+        def epoch_step_ms(train_loader, epoch):
+            with open(log_path) as f:
+                n0 = sum(1 for _ in f)
+            exp.train_loader = train_loader
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            exp.inner_loop(epoch)
+            with open(log_path) as f:
+                rows = [json.loads(line) for line in f][n0:]
+            check(len(rows) == n_steps and all(np.isfinite(r["loss"]) for r in rows),
+                  f"data plane epoch {epoch}: {len(rows)} steps")
+            return list(np.diff([r["sec"] for r in rows]) * 1e3)
+
+        with_loader, without_loader = [], []
+        for epoch in (1, 2):
+            without_loader += epoch_step_ms([host_batch] * n_steps, epoch)
+            with_loader += epoch_step_ms(loader_it, epoch)
+        exp.train_loader = loader_it
+        cold = np.diff([r["sec"] for r in log]) * 1e3
+        samples_s, resident_ms, peak = time_train_step(exp, host_batch, batch=DATA_TRAIN_BATCH)
+
+        def stats(ms):
+            return {"median": float(np.median(ms)), "p90": float(np.percentile(ms, 90))}
+
+        out.update({
+            "losses": [r["loss"] for r in log], "training_launches": launches,
+            "step_ms_first_epoch": stats(cold), "step_ms_with_loader": stats(with_loader),
+            "step_ms_without_loader": stats(without_loader),
+            "step_ms_resident": resident_ms, "samples_per_s_resident": samples_s, "peak_mem_gb": peak,
+        })
+        # the loader's own share: the same loop with and without it
+        out["loader_ms"] = out["step_ms_with_loader"]["median"] - out["step_ms_without_loader"]["median"]
+        out["loop_and_feed_ms"] = out["step_ms_without_loader"]["median"] - resident_ms
+        out["loader_kept_up"] = bool(out["step_ms_with_loader"]["median"]
+                                     <= 1.1 * out["step_ms_without_loader"]["median"])
+        del exp
+        torch.cuda.empty_cache()
+
+    pipeline_s = out["extract_s"] - out["setup_s"]
+    warm_s = out["extract_warm_s"] - out["setup_s"]
+    steps = DATA_IMAGES // DATA_EXTRACT_BATCH
+    print(
+        f"data plane on {smi}: corpus {out['corpus_s']:.2f} s; ETL (coco2014 + vqa -> Arrow) {out['etl_s']:.2f} s; "
+        f"FRCNN.extract parity_300 B={DATA_EXTRACT_BATCH} over {DATA_IMAGES} images {out['extract_s']:.2f} s "
+        f"({DATA_IMAGES / out['extract_s']:.2f} images/s with setup; setup alone {out['setup_s']:.2f} s, "
+        f"{DATA_IMAGES / pipeline_s:.2f} images/s without), again warm {out['extract_warm_s']:.2f} s "
+        f"({DATA_IMAGES / warm_s:.2f} images/s without setup: {warm_s / steps * 1e3:.1f} ms a batch against "
+        f"{out['direct_step_ms']:.1f} ms for the step alone on device-resident inputs); "
+        f"launches {out['extraction_launches']}; "
+        f"{DATA_CHECKED_IMAGES} stored rows bitwise equal to the direct step"
+    )
+    print(
+        f"data plane loader (B={DATA_TRAIN_BATCH}, 4 threads, 36 x 2048 features): host fetch a batch median "
+        f"{out['fetch_ms']['median']:.2f} ms, p90 {out['fetch_ms']['p90']:.2f} ms (first {out['fetch_ms']['first']:.2f} "
+        f"ms); LxmertVQAExperiment from build (LXMERT-base bf16, {len(out['losses'])} steps in {out['train_s']:.2f} s, "
+        f"init {out['experiment_init_s']:.2f} s), the step median (p90) in ms: first epoch "
+        f"{out['step_ms_first_epoch']['median']:.3f} ({out['step_ms_first_epoch']['p90']:.3f}); two more epochs "
+        f"each, alternated, with the loader {out['step_ms_with_loader']['median']:.3f} "
+        f"({out['step_ms_with_loader']['p90']:.3f}) and without it (one host batch 16 times, same loop and feed) "
+        f"{out['step_ms_without_loader']['median']:.3f} ({out['step_ms_without_loader']['p90']:.3f}); bare step on "
+        f"one device-resident batch {out['step_ms_resident']:.3f}; the loader's share {out['loader_ms']:.3f}, the "
+        f"loop's and feed's {out['loop_and_feed_ms']:.3f}; loader kept up: {out['loader_kept_up']}; "
+        f"losses {[round(x, 5) for x in out['losses']]}; peak {out['peak_mem_gb']:.2f} GB"
+    )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3299,6 +3556,8 @@ def main() -> int:
     server = phase_server(dev, KERNEL_WRAPPERS, smi)
     print("server_run " + json.dumps(server))
     phase_small_encoders(dev)
+    data = phase_data(dev, KERNEL_WRAPPERS, smi)
+    print("data_run " + json.dumps(data))
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
@@ -3332,6 +3591,10 @@ def main() -> int:
         e["visualbert_launches"] = visualbert["launches"].get(key, 0)
         e["moe_lxmert_launches"] = moe["launches"].get(key, 0)
         e["server_launches"] = server["launches"].get(key, 0)
+        # the host data plane: the extraction pipeline's 8 steps (K1 8, K2
+        # 16) and the LXMERT epoch from build (none)
+        e["data_extraction_launches"] = data["extraction_launches"].get(key, 0)
+        e["data_training_launches"] = data["training_launches"].get(key, 0)
     # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
     k3 = next(e for e in entries if e["name"] == "flash_attention")
     for model, run in (("vit", vit), ("visualbert", visualbert)):

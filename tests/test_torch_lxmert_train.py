@@ -467,13 +467,15 @@ class TestLxmertPretrainExperiment:
 
 class TestGuards:
     def test_registry(self):
-        assert Experiments.avail() == ["docvqa_span", "lxmert_pretrain", "lxmert_vqa", "ocr_tokens"]
-        for name, cls in (("docvqa_span", DocVQASpanExperiment), ("LXMERT_vqa", LxmertVQAExperiment),
-                          ("lxmert_pretrain", LxmertPretrainExperiment), ("ocr_tokens", OCRTokenExperiment)):
+        from vltk_tpu_torch.experiments import DataExperiment
+
+        assert Experiments.avail() == ["data", "docvqa_span", "lxmert_pretrain", "lxmert_vqa", "ocr_tokens"]
+        for name, cls in (("data", DataExperiment), ("docvqa_span", DocVQASpanExperiment),
+                          ("LXMERT_vqa", LxmertVQAExperiment), ("lxmert_pretrain", LxmertPretrainExperiment),
+                          ("ocr_tokens", OCRTokenExperiment)):
             assert Experiments.get(name) is cls
-        for name, item in (("data", "A.8"), ("frcnn_detect", "A.12")):
-            with pytest.raises(KeyError, match=item):
-                Experiments.get(name)
+        with pytest.raises(KeyError, match="A.12"):
+            Experiments.get("frcnn_detect")
         with pytest.raises(KeyError, match="unknown"):
             Experiments.get("no_such")
 

@@ -576,8 +576,8 @@ class TestExperiment:
 
     def test_registry_and_test_run(self, jax_model, tmp_path):
         assert Experiments.get("OCR_tokens") is OCRTokenExperiment
-        with pytest.raises(KeyError, match="A.8"):
-            Experiments.get("data")
+        with pytest.raises(KeyError, match="A.12"):
+            Experiments.get("frcnn_detect")
         config = port_config(tmp_path)
         config.test_run = True
         exp = port_experiment(jax_model, config, batches(np.random.default_rng(8), 3))
@@ -698,7 +698,7 @@ class TestGuards:
 
     def test_experiment_guards(self, jax_model, tmp_path):
         config = port_config(tmp_path)
-        with pytest.raises(NotImplementedError, match="loader"):
+        with pytest.raises(ValueError, match="train loader"):  # loaders=None builds from config.data: none named
             OCRTokenExperiment(config, loaders=None, device="cpu")
         with pytest.raises(NotImplementedError, match="mesh"):
             OCRTokenExperiment(config, loaders=([], None), mesh=object(), device="cpu")

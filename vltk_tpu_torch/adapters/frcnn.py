@@ -1,33 +1,39 @@
 """FRCNN feature-extraction adapter: the 36-box / 2048-d extraction step.
 
-Port of ``vltk_tpu/adapters/frcnn.py:FRCNN.setup``. ``setup`` builds the
-model on the chosen device and returns a step that runs preprocess ->
-FRCNN -> the packed (B, D, 2048+4+1+1) float32 output the reference step
-returns (features, raw-coordinate boxes, object ids, attribute ids).
-``collate`` is the host side that feeds such a step: decoded images padded
-onto the static raw canvas as uint8.
+Port of ``vltk_tpu/adapters/frcnn.py``. ``setup`` builds the model on the
+chosen device and returns a step that runs preprocess -> FRCNN -> the
+packed (B, D, 2048+4+1+1) float32 output the reference step returns
+(features, raw-coordinate boxes, object ids, attribute ids). ``collate``
+is the host side that feeds such a step: decoded images padded onto the
+static raw canvas as uint8. The ``FRCNN`` adapter runs them under the
+extraction pipeline (``VisnExtraction.extract``): K1 (RoIPool) once and K2
+(greedy NMS) twice a batch on the card, and one Arrow row an image
+(``schema``: features, boxes rounded to whole raw pixels, object and
+attribute ids, the raw size).
 
 Weights come from a local reference-named torch state dict
 (``checkpoint=``), or are seeded random without one. Every preset of
 ``FRCNNConfig.PRESETS`` is taken; an int8 one (``production`` is
 ``int8_300``) is calibrated once, on the first at most 4 images of the
 step's first batch, before that step runs, as the JAX adapter does, and
-its scales are kept in ``bundle["int8_scales"]``. The arrow writer and the
-rest of the host data plane of the reference adapter are a later slice.
+its scales are kept in ``bundle["int8_scales"]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vltk_tpu_torch import DeviceLike, read_state_dict, resolve_device
 from vltk_tpu_torch import vars as V
-from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, calibrate_int8, init_weights
+from vltk_tpu_torch.adapters.extraction import VisnExtraction
+from vltk_tpu_torch.config import VisionConfig
+from vltk_tpu_torch.features import Features
+from vltk_tpu_torch.models.frcnn import FRCNN as FRCNNModel, FRCNNConfig, calibrate_int8, init_weights
 from vltk_tpu_torch.ops.image_ops import preprocess_batch
 
 # static canvases and the shortest-edge targets of the reference adapter
@@ -49,7 +55,7 @@ def _resolve_config(preset, dtype, config_overrides) -> FRCNNConfig:
     return FRCNNConfig(**{k: v for k, v in base.items() if k in fields})
 
 
-def tame_random_weights(model: FRCNN) -> FRCNN:
+def tame_random_weights(model: FRCNNModel) -> FRCNNModel:
     """Scale seeded random weights so a full-depth forward stays finite:
     random R-101 explodes to NaN and NaN boxes mask every detection out.
     Conv kernels are halved and the box-delta heads scaled by 1e-3 (the
@@ -103,7 +109,7 @@ def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     }
 
 
-def load_checkpoint(model: FRCNN, path: str) -> None:
+def load_checkpoint(model: FRCNNModel, path: str) -> None:
     """Load a reference-named torch state dict strictly."""
     model.load_state_dict(read_checkpoint(path), strict=True)
 
@@ -132,7 +138,7 @@ def setup(
     short = float(overrides.get("short", SHORT))
     maximum = float(overrides.get("maximum", MAXIMUM))
 
-    model = FRCNN(cfg).eval()
+    model = FRCNNModel(cfg).eval()
     if checkpoint is not None:
         load_checkpoint(model, checkpoint)
     else:
@@ -194,3 +200,82 @@ def setup(
         "preset": preset,
     }
     return bundle, model_config
+
+
+class FRCNN(VisnExtraction):
+    """The 36-box R-101-C4 VG feature extractor as an extraction adapter.
+    Subclass it to change the batch size or the canvases."""
+
+    _name = "frcnn"
+    model_batch_size = 8
+    # the host only decodes, to uint8; resize and normalise run on the device
+    default_processor = VisionConfig(transforms=("fromfile",), device_fused=True, decode_dtype="uint8")
+    raw_canvas: Tuple[int, int] = RAW_CANVAS
+    resized_canvas: Tuple[int, int] = RESIZED_CANVAS
+    short: float = SHORT
+    maximum: float = MAXIMUM
+
+    @classmethod
+    def setup(cls, checkpoint: Optional[str] = None, batch_size: Optional[int] = None, dtype: Optional[str] = None,
+              preset: Optional[str] = None, device: DeviceLike = None, **config_overrides):
+        """``setup`` at this class's canvases and resize targets."""
+        geometry = dict(resized_canvas=cls.resized_canvas, short=cls.short, maximum=cls.maximum)
+        config_overrides = {k: v for k, v in config_overrides.items() if k not in geometry}
+        return setup(checkpoint, batch_size, dtype, preset, device, **geometry, **config_overrides)
+
+    @staticmethod
+    def schema(max_detections: int = 36, visual_dim: int = 2048):
+        return {
+            "attr_ids": Features.Ids(),
+            "object_ids": Features.Ids(),
+            V.features: Features.FeaturesMatrix(max_detections, visual_dim),
+            V.boxes: Features.Boxtensor(max_detections),
+            # raw (h, w): the boxes are raw-pixel coordinates
+            V.rawsize: Features.IntList(),
+        }
+
+    @classmethod
+    def collate(cls, entries: List[Dict[str, Any]]) -> Dict[str, Any]:
+        return collate(entries, cls.raw_canvas)
+
+    @classmethod
+    def forward_dispatch(cls, model, batch: Mapping[str, Any], **kwargs):
+        """Copy the batch to the device (pinned, asynchronous on CUDA) and
+        queue the step; nothing waits for the device here."""
+        dev = model["device"]
+        images, sizes = torch.from_numpy(batch[V.img]), torch.from_numpy(batch[V.rawsize])
+        if dev.type == "cuda":
+            images, sizes = images.pin_memory(), sizes.pin_memory()
+        packed = model["step"](images.to(dev, non_blocking=True), sizes.to(dev, non_blocking=True))
+        return packed, list(batch[V.imgid]), np.asarray(batch[V.rawsize])
+
+    @classmethod
+    def forward_collect(cls, model, state) -> List[Dict[str, Any]]:
+        """Fetch one dispatched step: one entry an image."""
+        packed, imgids, raw_sizes = state
+        packed = packed.cpu().numpy()
+        return unpack(packed, imgids, raw_sizes)
+
+    @classmethod
+    def forward(cls, model, batch: Mapping[str, Any], **kwargs):
+        return cls.forward_collect(model, cls.forward_dispatch(model, batch, **kwargs))
+
+
+def unpack(packed: np.ndarray, imgids: List[str], raw_sizes: np.ndarray) -> List[Dict[str, Any]]:
+    """The packed (B, D, dim + 6) step output -> one Arrow entry an image:
+    features, boxes rounded to whole raw pixels, object and attribute ids,
+    the raw (h, w)."""
+    dim = packed.shape[-1] - 6
+    obj_ids = packed[..., dim + 4].astype(np.int64)
+    attr_ids = packed[..., dim + 5].astype(np.int64)
+    return [
+        {
+            V.imgid: imgid,
+            "object_ids": obj_ids[i].tolist(),
+            "attr_ids": attr_ids[i].tolist(),
+            V.features: packed[i, :, :dim],
+            V.boxes: np.round(packed[i, :, dim : dim + 4]).tolist(),
+            V.rawsize: [int(x) for x in raw_sizes[i]],
+        }
+        for i, imgid in enumerate(imgids)
+    ]

@@ -1,17 +1,24 @@
 """Configuration of the port's train layer.
 
-A copy of the parts of ``vltk_tpu/config.py`` that the train layer and the
-LayoutLM experiments read: ``BaseConfig`` (iteration, ``to_dict``,
-recursive ``update`` with string coercion and overwrite tracking),
-``LangConfig`` (``ignore_id``, the sequence lengths and the pretraining
-corruption rates), ``DataConfig`` (its ``lang`` child, ``max_detections``), ``TrainConfig`` (every field, same defaults),
-``MeshConfig`` and ``Config`` (``logdir``, ``checkpoint_dir``,
-``test_run``, ``break_loop_on_test``, ``save_on_crash``). Field names and
-defaults are the JAX package's.
+A copy of the parts of ``vltk_tpu/config.py`` that the data plane, the
+train layer and the experiments read: ``BaseConfig`` (iteration,
+``to_dict``, recursive ``update`` with string coercion and overwrite
+tracking), ``LangConfig`` (the tokenizer, ``ignore_id``, the sequence
+lengths and the pretraining corruption rates), ``VisionConfig`` (the host
+image pipeline), ``DataConfig`` (datasets, extractor, processors,
+iteration order, batching, capacities, ETL control, the host feed and host
+shards), ``TrainConfig`` (every field, same defaults), ``MeshConfig`` and
+``Config`` (``logdir``, ``checkpoint_dir``, ``test_run``,
+``break_loop_on_test``, ``save_on_crash``). Field names and defaults are
+the JAX package's. The default tokenizer ``"BertWordPieceTokenizer"`` runs
+on the port's native WordPiece over the same vocabulary.
 
 Not honoured yet: a device mesh (data, tensor or sequence parallelism).
 Setting any ``MeshConfig`` field to a value other than its default raises
 ``NotImplementedError``. ``accum_steps`` is honoured: it needs no mesh.
+Left out because no code reads them: ``LangConfig.pad_direction`` and
+``add_special_tokens``, ``DataConfig.redownload``; ``update`` raises
+``KeyError`` on them.
 """
 
 from __future__ import annotations
@@ -131,6 +138,10 @@ class BaseConfig:
 
 @dataclass
 class LangConfig(BaseConfig):
+    tokenizer: str = "BertWordPieceTokenizer"
+    from_transformers: bool = False
+    vocab_path: Optional[str] = None
+    lowercase: bool = True
     max_seq_length: int = 128
     max_visual_seq_length: int = 128
     mask_rate: float = 0.15
@@ -142,9 +153,77 @@ class LangConfig(BaseConfig):
 
 
 @dataclass
+class VisionConfig(BaseConfig):
+    """Host image pipeline: ``transforms`` are names of the image
+    transforms of ``processing``; each transform gets the other fields its
+    constructor declares."""
+
+    transforms: Tuple[str, ...] = ("fromfile", "resizetensor", "normalize")
+    gray: bool = False
+    # "float32", or "uint8" for decode-only pipelines feeding a
+    # preprocess on the device
+    decode_dtype: str = "float32"
+    size: Tuple[int, int] = (800, 1333)
+    mode: str = "bilinear"
+    pad_value: float = 0.0
+    mean: Tuple[float, float, float] = (102.9801, 115.9465, 122.7717)
+    sdev: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    bgr: bool = True
+    # True: a device program resizes, normalises and pads, so the host
+    # only decodes; False: the host pipeline ends on a fixed canvas
+    device_fused: bool = False
+
+    def build(self):
+        """The composed host pipeline (``processing.build_image_pipeline``)."""
+        from vltk_tpu_torch.processing import build_image_pipeline
+
+        return build_image_pipeline(self)
+
+
+@dataclass
 class DataConfig(BaseConfig):
-    lang: LangConfig = field(default_factory=LangConfig)
+    # what to load
+    train_datasets: Tuple = ()
+    eval_datasets: Tuple = ()
+    extractor: Optional[str] = None
+    datadir: str = "/tmp/vltk_tpu_data"
+    # processors
+    visn_processors: Tuple[str, ...] = ()
+    lang_processors: Tuple[str, ...] = ()
+    visnlang_processors: Tuple[str, ...] = ()
+    # iteration order
+    img_first: bool = False
+    shuffle: bool = True
+    percent: float = 1.0
+    # stage switches
+    ignore_image: bool = False
+    ignore_filepath: bool = False
+    ignore_annotations: bool = False
+    ignore_segmentation: bool = True
+    rand_feats: Optional[Tuple[int, ...]] = None
+    # batching
+    train_batch_size: int = 32
+    eval_batch_size: int = 64
+    num_workers: int = 4
+    drop_last: bool = True
+    # fixed-shape capacities
     max_detections: int = 36
+    visual_dim: int = 2048
+    # img_first: sentences kept per image (the dataset warns once, with
+    # counts, when the data has more)
+    max_text_per_img: int = 8
+    # ETL control
+    reextract: bool = False
+    metadata_filedict: Optional[Dict[str, str]] = None
+    # host feed: batches fetched ahead
+    prefetch_depth: int = 2
+    # host shards: every process reads a disjoint, equal-length slice of
+    # the seeded global order; shard_rank None = the torch.distributed
+    # rank when a process group is up, else 0
+    shard_count: Optional[int] = None
+    shard_rank: Optional[int] = None
+    lang: LangConfig = field(default_factory=LangConfig)
+    vision: VisionConfig = field(default_factory=VisionConfig)
 
 
 @dataclass
@@ -204,3 +283,8 @@ class Config(BaseConfig):
     break_loop_on_test: bool = True
     save_on_crash: bool = False
     checkpoint_dir: Optional[str] = None
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.test_run:
+            self.data.num_workers = 0

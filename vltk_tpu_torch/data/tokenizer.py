@@ -1,9 +1,12 @@
 """Tokenizer facade of the port.
 
-Counterpart of ``vltk_tpu/data/tokenizer.py:Tokenizer`` for the
-``NativeWordPiece`` backend (the first-party C++ WordPiece), which is all
-the port uses: the special-token ids, the fixed-length encode of VQA
-questions and the per-word encode of the OCR chain. The HF ``tokenizers`` / ``transformers`` backends raise
+Counterpart of ``vltk_tpu/data/tokenizer.py`` (``Tokenizer``,
+``build_tokenizer``) on the first-party C++ WordPiece, the only backend the
+port has: the special-token ids, the fixed-length encode of questions, the
+per-word encode of the OCR chain and ``decode``. ``build_tokenizer`` maps
+the JAX package's default ``"BertWordPieceTokenizer"`` (HF ``tokenizers``,
+BERT WordPiece) to the native WordPiece over the same vocabulary; other
+HF ``tokenizers`` / ``transformers`` backends raise
 ``NotImplementedError``: neither package is part of the port's
 environment.
 """
@@ -46,6 +49,7 @@ class Tokenizer:
         self.mask_id = self._tok.mask_id
         self.unk_id = self._tok.unk_id
         self.vocab_size = self._tok.vocab_size
+        self._id_to_token: Optional[List[str]] = None
 
     @property
     def special_ids(self) -> List[int]:
@@ -72,3 +76,27 @@ class Tokenizer:
         """Per-word sub-token ids, no special tokens, no padding: the
         AuxTokenize OCR path."""
         return self._tok.encode_words(list(words))
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Ids -> text: special tokens dropped, WordPiece continuations
+        joined."""
+        if self._id_to_token is None:
+            with open(self._vocab_path) as f:
+                self._id_to_token = [line.rstrip("\n") for line in f]
+        special = set(self.special_ids)
+        toks = [self._id_to_token[i] for i in ids if 0 <= i < len(self._id_to_token) and i not in special]
+        return " ".join(toks).replace(" ##", "")
+
+
+def build_tokenizer(lang_config) -> Tokenizer:
+    """LangConfig -> Tokenizer. HF's ``"BertWordPieceTokenizer"`` (the
+    config's default) is BERT WordPiece over the same vocabulary, so it
+    builds the native one."""
+    name = lang_config.tokenizer
+    return Tokenizer(
+        name="NativeWordPiece" if name == "BertWordPieceTokenizer" else name,
+        from_transformers=lang_config.from_transformers,
+        vocab_path=lang_config.vocab_path,
+        lowercase=lang_config.lowercase,
+        max_seq_length=lang_config.max_seq_length,
+    )

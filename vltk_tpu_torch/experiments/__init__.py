@@ -1,10 +1,11 @@
 """Experiment registry of the port.
 
 Counterpart of ``vltk_tpu/experiments/__init__.py``: ``Experiments.get(name)``
-returns the class. Ported: ``docvqa_span`` (``DocVQASpanExperiment``),
+returns the class. Ported: ``data`` (``DataExperiment``), ``docvqa_span``
+(``DocVQASpanExperiment``),
 ``lxmert_pretrain`` (``LxmertPretrainExperiment``), ``lxmert_vqa``
 (``LxmertVQAExperiment``) and ``ocr_tokens`` (``OCRTokenExperiment``). The
-JAX package's other two wait for their slices; asking for one raises
+JAX package's ``frcnn_detect`` waits for its slice; asking for it raises
 ``KeyError`` naming its ROADMAP item.
 """
 
@@ -12,13 +13,14 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+from vltk_tpu_torch.experiments.data import DataExperiment
 from vltk_tpu_torch.experiments.docvqa_span import DocVQASpanExperiment
 from vltk_tpu_torch.experiments.lxmert_pretrain import LxmertPretrainExperiment
 from vltk_tpu_torch.experiments.lxmert_vqa import LxmertVQAExperiment
 from vltk_tpu_torch.experiments.ocr_tokens import OCRTokenExperiment
 
 # experiments of the JAX package not ported yet, and the item that ports each
-UNPORTED = {"data": "ROADMAP A.8", "frcnn_detect": "ROADMAP A.12"}
+UNPORTED = {"frcnn_detect": "ROADMAP A.12"}
 
 
 class _ExperimentRegistry:
@@ -42,9 +44,10 @@ class _ExperimentRegistry:
 
 
 Experiments = _ExperimentRegistry()
-Experiments.add(DocVQASpanExperiment, LxmertPretrainExperiment, LxmertVQAExperiment, OCRTokenExperiment)
+Experiments.add(DataExperiment, DocVQASpanExperiment, LxmertPretrainExperiment, LxmertVQAExperiment, OCRTokenExperiment)
 
 __all__ = [
+    "DataExperiment",
     "DocVQASpanExperiment",
     "Experiments",
     "LxmertPretrainExperiment",

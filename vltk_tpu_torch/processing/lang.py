@@ -1,8 +1,10 @@
-"""Language-side pretraining corruptions of LXMERT: masked language modeling
-(80/10/10) and region-feature masking.
+"""Language-side label sampling and LXMERT's pretraining corruptions:
+soft-score label sampling, masked language modeling (80/10/10) and
+region-feature masking.
 
-Copies of ``masked_language_modeling`` and ``masked_feature_modeling`` from
-``vltk_tpu/processing/lang.py``: host numpy that draws from an explicit
+Copies of ``one_hot_label``, ``masked_language_modeling`` and
+``masked_feature_modeling`` from ``vltk_tpu/processing/lang.py``: host
+numpy that draws from an explicit
 ``np.random.Generator`` in the same order as the JAX package's, so the same
 generator state gives the same corruption bit for bit.
 """
@@ -12,6 +14,17 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+
+
+def one_hot_label(labels: Sequence[int], scores: Sequence[float], rng: np.random.Generator,
+                  ignore_id: int = -100) -> int:
+    """One label id drawn with probability proportional to its soft score
+    (one ``rng.choice``); ``ignore_id`` when no score is positive."""
+    scores = np.asarray(scores, dtype=np.float64)
+    if scores.size == 0 or scores.sum() <= 0:
+        return ignore_id
+    idx = rng.choice(len(labels), p=scores / scores.sum())
+    return int(labels[idx])
 
 
 def masked_language_modeling(

@@ -8,28 +8,18 @@ that ``forward`` returns the entry dict.
 
 from __future__ import annotations
 
-import inspect
-from typing import Any, Callable, Dict, Mapping, Sequence
+from typing import Any, Dict, Sequence
 
-
-def collect_args_to_func(func: Callable, kwargs: Mapping[str, Any]) -> Dict[str, Any]:
-    """Filter ``kwargs`` down to the parameters ``func`` declares (all of
-    them when it takes ``**kwargs``); a copy of
-    ``vltk_tpu/inspection.py:collect_args_to_func``."""
-    params = inspect.signature(func).parameters
-    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params.values()):
-        return dict(kwargs)
-    skip = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
-    return {
-        name: kwargs[name]
-        for name, p in params.items()
-        if name not in ("self", "cls") and p.kind not in skip and name in kwargs
-    }
+from vltk_tpu_torch.inspection import collect_args_to_func
 
 
 class Processor:
     _type = "processor"
     keys: Sequence[str] = ()
+
+    @classmethod
+    def name(cls) -> str:
+        return getattr(cls, "_name", None) or cls.__name__.lower()
 
     def __init__(self, **kwargs):
         if hasattr(self, "setup"):
@@ -53,3 +43,11 @@ class Processor:
 
 class VisnProcessor(Processor):
     _type = "visn"
+
+
+class LangProcessor(Processor):
+    _type = "lang"
+
+
+class VisnLangProcessor(Processor):
+    _type = "visnlang"

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from vltk_tpu_torch import DeviceLike, resolve_device
+from vltk_tpu_torch.data.loader import device_put_iter
 from vltk_tpu_torch.train.checkpoint import (
     AsyncCheckpointWriter,
     clear_mid_checkpoints,
@@ -89,10 +90,9 @@ class SimpleExperiment(abc.ABC):
 
     def _init_loaders(self, loaders) -> None:
         if loaders is None:
-            raise NotImplementedError(
-                "the port has no dataset loader yet (the counterpart of data/builder.py, "
-                "ROADMAP A.8): pass loaders=(train, eval), iterables of dicts of numpy arrays"
-            )
+            from vltk_tpu_torch.data.builder import init_datasets
+
+            loaders = init_datasets(self.config)
         self.train_loader, self.eval_loader = loaders
         if self.train_loader is None:
             raise ValueError("experiment requires a train loader")
@@ -296,41 +296,18 @@ class SimpleExperiment(abc.ABC):
         return {k: v / max(count, 1) for k, v in totals.items()}
 
     def _device_batches(self, loader, skip: int = 0) -> Iterable[Dict[str, Any]]:
-        """The loader's batches on the device. A mid-epoch resume replays
-        the order without the first ``skip`` batches (at the index level
-        through ``loader.iter_from`` where the loader has it). Double
-        buffered: batch i + 1's copy to the device is queued before batch i
-        is handed out."""
+        """The loader's prepared batches on the device
+        (``data.loader.device_put_iter``: pinned buffers and a side stream
+        on CUDA, batch i + 1 queued before batch i is handed out). A
+        mid-epoch resume replays the order without the first ``skip``
+        batches (at the index level through ``loader.iter_from`` where the
+        loader has it)."""
         if skip and hasattr(loader, "iter_from"):
             it, skip = loader.iter_from(skip), 0
         else:
             it = loader
-
-        def prepared():
-            for i, batch in enumerate(it):
-                if i >= skip:
-                    yield self._put_batch(batch)
-
-        gen = prepared()
-        pending = next(gen, None)
-        if pending is None:
-            return
-        for nxt in gen:
-            yield pending
-            pending = nxt
-        yield pending
-
-    def _put_batch(self, batch) -> Dict[str, Any]:
-        cuda = self.device.type == "cuda"
-
-        def put(x):
-            if isinstance(x, np.ndarray):
-                x = torch.from_numpy(x)
-                if cuda:
-                    x = x.pin_memory()
-            return x.to(self.device, non_blocking=cuda) if torch.is_tensor(x) else x
-
-        return {k: put(v) for k, v in self.prepare_batch(batch).items()}
+        prepared = (self.prepare_batch(batch) for i, batch in enumerate(it) if i >= skip)
+        return device_put_iter(prepared, device=self.device)
 
     # -- persistence and logging --------------------------------------------
 
