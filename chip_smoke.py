@@ -183,11 +183,12 @@ package):
    the dense route on the logits (2^-6), both timed; K3 at (32, 164, 12,
    64) with that mask against its plain version, timed beside SDPA with the
    boolean mask;
-26. LXMERT-base with the MoE feed-forward (8 experts, top 2, capacity
-   factor 1.25) at all 24 sites, bf16, B=32, 20 tokens, 36 boxes (~0.9 B
-   parameters): one forward with 24 finite, positive aux terms, then 4
-   steps of ``LxmertVQAExperiment`` (finite losses, no kernel), the step
-   timed with its peak memory;
+26. LXMERT-base's widths with the MoE feed-forward (8 experts, top 2,
+   capacity factor 1.25) at every feed-forward site, its depth cut from
+   9 / 5 / 5 to 3 / 2 / 2 layers (9 sites, ~0.4 B parameters) to keep the
+   script's time, bf16, B=32, 20 tokens, 36 boxes: one forward with 9
+   finite, positive aux terms, then 4 steps of ``LxmertVQAExperiment``
+   (finite losses, no kernel), the step timed with its peak memory;
 27. ``serving.for_doc`` over LayoutLM-base's ``DocTokenClassifier`` (seq
    1024, batch 4): 11 concurrent single documents from threads, answers
    equal to one direct batched call, K3 12 launches a bucket, latency
@@ -209,10 +210,37 @@ package):
    16 times through the same loop and feed), alternated, the bare step on
    one device-resident batch, and whether the loader kept up (with it
    within 10% of without);
-30. prints the ``kernels`` JSON line (each kernel also with its launches on
+30. documents from raw JSON: 64 seeded FUNSD forms of 780 words (~1000
+   sub-tokens) -> the ``funsd`` adapter -> ``build(config)`` with
+   ``auxtokenize, ocrboxfixed, tokenlabels`` at seq 1024 ->
+   ``OCRTokenExperiment`` at LayoutLM-base bf16, B=8, one epoch of 8
+   steps; 64 seeded DocVQA documents of 700 words with two questions each
+   -> ``docvqavisn`` and ``docvqa`` (answers grounded by Jaccard) ->
+   ``build`` with ``span`` at question 64 + document 960 ->
+   ``DocVQASpanExperiment``, one epoch of 16 steps (finite losses, K3, K4
+   and K5 12 launches each a step, no other kernel); prints the ETL
+   seconds, the host fetch a batch, the step with and without the loader
+   (alternated, as phase 29) and the bare step;
+31. GQA on Visual Genome: 64 seeded 480 x 640 VG JPEGs and 512 GQA
+   questions -> the ``gqa`` adapter -> ``FRCNN.extract(dataset_name=
+   "visualgenome")`` (parity_300, B=8: K1 8, K2 16; 8 stored rows bitwise
+   equal to a direct step) -> ``build`` joining the questions with the VG
+   features -> ``LxmertVQAExperiment`` at LXMERT-base bf16, B=32, one epoch
+   (finite losses, no kernel); then ``HostDecodeFRCNN`` over the same
+   images inline and with 4 spawned worker processes (merged table equal
+   to the inline one; images/s, the stage seconds and ``os.cpu_count()``
+   printed), ``FRCNN.extract(host_workers=2)`` refused with ``ValueError``,
+   and the mask processors through ``build`` on seeded CLEVR-ref and
+   COCO-polygon corpora against the plain NumPy / PIL decodes (point runs
+   bitwise; polygons bitwise to the native fill, which lies within one
+   pixel of PIL's boundary), and the native fill of the committed polygons
+   of ``tests/data/polygon_fill.json`` bitwise against the JAX package's
+   fill of them: the native library built with this machine's ``g++``;
+32. prints the ``kernels`` JSON line (each kernel also with its launches on
    the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT,
-   the server and the data plane's extraction and training; K3 also with
-   its times and bounds at ViT's and VisualBERT's shapes), then the device
+   the server, the data plane's extraction and training, the raw FUNSD and
+   DocVQA trainers and GQA's extraction and training; K3 also with its
+   times and bounds at ViT's and VisualBERT's shapes), then the device
    line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -2828,6 +2856,9 @@ VB_BATCH = 32
 # a float32 residual stream: the probabilities round differently
 VB_ROUTE_TOL = 2.0 ** -6
 MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25
+# LXMERT-base's widths at a cut depth: at 9 / 5 / 5 layers (1.0 B
+# parameters) the build and the epoch took ~56 s of the script
+MOE_LAYERS = dict(l_layers=3, x_layers=2, r_layers=2)
 SERVER_BATCH = 4
 SERVER_WAIT_S = 600  # every wait of the server phase ends by then
 
@@ -3008,9 +3039,10 @@ def phase_visualbert(dev, wrappers, smi: str) -> dict:
 
 
 def phase_moe(dev, wrappers, smi: str) -> dict:
-    """LXMERT-base with the MoE feed-forward (8 experts, top 2, capacity
-    factor 1.25) in all 24 of its feed-forward sites, bf16, B=32, 20 tokens
-    and 36 boxes: a forward whose 24 aux terms are finite and positive and
+    """LXMERT-base's widths at ``MOE_LAYERS``' depth with the MoE
+    feed-forward (8 experts, top 2, capacity factor 1.25) in all 9 of its
+    feed-forward sites, bf16, B=32, 20 tokens and 36 boxes: a forward whose
+    9 aux terms are finite and positive and
     logits finite, then ``LxmertVQAExperiment`` for an epoch of 4 steps
     (finite losses, no kernel: the streams are below the flash gate), the
     step timed with its peak memory."""
@@ -3021,20 +3053,20 @@ def phase_moe(dev, wrappers, smi: str) -> dict:
     from vltk_tpu_torch.models.moe import moe_aux_losses
 
     cfg = LxmertConfig(dtype="bfloat16", moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
-                       moe_capacity_factor=MOE_CAPACITY)
+                       moe_capacity_factor=MOE_CAPACITY, **MOE_LAYERS)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_moe_") as logdir:
         host = [lxmert_train_batch(LXMERT_TRAIN_BATCH, cfg, seed=i) for i in range(LXMERT_TRAIN_STEPS)]
         t0 = time.perf_counter()
         exp = lxmert_experiment(LxmertVQAExperiment, cfg, logdir, host, 1e-5, device=dev)
         build_s = time.perf_counter() - t0
         n_params = sum(p.numel() for p in exp.model.parameters())
-        check(9e8 < n_params < 1.1e9, f"MoE LXMERT-base has {n_params} parameters")
+        check(3e8 < n_params < 5e8, f"MoE LXMERT has {n_params} parameters")
         data = next(iter(exp._device_batches([host[0]])))
         exp.model.eval()
         logits, launches = counted(wrappers, lambda: exp._logits(exp.model, data))
         aux = moe_aux_losses(exp.model)
         exp.model.train()
-        check(len(aux) == cfg.l_layers + cfg.r_layers + 2 * cfg.x_layers == 24, f"{len(aux)} MoE aux terms")
+        check(len(aux) == cfg.l_layers + cfg.r_layers + 2 * cfg.x_layers == 9, f"{len(aux)} MoE aux terms")
         check(all(bool(torch.isfinite(v) and v > 0) for v in aux.values()), "MoE aux terms not finite and positive")
         check(bool(torch.isfinite(logits).all()) and logits.shape == (LXMERT_TRAIN_BATCH, cfg.num_answers),
               "MoE LXMERT logits")
@@ -3053,8 +3085,9 @@ def phase_moe(dev, wrappers, smi: str) -> dict:
         samples_s, step_ms, peak = time_train_step(exp, host[0], batch=LXMERT_TRAIN_BATCH)
         aux_values = [float(v) for v in aux.values()]
         print(
-            f"MoE LXMERT-base ({MOE_EXPERTS} experts, top {MOE_TOP_K}, capacity factor {MOE_CAPACITY}; "
-            f"{n_params / 1e9:.3f} B parameters, built in {build_s:.1f} s) B={LXMERT_TRAIN_BATCH} bf16: 24 aux terms "
+            f"MoE LXMERT-base widths, {cfg.l_layers} / {cfg.x_layers} / {cfg.r_layers} layers ({MOE_EXPERTS} experts, "
+            f"top {MOE_TOP_K}, capacity factor {MOE_CAPACITY}; {n_params / 1e9:.3f} B parameters, built in "
+            f"{build_s:.1f} s) B={LXMERT_TRAIN_BATCH} bf16: {len(aux)} aux terms "
             f"{min(aux_values):.5f}-{max(aux_values):.5f}; {LXMERT_TRAIN_STEPS} training steps in {train_s:.2f} s, "
             f"losses {[round(r['loss'], 5) for r in log]}; no kernel launched; step {step_ms:.3f} ms, "
             f"{samples_s:.2f} samples/s over 5 steps on {smi}; peak {peak:.2f} GB"
@@ -3205,6 +3238,89 @@ DATA_TRAIN_BATCH = 32  # 16 steps an epoch
 DATA_CHECKED_IMAGES = 8
 
 
+def check_stored_rows(cls, bundle, extracted, img_dir: str, dev) -> float:
+    """The stored rows of the last ``DATA_CHECKED_IMAGES`` images of an
+    extracted table against one direct call of the step on the same decoded
+    batch (the pipeline adds nothing), bitwise; returns the step's ms on
+    device-resident inputs (3 calls)."""
+    from vltk_tpu_torch.adapters.frcnn import unpack
+
+    decode = cls.default_processor.build()
+    ids = sorted(extracted.img_to_row_map)[-DATA_CHECKED_IMAGES:]
+    entries = []
+    for imgid in ids:
+        entry = decode(os.path.join(img_dir, imgid + ".jpg"))
+        entry["imgid"] = imgid
+        entries.append(entry)
+    batch = cls.collate(entries)
+    images, sizes = torch.from_numpy(batch["image"]).to(dev), torch.from_numpy(batch["rawsize"]).to(dev)
+    packed = bundle["step"](images, sizes).cpu().numpy()
+    n_boxes = 0
+    for want in unpack(packed, ids, batch["rawsize"]):
+        got = extracted.get(want["imgid"])
+        check(np.array_equal(got["features"], want["features"])
+              and np.array_equal(got["boxes"], np.asarray(want["boxes"], np.float32))
+              and got["object_ids"] == want["object_ids"] and got["attr_ids"] == want["attr_ids"],
+              f"stored row of {want['imgid']} != the direct step")
+        check(bool(np.isfinite(got["features"]).all()), f"{want['imgid']}: features not finite")
+        n_boxes += sum(1 for o in got["object_ids"] if o >= 0)
+    check(n_boxes > 0, "no detection in the checked images")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        bundle["step"](images, sizes)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 3 * 1e3
+
+
+def median_p90(ms) -> dict:
+    return {"median": float(np.median(ms)), "p90": float(np.percentile(ms, 90))}
+
+
+def loader_fetch_ms(loader, n_batches: int, what: str) -> dict:
+    """The host alone: one epoch of the loader with no consumer; the time
+    of each batch (median and p90 without the first, and the first)."""
+    fetch = []
+    t0 = time.perf_counter()
+    for _ in loader:
+        fetch.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+    check(len(fetch) == n_batches, f"{what}: the loader gave {len(fetch)} batches, not {n_batches}")
+    return {**median_p90(fetch[1:]), "first": fetch[0]}
+
+
+def epoch_step_ms(exp, train_loader, epoch: int, n_steps: int, what: str) -> list:
+    """One more epoch of ``exp.inner_loop`` (prepare, device feed,
+    one-step-late drain, the log) over ``train_loader``: the step times in
+    ms, the log's clock between drained steps (each step's metrics are read
+    once the next step is queued)."""
+    log_path = os.path.join(exp.logdir, "steps_log.json")
+    with open(log_path) as f:
+        n0 = sum(1 for _ in f)
+    exp.train_loader = train_loader
+    if hasattr(train_loader, "set_epoch"):
+        train_loader.set_epoch(epoch)
+    exp.inner_loop(epoch)
+    with open(log_path) as f:
+        rows = [json.loads(line) for line in f][n0:]
+    check(len(rows) == n_steps and all(np.isfinite(r["loss"]) for r in rows), f"{what} epoch {epoch}: {len(rows)} steps")
+    return list(np.diff([r["sec"] for r in rows]) * 1e3)
+
+
+def loader_against_control(exp, n_steps: int, what: str):
+    """The step with and without the loader in the same loop: two more
+    epochs each, over the loader and over ``n_steps`` copies of one host
+    batch (no loader threads), alternated. Returns (that host batch,
+    {"with": median_p90, "without": median_p90})."""
+    loader_it, host_batch = exp.train_loader, next(iter(exp.train_loader))
+    with_loader, without_loader = [], []
+    for epoch in (1, 2):
+        without_loader += epoch_step_ms(exp, [host_batch] * n_steps, epoch, n_steps, what)
+        with_loader += epoch_step_ms(exp, loader_it, epoch, n_steps, what)
+    exp.train_loader = loader_it
+    return host_batch, {"with": median_p90(with_loader), "without": median_p90(without_loader)}
+
+
 def phase_data(dev, wrappers, smi: str) -> dict:
     """The reference's canonical pipeline through the port's user entry
     points: a raw COCO-2014 + VQA corpus drawn from seed 0 (64 JPEGs of
@@ -3224,7 +3340,7 @@ def phase_data(dev, wrappers, smi: str) -> dict:
 
     from vltk_tpu_torch import build
     from vltk_tpu_torch.adapters import Adapters
-    from vltk_tpu_torch.adapters.frcnn import FRCNN, tame_random_weights, unpack
+    from vltk_tpu_torch.adapters.frcnn import FRCNN, tame_random_weights
     from vltk_tpu_torch.config import Config
     from vltk_tpu_torch.experiments import Experiments, LxmertVQAExperiment
     from vltk_tpu_torch.models.frcnn import FRCNN as FRCNNModel, FRCNNConfig, init_weights
@@ -3279,40 +3395,14 @@ def phase_data(dev, wrappers, smi: str) -> dict:
         out["extract_warm_s"] = time.perf_counter() - t0
 
         # the pipeline adds nothing: the stored rows of 8 images against one
-        # direct call of the step on the same decoded batch
+        # direct call of the step on the same decoded batch, and that step
+        # on device-resident inputs beside the pipeline's time a batch
         t0 = time.perf_counter()
         bundle, _ = ExtractionFRCNN.setup(checkpoint=ckpt, preset="parity_300", device=dev)
         out["setup_s"] = time.perf_counter() - t0
-        decode = ExtractionFRCNN.default_processor.build()
-        ids = sorted(extracted.img_to_row_map)[-DATA_CHECKED_IMAGES:]
-        entries = []
-        for imgid in ids:
-            entry = decode(os.path.join(datadir, "coco2014", "train", imgid + ".jpg"))
-            entry["imgid"] = imgid
-            entries.append(entry)
-        batch = ExtractionFRCNN.collate(entries)
-        packed = bundle["step"](torch.from_numpy(batch["image"]).to(dev),
-                                torch.from_numpy(batch["rawsize"]).to(dev)).cpu().numpy()
-        n_boxes = 0
-        for want in unpack(packed, ids, batch["rawsize"]):
-            got = extracted.get(want["imgid"])
-            check(np.array_equal(got["features"], want["features"])
-                  and np.array_equal(got["boxes"], np.asarray(want["boxes"], np.float32))
-                  and got["object_ids"] == want["object_ids"] and got["attr_ids"] == want["attr_ids"],
-                  f"stored row of {want['imgid']} != the direct step")
-            check(bool(np.isfinite(got["features"]).all()), f"{want['imgid']}: features not finite")
-            n_boxes += sum(1 for o in got["object_ids"] if o >= 0)
-        check(n_boxes > 0, "no detection in the checked images")
-        # the same step on device-resident inputs, beside the pipeline's
-        # time a batch
-        images, sizes = torch.from_numpy(batch["image"]).to(dev), torch.from_numpy(batch["rawsize"]).to(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            bundle["step"](images, sizes)
-        torch.cuda.synchronize()
-        out["direct_step_ms"] = (time.perf_counter() - t0) / 3 * 1e3
-        del bundle, images, sizes
+        out["direct_step_ms"] = check_stored_rows(ExtractionFRCNN, bundle, extracted,
+                                                  os.path.join(datadir, "coco2014", "train"), dev)
+        del bundle
         torch.cuda.empty_cache()
 
         config = Config()
@@ -3329,15 +3419,7 @@ def phase_data(dev, wrappers, smi: str) -> dict:
         check(all(report["train"].get(k) == v for k, v in want_shapes.items()), f"data experiment {report}")
 
         # the host alone: one epoch of the loader, no consumer
-        loader, _ = build(config)
-        fetch = []
-        t0 = time.perf_counter()
-        for _ in loader:
-            fetch.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-        check(len(fetch) == DATA_QUESTIONS // DATA_TRAIN_BATCH, f"loader gave {len(fetch)} batches")
-        out["fetch_ms"] = {"median": float(np.median(fetch[1:])), "p90": float(np.percentile(fetch[1:], 90)),
-                           "first": fetch[0]}
+        out["fetch_ms"] = loader_fetch_ms(build(config)[0], DATA_QUESTIONS // DATA_TRAIN_BATCH, "data plane")
 
         cfg = LxmertConfig(dtype="bfloat16")
 
@@ -3361,44 +3443,14 @@ def phase_data(dev, wrappers, smi: str) -> dict:
             log = [json.loads(line) for line in f]
         check(len(log) == DATA_QUESTIONS // DATA_TRAIN_BATCH and all(np.isfinite(r["loss"]) for r in log),
               f"LXMERT from build: losses {log}")
-        # the step with and without the loader in the same loop: more
-        # epochs of inner_loop (prepare, device feed, one-step-late drain,
-        # the log), over the loader and over 16 copies of one host batch (no
-        # loader threads), alternated; the step is the log's clock between
-        # drained steps (each step's metrics are read once the next step is
-        # queued)
-        log_path = os.path.join(exp.logdir, "steps_log.json")
-        loader_it, host_batch = exp.train_loader, next(iter(exp.train_loader))
-        n_steps = DATA_QUESTIONS // DATA_TRAIN_BATCH
-
-        def epoch_step_ms(train_loader, epoch):
-            with open(log_path) as f:
-                n0 = sum(1 for _ in f)
-            exp.train_loader = train_loader
-            if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
-            exp.inner_loop(epoch)
-            with open(log_path) as f:
-                rows = [json.loads(line) for line in f][n0:]
-            check(len(rows) == n_steps and all(np.isfinite(r["loss"]) for r in rows),
-                  f"data plane epoch {epoch}: {len(rows)} steps")
-            return list(np.diff([r["sec"] for r in rows]) * 1e3)
-
-        with_loader, without_loader = [], []
-        for epoch in (1, 2):
-            without_loader += epoch_step_ms([host_batch] * n_steps, epoch)
-            with_loader += epoch_step_ms(loader_it, epoch)
-        exp.train_loader = loader_it
+        # the step with and without the loader in the same loop
+        host_batch, loop = loader_against_control(exp, DATA_QUESTIONS // DATA_TRAIN_BATCH, "data plane")
         cold = np.diff([r["sec"] for r in log]) * 1e3
         samples_s, resident_ms, peak = time_train_step(exp, host_batch, batch=DATA_TRAIN_BATCH)
-
-        def stats(ms):
-            return {"median": float(np.median(ms)), "p90": float(np.percentile(ms, 90))}
-
         out.update({
             "losses": [r["loss"] for r in log], "training_launches": launches,
-            "step_ms_first_epoch": stats(cold), "step_ms_with_loader": stats(with_loader),
-            "step_ms_without_loader": stats(without_loader),
+            "step_ms_first_epoch": median_p90(cold), "step_ms_with_loader": loop["with"],
+            "step_ms_without_loader": loop["without"],
             "step_ms_resident": resident_ms, "samples_per_s_resident": samples_s, "peak_mem_gb": peak,
         })
         # the loader's own share: the same loop with and without it
@@ -3438,6 +3490,386 @@ def phase_data(dev, wrappers, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------- documents from raw FUNSD and DocVQA
+
+FORMS, FORM_WORDS = 64, 780  # ~1000 sub-tokens a form (a few cut at 1023)
+DOCVQA_DOCS, DOCVQA_WORDS, DOCVQA_PER_DOC = 64, 700, 2  # ~900 sub-tokens a document
+RAW_DOC_BATCH = 8
+RAW_DOC_LR = 1e-4
+
+
+def raw_doc_config(datadir: str, logdir: str, lang: dict, **data):
+    from vltk_tpu_torch.config import Config
+
+    config = Config()
+    config.logdir = logdir
+    config.data.update({"datadir": datadir, "train_batch_size": RAW_DOC_BATCH, "num_workers": 4,
+                        "ignore_image": True, **data})
+    config.data.lang.update(lang)
+    config.train.update({"epochs": 1, "learning_rate": RAW_DOC_LR, "weight_decay": 0.01, "warmup_ratio": 0.1,
+                         "clip_grad_norm": 1.0})
+    return config
+
+
+def train_from_raw(exp_cls, cfg, config, dev, wrappers, n_steps: int, what: str) -> dict:
+    """``exp_cls`` at the model config ``cfg`` over ``build(config)``
+    (``loaders=None``) for one epoch on the card: finite losses, K3, K4 and
+    K5 12 launches each a step and no other kernel; then the loader's
+    fetch, the step with and without the loader in the same loop, and the
+    bare step on one device-resident batch."""
+    from vltk_tpu_torch import build
+
+    class Experiment(exp_cls):
+        model_config = cfg
+
+    fetch = loader_fetch_ms(build(config)[0], n_steps, what)
+    t0 = time.perf_counter()
+    exp = Experiment(config, device=dev)
+    init_s = time.perf_counter() - t0
+    check(len(exp.train_loader) == n_steps, f"{what}: {len(exp.train_loader)} batches")
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    result = exp()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+        log = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in log]
+    check(len(losses) == n_steps and all(np.isfinite(losses)), f"{what}: losses {losses}")
+    for name in ("flash_attention", "flash_attention_dkv", "flash_attention_dq"):
+        check(launches[name] == 12 * n_steps, f"{what}: {name} launched {launches[name]} times over {n_steps} steps "
+              "(12 a step expected)")
+    check(not any(v for k, v in launches.items() if not k.startswith("flash_attention")),
+          f"{what}: other kernels launched {launches}")
+    host_batch, loop = loader_against_control(exp, n_steps, what)
+    samples_s, resident_ms, peak = time_train_step(exp, host_batch, batch=RAW_DOC_BATCH)
+    out = {
+        "launches": launches, "losses": losses, "train_s": train_s, "init_s": init_s, "fetch_ms": fetch,
+        "metrics": {k: v for k, v in result["train"].items() if isinstance(v, float)},
+        "step_ms_first_epoch": median_p90(np.diff([r["sec"] for r in log]) * 1e3),
+        "step_ms_with_loader": loop["with"], "step_ms_without_loader": loop["without"],
+        "step_ms_resident": resident_ms, "samples_per_s_resident": samples_s, "peak_mem_gb": peak,
+    }
+    out["loader_ms"] = loop["with"]["median"] - loop["without"]["median"]
+    del exp
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_raw_documents(dev, wrappers, smi: str) -> dict:
+    """Documents from raw JSON through the port's user entry points: 64
+    seeded FUNSD forms of 780 words (~1000 sub-tokens) -> the ``funsd``
+    adapter's Arrow -> ``build(config)`` with ``auxtokenize, ocrboxfixed,
+    tokenlabels`` at ``max_visual_seq_length`` 1024 -> ``OCRTokenExperiment``
+    at LayoutLM-base (12 x 768, seq 1024, bf16), B=8, one epoch of 8 steps;
+    64 seeded DocVQA documents of 700 words (~900 sub-tokens), two
+    questions each -> ``docvqavisn`` and ``docvqa`` (answers grounded by
+    Jaccard) -> ``build`` with ``auxtokenize, ocrboxfixed`` + ``span`` at
+    question 64 + document 960 -> ``DocVQASpanExperiment``, B=8, one epoch
+    of 16 steps. Each: finite losses, K3, K4 and K5 12 launches a step, the
+    ETL seconds, the host fetch a batch, the step with and without the
+    loader."""
+    import tempfile
+
+    from vltk_tpu_torch.adapters import Adapters
+    from vltk_tpu_torch.experiments import DocVQASpanExperiment, OCRTokenExperiment
+    from vltk_tpu_torch.tools.synthetic_corpus import write_docvqa, write_funsd
+    from vltk_tpu_torch.trace import layoutlm_train_config
+
+    cfg = layoutlm_train_config("auto")
+    check((cfg.l_layers, cfg.hidden_size, cfg.num_heads, cfg.max_position_embeddings, cfg.dtype)
+          == (12, 768, 12, 1024, "bfloat16"), f"LayoutLM-base config {cfg}")
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_docs_") as root:
+        datadir = os.path.join(root, "data")
+        t0 = time.perf_counter()
+        write_funsd(datadir, FORMS, FORM_WORDS, seed=0)
+        write_docvqa(datadir, DOCVQA_DOCS, DOCVQA_WORDS, DOCVQA_PER_DOC, seed=1)
+        out["corpus_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        forms = Adapters.get("funsd").extract(datadir)
+        out["funsd_etl_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        docs = Adapters.get("docvqavisn").extract(datadir)
+        questions = Adapters.get("docvqa").extract(datadir)["train"]
+        out["docvqa_etl_s"] = time.perf_counter() - t0
+        n_questions = DOCVQA_DOCS * DOCVQA_PER_DOC
+        check(len(forms) == FORMS and len(docs) == DOCVQA_DOCS and len(questions) == n_questions,
+              f"ETL: {len(forms)} forms, {len(docs)} documents, {len(questions)} grounded questions")
+
+        funsd_config = raw_doc_config(datadir, os.path.join(root, "funsd"), {"max_visual_seq_length": 1024},
+                                      train_datasets=[["funsd", "train"]],
+                                      visn_processors=["auxtokenize", "ocrboxfixed", "tokenlabels"])
+        out["funsd"] = train_from_raw(OCRTokenExperiment, cfg, funsd_config, dev, wrappers, FORMS // RAW_DOC_BATCH,
+                                      "FUNSD from raw JSON")
+        span_config = raw_doc_config(datadir, os.path.join(root, "docvqa"),
+                                     {"max_seq_length": SPAN_Q, "max_visual_seq_length": SPAN_DOC},
+                                     train_datasets=[["docvqa", "train"]], ignore_filepath=True,
+                                     visn_processors=["auxtokenize", "ocrboxfixed"], visnlang_processors=["span"])
+        out["docvqa"] = train_from_raw(DocVQASpanExperiment, cfg, span_config, dev, wrappers,
+                                       n_questions // RAW_DOC_BATCH, "DocVQA from raw JSON")
+
+    for key, what, etl in (("funsd", f"FUNSD ({FORMS} forms of {FORM_WORDS} words, seq 1024)", out["funsd_etl_s"]),
+                           ("docvqa", f"DocVQA ({DOCVQA_DOCS} documents of {DOCVQA_WORDS} words, {n_questions} "
+                                      f"questions, {SPAN_Q} + {SPAN_DOC})", out["docvqa_etl_s"])):
+        r = out[key]
+        print(
+            f"raw documents on {smi}: {what}: ETL {etl:.2f} s; LayoutLM-base bf16 B={RAW_DOC_BATCH}, "
+            f"{len(r['losses'])} steps in {r['train_s']:.2f} s (init {r['init_s']:.2f} s); launches {r['launches']}; "
+            f"host fetch a batch median {r['fetch_ms']['median']:.2f} ms, p90 {r['fetch_ms']['p90']:.2f} ms; the step "
+            f"median (p90) in ms: first epoch {r['step_ms_first_epoch']['median']:.3f} "
+            f"({r['step_ms_first_epoch']['p90']:.3f}), with the loader {r['step_ms_with_loader']['median']:.3f} "
+            f"({r['step_ms_with_loader']['p90']:.3f}), without it {r['step_ms_without_loader']['median']:.3f} "
+            f"({r['step_ms_without_loader']['p90']:.3f}), bare {r['step_ms_resident']:.3f}; the loader's share "
+            f"{r['loader_ms']:.3f}; losses {[round(x, 4) for x in r['losses']]}; {r['metrics']}; peak "
+            f"{r['peak_mem_gb']:.2f} GB"
+        )
+    return out
+
+
+# ------------------------------------- GQA on Visual Genome, the host pipeline, masks
+
+GQA_IMAGES, GQA_QUESTIONS = 64, 512  # 8 answers of 64 questions each
+HOSTPIPE_WORKERS = 4
+MASK_IMAGES = 8
+
+
+def near_boundary(diff: np.ndarray, plain: np.ndarray) -> bool:
+    """Every pixel of ``diff`` lies within one pixel of a boundary pixel of
+    ``plain`` (a pixel with a 4-neighbour of the other value)."""
+    if not diff.any():
+        return True
+    h, w = plain.shape
+    pad = np.pad(plain, 1, mode="edge")
+    edge = np.zeros((h, w), bool)
+    for dy, dx in ((0, 1), (1, 0), (2, 1), (1, 2)):
+        edge |= pad[dy : dy + h, dx : dx + w] != plain
+    grown = np.pad(edge, 1)
+    near = np.zeros((h, w), bool)
+    for dy in range(3):
+        for dx in range(3):
+            near |= grown[dy : dy + h, dx : dx + w]
+    return not (diff & ~near).any()
+
+
+def check_mask_processors(root: str) -> dict:
+    """The mask processors through ``build(config)`` on seeded CLEVR-ref
+    (point runs) and COCO-polygon corpora, each instance held against the
+    plain NumPy / PIL decode of the same raw annotation resized the same
+    way: point runs bitwise; polygons bitwise to the native fill resized,
+    and the native fill within one pixel of PIL's boundary. Then the
+    native fill of the committed polygons of ``tests/data/polygon_fill.json``
+    bitwise against the JAX package's fill of them."""
+    from vltk_tpu_torch import build
+    from vltk_tpu_torch.adapters import Adapters
+    from vltk_tpu_torch.config import Config
+    from vltk_tpu_torch.tools.synthetic_corpus import write_clevrref, write_corpus
+    from vltk_tpu_torch.utils.adapters import (imagepoints_to_mask_plain, polygon_to_mask, polygon_to_mask_plain,
+                                               resize_binary_mask)
+
+    datadir = os.path.join(root, "masks")
+    write_clevrref(datadir, MASK_IMAGES, hw=(320, 480), seed=0)
+    write_corpus(datadir, MASK_IMAGES, 0, hw=RAW_HW, seed=1, shapes="polygons")
+    out = {}
+    for dataset, proc, key in (("clevrref", "rleprocessor", "RLE"), ("coco2014", "polygonprocessor", "poly")):
+        raw = Adapters.get(dataset).extract(datadir)
+        config = Config()
+        config.data.update({"datadir": datadir, "train_datasets": [[dataset, "train"]], "train_batch_size": 4,
+                            "num_workers": 0, "shuffle": False, "drop_last": False, "visn_processors": [proc],
+                            "ignore_segmentation": False, "vision": {"size": (320, 480)}})
+        config.data.lang.update({"max_visual_seq_length": 16})
+        n_masks = n_pixels = n_off = 0
+        for batch in build(config)[0]:
+            for i, imgid in enumerate(batch["imgid"]):
+                rawsize = tuple(int(x) for x in batch["rawsize"][i])
+                size = tuple(int(x) for x in batch["size"][i])
+                got = batch["segmentation"][i]
+                check(got.dtype == np.uint8 and got.shape == (16, *size), f"{dataset}: masks {got.dtype} {got.shape}")
+                for k, seg in enumerate(raw.get(imgid)[key]):
+                    if key == "RLE":
+                        want = resize_binary_mask(imagepoints_to_mask_plain(seg, rawsize), size)
+                    else:
+                        native = polygon_to_mask(seg, *rawsize)
+                        plain = polygon_to_mask_plain(seg, *rawsize)
+                        check(near_boundary(native != plain, plain), f"{imgid} instance {k}: the native polygon "
+                              "fill differs from PIL's away from the boundary")
+                        n_off += int((native != plain).sum())
+                        want = resize_binary_mask(native, size)
+                    check(np.array_equal(got[k], want), f"{dataset} {imgid} instance {k}: mask != the plain decode")
+                    n_masks += 1
+                    n_pixels += int(want.sum())
+        check(n_masks > MASK_IMAGES and n_pixels > 0, f"{dataset}: {n_masks} masks, {n_pixels} pixels")
+        out[dataset] = {"masks": n_masks, "pixels": n_pixels, "boundary_pixels_differing_from_pil": n_off}
+    # this machine's build of maskops.cpp against fills the JAX package's
+    # build made of committed polygons (tests/data/polygon_fill.json, which
+    # tests/test_torch_masks.py writes and holds against JAX on the CPU)
+    with open(os.path.join(HERE, "tests", "data", "polygon_fill.json")) as f:
+        cases = json.load(f)["cases"]
+    for i, case in enumerate(cases):
+        h, w = case["height"], case["width"]
+        want = np.repeat(np.arange(len(case["runs"])) % 2, case["runs"]).astype(np.uint8).reshape(h, w)
+        check(np.array_equal(polygon_to_mask(case["polygons"], h, w), want),
+              f"polygon fill case {i} ({h} x {w}) != the JAX package's native fill")
+    check(len(cases) >= 20, f"{len(cases)} polygon fill cases")
+    out["polygon_fill_fixture_cases_bitwise"] = len(cases)
+    return out
+
+
+def phase_gqa(dev, wrappers, smi: str) -> dict:
+    """GQA over Visual Genome through the port's user entry points: 64
+    seeded 480 x 640 VG JPEGs and 512 GQA questions (8 answers) -> the
+    ``gqa`` adapter's Arrow -> ``FRCNN.extract(dataset_name="visualgenome")``
+    (parity_300, B=8, seeded tamed weights from a state dict: K1 8 and K2
+    16 launches) -> 8 stored rows bitwise equal to a direct step ->
+    ``build(config)`` joining the questions with the VG features ->
+    ``LxmertVQAExperiment`` at LXMERT-base bf16, B=32, one epoch of 16 steps
+    (finite losses, no kernel). Then ``HostDecodeFRCNN`` over the same
+    images inline and with 4 worker processes (the merged table equal to
+    the inline one; images/s and the stage seconds), ``FRCNN.extract``
+    with ``host_workers=2`` refused, and the mask processors against their
+    plain versions (``check_mask_processors``)."""
+    import tempfile
+
+    from vltk_tpu_torch.adapters import Adapters
+    from vltk_tpu_torch.adapters.frcnn import FRCNN, tame_random_weights
+    from vltk_tpu_torch.config import Config
+    from vltk_tpu_torch.data.hostpipe import HostDecodeFRCNN, run_sharded_split
+    from vltk_tpu_torch.experiments import LxmertVQAExperiment
+    from vltk_tpu_torch.models.frcnn import FRCNN as FRCNNModel, FRCNNConfig, init_weights
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.tools.synthetic_corpus import GQA_ANSWERS, write_gqa
+
+    class ExtractionFRCNN(FRCNN):
+        model_batch_size = DATA_EXTRACT_BATCH
+        raw_canvas, resized_canvas = RAW_CANVAS, CANVAS
+
+    out: dict = {"cpu_count": os.cpu_count()}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_gqa_") as root:
+        datadir = os.path.join(root, "data")
+        img_dir = os.path.join(datadir, "visualgenome", "train")
+        t0 = time.perf_counter()
+        write_gqa(datadir, GQA_IMAGES, GQA_QUESTIONS, hw=RAW_HW, seed=0)
+        out["corpus_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gqa = Adapters.get("gqa").extract(datadir, splits=["train"])["train"]
+        out["etl_s"] = time.perf_counter() - t0
+        check(len(gqa) == GQA_QUESTIONS and sorted(gqa.answer_frequencies) == sorted(GQA_ANSWERS),
+              f"GQA ETL: {len(gqa)} questions, answers {gqa.answer_frequencies}")
+
+        ckpt = os.path.join(root, "frcnn.pt")
+        torch.save(tame_random_weights(init_weights(FRCNNModel(FRCNNConfig.vg_extraction()), seed=0)).state_dict(),
+                   ckpt)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extracted = ExtractionFRCNN.extract(datadir, dataset_name="visualgenome", checkpoint=ckpt,
+                                            preset="parity_300", device=dev)["train"]
+        torch.cuda.synchronize()
+        out["extract_s"] = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        steps = GQA_IMAGES // DATA_EXTRACT_BATCH
+        check(launches["roi_pool"] == steps and launches["nms"] == 2 * steps
+              and not any(v for k, v in launches.items() if k not in ("roi_pool", "nms")),
+              f"VG extraction launches {launches} over {steps} steps (K1 {steps}, K2 {2 * steps} expected)")
+        out["extraction_launches"] = launches
+        check(len(extracted) == GQA_IMAGES, f"VG features: {len(extracted)} rows")
+        t0 = time.perf_counter()
+        bundle, _ = ExtractionFRCNN.setup(checkpoint=ckpt, preset="parity_300", device=dev)
+        out["setup_s"] = time.perf_counter() - t0
+        out["direct_step_ms"] = check_stored_rows(ExtractionFRCNN, bundle, extracted, img_dir, dev)
+        del bundle
+        torch.cuda.empty_cache()
+
+        config = Config()
+        config.logdir = os.path.join(root, "logs")
+        config.data.update({"datadir": datadir, "train_datasets": [["gqa", "train"]], "extractor": "frcnn",
+                            "train_batch_size": DATA_TRAIN_BATCH, "num_workers": 4,
+                            "max_detections": LXMERT_BOXES, "visual_dim": 2048})
+        config.data.lang.update({"max_seq_length": LXMERT_SEQ})
+        config.train.update({"epochs": 1, "learning_rate": 1e-5})
+
+        class VQA(LxmertVQAExperiment):
+            model_config = LxmertConfig(dtype="bfloat16")
+
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        exp = VQA(config, device=dev)
+        out["experiment_init_s"] = time.perf_counter() - t0
+        n_steps = GQA_QUESTIONS // DATA_TRAIN_BATCH
+        check(exp.model_config.num_answers == len(GQA_ANSWERS) and len(exp.train_loader) == n_steps,
+              f"GQA experiment: {exp.model_config.num_answers} answers, {len(exp.train_loader)} batches")
+        batch = next(iter(exp.train_loader))
+        check(batch["features"].shape == (DATA_TRAIN_BATCH, LXMERT_BOXES, 2048), f"GQA batch features {batch['features'].shape}")
+        check(all(extracted.has(i) for i in batch["imgid"]) and bool(np.isfinite(batch["features"]).all())
+              and np.array_equal(batch["features"][0], extracted.get(batch["imgid"][0])["features"]),
+              "GQA batches do not carry the VG features of their images")
+        t0 = time.perf_counter()
+        exp()
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["training_launches"] = {k: w.launches for k, w in wrappers.items()}
+        check(not any(out["training_launches"].values()), f"kernels on the GQA LXMERT path: {out['training_launches']}")
+        with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+            log = [json.loads(line) for line in f]
+        out["losses"] = [r["loss"] for r in log]
+        check(len(log) == n_steps and all(np.isfinite(out["losses"])), f"GQA LXMERT losses {out['losses']}")
+        out["step_ms"] = median_p90(np.diff([r["sec"] for r in log]) * 1e3)
+        del exp
+        torch.cuda.empty_cache()
+
+        # the host pipeline: the same images, inline and over 4 processes
+        t0 = time.perf_counter()
+        inline = HostDecodeFRCNN.extract(datadir, dataset_name="visualgenome", host_workers=1)["train"]
+        out["hostpipe_inline_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pooled = HostDecodeFRCNN.extract(datadir, dataset_name="visualgenome", host_workers=HOSTPIPE_WORKERS)["train"]
+        out["hostpipe_pooled_s"] = time.perf_counter() - t0
+        check(len(pooled) == GQA_IMAGES and pooled.table.equals(inline.table)
+              and pooled.metadata == inline.metadata, "HostDecodeFRCNN: 4 workers' table != the inline one")
+        out["hostpipe_pooled"] = pooled.host_stats["aggregate"]
+        _, one = run_sharded_split(HostDecodeFRCNN, Adapters.get("visualgenome").load_imgid2path(datadir, "train"),
+                                   os.path.join(root, "one.arrow"), num_workers=1)
+        out["hostpipe_one_process"] = one["aggregate"]
+        try:
+            FRCNN.extract(datadir, dataset_name="visualgenome", host_workers=2)
+            check(False, "FRCNN.extract(host_workers=2) did not raise")
+        except ValueError as exc:
+            check("host-only" in str(exc), f"FRCNN.extract(host_workers=2): {exc}")
+
+        t0 = time.perf_counter()
+        out["masks"] = check_mask_processors(root)
+        out["masks_s"] = time.perf_counter() - t0
+
+    pipeline_s = out["extract_s"] - out["setup_s"]
+    one, pooled = out["hostpipe_one_process"], out["hostpipe_pooled"]
+    stages = lambda a: ", ".join(f"{k} {a[k]:.2f}" for k in ("decode_s", "collate_s", "forward_s", "write_s"))  # noqa: E731
+    print(
+        f"GQA on Visual Genome on {smi}: ETL ({GQA_QUESTIONS} questions -> Arrow) {out['etl_s']:.2f} s; "
+        f"FRCNN.extract(dataset_name='visualgenome') parity_300 B={DATA_EXTRACT_BATCH} over {GQA_IMAGES} images "
+        f"{out['extract_s']:.2f} s ({GQA_IMAGES / pipeline_s:.2f} images/s without the {out['setup_s']:.2f} s setup; "
+        f"the step alone {out['direct_step_ms']:.1f} ms); launches {out['extraction_launches']}; "
+        f"{DATA_CHECKED_IMAGES} stored rows bitwise equal to the direct step; LxmertVQAExperiment from build "
+        f"(LXMERT-base bf16, B={DATA_TRAIN_BATCH}, {len(out['losses'])} steps in {out['train_s']:.2f} s, init "
+        f"{out['experiment_init_s']:.2f} s, step median {out['step_ms']['median']:.3f} ms, p90 "
+        f"{out['step_ms']['p90']:.3f}); losses {[round(x, 4) for x in out['losses']]}"
+    )
+    print(
+        f"host pipeline (HostDecodeFRCNN, {GQA_IMAGES} VG JPEGs of 480 x 640 onto the 1344 x 1344 canvas, B=8, "
+        f"os.cpu_count() {out['cpu_count']}): extract inline (decode threads) {out['hostpipe_inline_s']:.2f} s "
+        f"({GQA_IMAGES / out['hostpipe_inline_s']:.2f} images/s); one process {one['img_per_s']:.2f} images/s "
+        f"(wall {one['wall_s']:.2f} s; {stages(one)} s); {pooled['workers']} processes {pooled['img_per_s']:.2f} "
+        f"images/s, start-up bound, not a throughput: at {GQA_IMAGES} images the wall is the children's spawn and "
+        f"imports (wall {pooled['wall_s']:.2f} s, extract {out['hostpipe_pooled_s']:.2f} s; summed {stages(pooled)} s);"
+        f" merged table equal to the inline one (the check this run is for); FRCNN.extract(host_workers=2) raised ValueError; mask processors "
+        f"against the plain decodes {out['masks']} in {out['masks_s']:.2f} s"
+    )
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3451,6 +3883,11 @@ def main() -> int:
     from vltk_tpu_torch.tools.bench_nms import step_calls
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {what}")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3471,6 +3908,7 @@ def main() -> int:
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
     entries.append(phase_flash(dev, _build.ptxas_lines(outputs.get("flash_attention", ""))))
     entries += phase_flash_backward(dev)
+    stamp("the build and the kernel phases")
 
     bundle, info = setup(
         preset="parity_300", batch_size=8, device=dev,
@@ -3501,6 +3939,7 @@ def main() -> int:
             f"preds/image {r['preds_per_image']}"
         )
     print("extraction_runs " + json.dumps(runs))
+    stamp("extraction")
     time_roi_pool_on_proposals(entries[0], proposals)
     time_nms_on_step(next(e for e in entries if e["name"] == "nms_fixed"), nms_calls)
     del proposals, nms_calls
@@ -3513,6 +3952,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_small_reference(dev)
+    stamp("the int8 extraction, the int8 probe and the small reference")
     del bundle
     torch.cuda.empty_cache()
 
@@ -3524,6 +3964,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     vqa_int8 = phase_int8_vqa(dev, KERNEL_WRAPPERS, smi, vqa["timed"], int8_shapes)
     print("int8_vqa_run " + json.dumps(vqa_int8))
+    stamp("VQA")
     torch.cuda.empty_cache()
 
     doc = phase_document(dev, KERNEL_WRAPPERS, smi)
@@ -3534,6 +3975,7 @@ def main() -> int:
     print("training_run " + json.dumps(train))
     phase_route_gradients(dev)
     phase_small_layoutlm_train(dev)
+    stamp("documents and training")
 
     span = phase_span(dev, KERNEL_WRAPPERS, smi)
     print("span_run " + json.dumps(span))
@@ -3547,6 +3989,7 @@ def main() -> int:
     lxmert_train = phase_lxmert_train(dev, KERNEL_WRAPPERS, smi)
     print("lxmert_training_run " + json.dumps(lxmert_train))
     phase_small_pretrain(dev)
+    stamp("span QA, int8 documents and the LXMERT trainers")
     vit = phase_vit(dev, KERNEL_WRAPPERS, smi, int8_shapes)
     print("vit_run " + json.dumps(vit))
     visualbert = phase_visualbert(dev, KERNEL_WRAPPERS, smi)
@@ -3556,8 +3999,16 @@ def main() -> int:
     server = phase_server(dev, KERNEL_WRAPPERS, smi)
     print("server_run " + json.dumps(server))
     phase_small_encoders(dev)
+    stamp("the other encoders and the server")
     data = phase_data(dev, KERNEL_WRAPPERS, smi)
     print("data_run " + json.dumps(data))
+    stamp("the data plane (phase 29)")
+    raw_docs = phase_raw_documents(dev, KERNEL_WRAPPERS, smi)
+    print("raw_documents_run " + json.dumps(raw_docs))
+    stamp("documents from raw JSON (phase 30)")
+    gqa = phase_gqa(dev, KERNEL_WRAPPERS, smi)
+    print("gqa_run " + json.dumps(gqa))
+    stamp("GQA on Visual Genome (phase 31)")
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
@@ -3595,6 +4046,12 @@ def main() -> int:
         # 16) and the LXMERT epoch from build (none)
         e["data_extraction_launches"] = data["extraction_launches"].get(key, 0)
         e["data_training_launches"] = data["training_launches"].get(key, 0)
+        # documents from raw JSON (FUNSD 8 steps, DocVQA 16: K3, K5, K4 12
+        # each a step) and GQA on VG (extraction K1 8, K2 16; LXMERT none)
+        e["funsd_training_launches"] = raw_docs["funsd"]["launches"].get(key, 0)
+        e["docvqa_training_launches"] = raw_docs["docvqa"]["launches"].get(key, 0)
+        e["gqa_extraction_launches"] = gqa["extraction_launches"].get(key, 0)
+        e["gqa_training_launches"] = gqa["training_launches"].get(key, 0)
     # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
     k3 = next(e for e in entries if e["name"] == "flash_attention")
     for model, run in (("vit", vit), ("visualbert", visualbert)):
@@ -3611,5 +4068,7 @@ def main() -> int:
     return 0
 
 
+# the guard matters: phase 31's spawned host-pipeline workers import this
+# module again (as __mp_main__) and must not run the script
 if __name__ == "__main__":
     sys.exit(main())

@@ -146,7 +146,7 @@ class TestExtraction:
 
     def test_guards(self, extracted):
         jdir, _, ckpt, _, _ = extracted
-        with pytest.raises(NotImplementedError, match=r"A\.8\(b\)"):
+        with pytest.raises(ValueError, match="host-only"):
             FRCNN.extract(jdir, dataset_name="coco2014", host_workers=2, device="cpu")
         with pytest.raises(FileNotFoundError):
             tiny_adapter(FRCNN).extract(jdir, dataset_name="coco2014", img_format="png", checkpoint=ckpt,

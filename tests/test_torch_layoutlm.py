@@ -477,7 +477,8 @@ def test_no_port_source_names_a_path_inside_the_jax_package():
 
     pkg = os.path.dirname(os.path.abspath(vltk_tpu_torch.__file__))
     assert os.path.dirname(V.VOCABPATH).startswith(pkg) and os.path.exists(V.VOCABPATH)
-    assert native._SRC.startswith(pkg) and os.path.exists(native._SRC)
+    assert native._SRC_DIR.startswith(pkg) and native._SOURCES == ("wordpiece.cpp", "maskops.cpp")
+    assert all(os.path.exists(os.path.join(native._SRC_DIR, s)) for s in native._SOURCES)
     bad = []
     for root, _, files in os.walk(pkg):
         for name in files:

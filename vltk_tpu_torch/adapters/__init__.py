@@ -1,11 +1,11 @@
 """Adapter registry of the port.
 
 Counterpart of ``vltk_tpu/adapters/__init__.py``: ``Adapters.get(name)``
-returns the adapter class; ``Adapters.add`` registers a user's. Ported:
-``coco2014`` (``Coco2014``), ``vqa`` (``VQA``) and the extraction adapter
-``frcnn`` (``FRCNN``, registered on first use: it pulls in the model
-stack). The JAX package's other adapters wait for their slice; asking for
-one raises ``KeyError`` naming its ROADMAP item.
+returns the adapter class; ``Adapters.add`` registers a user's. The
+JAX package's eleven: ``clevr``, ``clevrref``, ``coco2014``,
+``cococaptions``, ``docvqa``, ``docvqavisn``, ``funsd``, ``gqa``,
+``vgqa``, ``visualgenome``, ``vqa``; and the extraction adapter ``frcnn``
+(``FRCNN``, registered on first use: it pulls in the model stack).
 """
 
 from __future__ import annotations
@@ -13,18 +13,19 @@ from __future__ import annotations
 from typing import Dict, List, Type
 
 from vltk_tpu_torch.adapters.base import Adapter
+from vltk_tpu_torch.adapters.clevr import CLEVR
+from vltk_tpu_torch.adapters.clevrref import CLEVRREF
 from vltk_tpu_torch.adapters.coco2014 import Coco2014
+from vltk_tpu_torch.adapters.cococaptions import COCOCaptions
+from vltk_tpu_torch.adapters.docvqa import DocVQA, DocVQAVisn
 from vltk_tpu_torch.adapters.extraction import VisnExtraction
+from vltk_tpu_torch.adapters.funsd import FUNSD
+from vltk_tpu_torch.adapters.gqa import GQA
+from vltk_tpu_torch.adapters.vgqa import VGQA
 from vltk_tpu_torch.adapters.visn import VisnDataset
 from vltk_tpu_torch.adapters.visnlang import VisnLangDataset
+from vltk_tpu_torch.adapters.visualgenome import VisualGenome
 from vltk_tpu_torch.adapters.vqa import VQA
-
-# adapters of the JAX package not ported yet, and the item that ports them
-UNPORTED = {
-    name: "ROADMAP A.8(b)"
-    for name in ("clevr", "clevrref", "cococaptions", "docvqa", "docvqavisn", "funsd", "gqa", "vgqa",
-                 "visualgenome")
-}
 
 
 class _AdapterRegistry:
@@ -40,8 +41,6 @@ class _AdapterRegistry:
         if key not in self._classes and key == "frcnn":
             register_frcnn()
         if key not in self._classes:
-            if key in UNPORTED:
-                raise KeyError(f"adapter {name!r} is not ported yet ({UNPORTED[key]}); available: {self.avail()}")
             raise KeyError(f"unknown adapter {name!r}; available: {self.avail()}")
         return self._classes[key]
 
@@ -63,7 +62,7 @@ class _AdapterRegistry:
 
 
 Adapters = _AdapterRegistry()
-Adapters.add(Coco2014, VQA)
+Adapters.add(CLEVR, CLEVRREF, Coco2014, COCOCaptions, DocVQA, DocVQAVisn, FUNSD, GQA, VGQA, VisualGenome, VQA)
 
 
 def register_frcnn():
@@ -74,5 +73,5 @@ def register_frcnn():
     return FRCNN
 
 
-__all__ = ["Adapter", "Adapters", "Coco2014", "VQA", "VisnDataset", "VisnExtraction", "VisnLangDataset",
-           "register_frcnn"]
+__all__ = ["Adapter", "Adapters", "CLEVR", "CLEVRREF", "COCOCaptions", "Coco2014", "DocVQA", "DocVQAVisn", "FUNSD",
+           "GQA", "VGQA", "VQA", "VisnDataset", "VisnExtraction", "VisnLangDataset", "VisualGenome", "register_frcnn"]

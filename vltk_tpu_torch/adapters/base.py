@@ -198,11 +198,14 @@ class Adapter:
             meta[f"{col}_frequencies"] = dict(counter)
         if extra_metadata:
             meta.update(extra_metadata)
-        table = set_metadata(table, meta)
+        return cls._write_table(set_metadata(table, meta), out_path)
 
+    @classmethod
+    def _write_table(cls, table: pa.Table, out_path: str) -> "Adapter":
+        """Write ``table`` as an Arrow IPC stream at ``out_path``, then load
+        it. Crash-atomic: a process dying mid-write leaves neither a
+        truncated file where load() looks nor a damaged earlier extraction."""
         os.makedirs(os.path.dirname(out_path), exist_ok=True)
-        # crash-atomic: a process dying mid-write leaves neither a truncated
-        # file where load() looks nor a damaged earlier extraction
         tmp_path = f"{out_path}.{os.getpid()}.tmp"
         try:
             with pa.OSFile(tmp_path, "wb") as f:

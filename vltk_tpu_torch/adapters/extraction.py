@@ -13,8 +13,11 @@ a pool of decode threads while the device runs batch k; every batch has the
 model's batch size (the last one is filled with copies of its last image,
 dropped after the forward); with the two-phase forward, batch k + 1 is
 queued on the device before batch k is fetched and written. The model runs
-on CUDA unless ``device="cpu"`` is passed. Several host processes
-(``host_workers > 1``) are not ported yet.
+on CUDA unless ``device="cpu"`` is passed. With ``host_workers > 1`` a
+host-only adapter (``host_only = True``: its ``setup`` builds no model on
+the card) runs each split over that many processes
+(``data/hostpipe.py:run_sharded_split``; the stage seconds land on
+``adapter.host_stats``); any other adapter raises ``ValueError`` then.
 """
 
 from __future__ import annotations
@@ -88,10 +91,11 @@ class VisnExtraction(Adapter):
         dataset_name = dataset_name or cls.dataset
         if dataset_name is None:
             raise ValueError(f"{cls.name()}.extract needs a dataset name")
-        if host_workers > 1:
-            raise NotImplementedError(
-                f"{cls.name()}: host_workers={host_workers} needs the multi-process host pipeline "
-                "(data/hostpipe.py), not ported yet (ROADMAP A.8(b)); use host_workers=0"
+        if host_workers > 1 and not getattr(cls, "host_only", False):
+            raise ValueError(
+                f"{cls.name()}: host_workers={host_workers} requires a host-only adapter (setup() must not build "
+                "a model on the card: each worker process would claim it). Device extraction keeps the threaded "
+                "double-buffered pipeline; see data/hostpipe.py."
             )
         vdset = Adapters.get(dataset_name)
         base = os.path.join(datadir, dataset_name)
@@ -120,8 +124,18 @@ class VisnExtraction(Adapter):
         out: Dict[str, Adapter] = {}
         for split, id2path in split_files.items():
             meta = {"model_config": model_config, "processor_args": processor_cfg.to_dict(), "dataset": base}
-            entries = cls._run_split(id2path, processor, model, fwd_kwargs)
-            adapter = cls._write_entries(entries, schema, os.path.join(base, cls.name(), f"{split}.arrow"), meta)
+            out_path = os.path.join(base, cls.name(), f"{split}.arrow")
+            if host_workers > 1:
+                from vltk_tpu_torch.data.hostpipe import run_sharded_split
+
+                adapter, stats = run_sharded_split(
+                    cls, id2path, out_path, num_workers=host_workers, batch_size=cls.model_batch_size,
+                    setup_kwargs=collect_args_to_func(cls.setup, kwargs), schema_kwargs=kwargs, extra_metadata=meta,
+                )
+                adapter.host_stats = stats
+            else:
+                adapter = cls._write_entries(cls._run_split(id2path, processor, model, fwd_kwargs), schema, out_path,
+                                             meta)
             adapter._split = split
             out[split] = adapter
         return out

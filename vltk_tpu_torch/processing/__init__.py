@@ -1,12 +1,11 @@
 """Processors and the host image pipeline of the port.
 
 Counterpart of ``vltk_tpu/processing/__init__.py``: the ``Processors``
-registry (``Processors.get(name)`` -> class; the OCR chain of ``visn.py``,
-``Span`` of ``visnlang.py``) and ``build_image_pipeline``, which composes
-the image transforms a ``VisionConfig`` names, each given the config
-fields its constructor declares. The JAX package's mask and box
-processors wait for their slice; asking for one raises ``KeyError`` naming
-its ROADMAP item.
+registry (``Processors.get(name)`` -> class: the mask, OCR and box
+processors of ``visn.py``, ``Span`` of ``visnlang.py``) and
+``build_image_pipeline``, which composes the image transforms a
+``VisionConfig`` names, each given the config fields its constructor
+declares.
 """
 
 from __future__ import annotations
@@ -16,14 +15,17 @@ from typing import Any, Callable, Dict, List, Type
 from vltk_tpu_torch.inspection import collect_args_to_func
 from vltk_tpu_torch.processing import image as image_mod
 from vltk_tpu_torch.processing.processor import LangProcessor, Processor, VisnLangProcessor, VisnProcessor
-from vltk_tpu_torch.processing.visn import AuxTokenize, OCRBoxFixed, TokenLabels
+from vltk_tpu_torch.processing.visn import (
+    AuxTokenize,
+    OCRBox,
+    OCRBoxFixed,
+    PolygonProcessor,
+    RemoveBox,
+    RLEProcessor,
+    TokenLabels,
+    XYWHtoXYXY,
+)
 from vltk_tpu_torch.processing.visnlang import Span
-
-# processors of the JAX package not ported yet, and the item that ports them
-UNPORTED = {
-    name: "ROADMAP A.8(b)"
-    for name in ("ocrbox", "polygonprocessor", "rleprocessor", "removebox", "xywhtoxyxy")
-}
 
 
 class _ProcessorRegistry:
@@ -37,8 +39,6 @@ class _ProcessorRegistry:
     def get(self, name: str) -> Type[Processor]:
         key = name.lower()
         if key not in self._classes:
-            if key in UNPORTED:
-                raise KeyError(f"processor {name!r} is not ported yet ({UNPORTED[key]}); available: {self.avail()}")
             raise KeyError(f"unknown processor {name!r}; available: {self.avail()}")
         return self._classes[key]
 
@@ -50,7 +50,8 @@ class _ProcessorRegistry:
 
 
 Processors = _ProcessorRegistry()
-Processors.add(AuxTokenize, OCRBoxFixed, Span, TokenLabels)
+Processors.add(AuxTokenize, OCRBox, OCRBoxFixed, PolygonProcessor, RemoveBox, RLEProcessor, Span, TokenLabels,
+               XYWHtoXYXY)
 
 _IMAGE_TRANSFORMS: Dict[str, Callable] = {
     "fromfile": image_mod.FromFile,

@@ -1,10 +1,13 @@
-"""OCR processors of the document path.
+"""Vision-side processors: segmentation masks, OCR tokens, boxes.
 
-Counterparts of ``AuxTokenize``, ``_expand_by_tokenmap``, ``OCRBoxFixed``
-and ``TokenLabels`` in ``vltk_tpu/processing/visn.py``: OCR words ->
-flattened sub-token ids, tokenmap and attention mask; word boxes -> 0-1000
-normalised sub-token boxes; word labels -> sub-token label ids. All outputs are fixed-shape numpy arrays padded
-to ``max_visual_seq_length``.
+Counterpart of ``vltk_tpu/processing/visn.py``: polygons or CLEVR-ref
+point runs -> stacked binary masks at the model size (``PolygonProcessor``,
+``RLEProcessor``); OCR words -> flattened sub-token ids, tokenmap and
+attention mask (``AuxTokenize``); word boxes -> sub-token boxes at the
+resized image (``OCRBox``) or 0-1000 normalised (``OCRBoxFixed``); word
+labels -> sub-token label ids (``TokenLabels``); xywh -> xyxy
+(``XYWHtoXYXY``); ``RemoveBox``. All outputs are fixed-shape numpy arrays
+padded to ``max_visual_seq_length``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,60 @@ import numpy as np
 
 from vltk_tpu_torch import vars as V
 from vltk_tpu_torch.processing.processor import VisnProcessor
-from vltk_tpu_torch.utils.adapters import rescale_box, truncate_and_pad_list
+from vltk_tpu_torch.utils.adapters import (
+    imagepoints_to_mask,
+    rescale_box,
+    resize_binary_mask,
+    seg_to_mask,
+    truncate_and_pad_list,
+)
+
+
+def _stack_masks(masks: List[np.ndarray], size, max_len: int) -> np.ndarray:
+    """(n, h, w) uint8: the first ``max_len`` masks (one zero mask when
+    there are none), padded with zero masks to ``max_len``."""
+    masks = masks[:max_len]
+    if not masks:
+        masks = [np.zeros(tuple(int(s) for s in size), dtype=np.uint8)]
+    stacked = np.stack(masks)
+    pad = max_len - stacked.shape[0]
+    if pad > 0:
+        stacked = np.pad(stacked, ((0, pad), (0, 0), (0, 0)))
+    return stacked
+
+
+class PolygonProcessor(VisnProcessor):
+    """Polygons (each instance a list of flat xy lists, at the raw size) ->
+    binary masks resized to the model size, (max_visual_seq_length, h, w)."""
+
+    keys = (V.polygons, V.size)
+
+    def setup(self, max_visual_seq_length: int = 128):
+        self.max_len = max_visual_seq_length
+
+    def forward(self, entry, **kwargs):
+        size = entry[V.size]
+        rawsize = entry.get(V.rawsize, size)
+        masks = [resize_binary_mask(seg_to_mask(p, *rawsize), size) for p in entry.pop(V.polygons)]
+        entry[V.segmentation] = _stack_masks(masks, size, self.max_len)
+        return entry
+
+
+class RLEProcessor(VisnProcessor):
+    """CLEVR-ref point-run masks (at the raw size) -> binary masks resized
+    to the model size, (max_visual_seq_length, h, w)."""
+
+    keys = (V.RLE, V.size)
+
+    def setup(self, max_visual_seq_length: int = 128):
+        self.max_len = max_visual_seq_length
+
+    def forward(self, entry, **kwargs):
+        segs = entry.pop(V.RLE)
+        rawsize, size = entry[V.rawsize], entry[V.size]
+        masks = [resize_binary_mask(imagepoints_to_mask(s, rawsize), size) for s in segs]
+        entry[V.segmentation] = _stack_masks(masks, size, self.max_len)
+        return entry
 
 
 class AuxTokenize(VisnProcessor):
@@ -74,6 +130,31 @@ def _expand_by_tokenmap(items: List, tokenmap) -> List:
             continue
         out.extend([item] * n)
     return out
+
+
+class OCRBox(VisnProcessor):
+    """Word boxes repeated per sub-token and, when the entry has its size
+    and scale, rescaled to the resized image."""
+
+    keys = (V.tokenbox,)
+
+    def setup(self, max_visual_seq_length: int = 128, add_visual_cls: bool = False):
+        self.max_len = max_visual_seq_length
+        self.add_visual_cls = add_visual_cls
+
+    def forward(self, entry, **kwargs):
+        boxes = [list(map(float, b)) for b in entry.pop(V.tokenbox)]
+        if self.add_visual_cls:
+            rh, rw = entry.get(V.rawsize, (0, 0))
+            boxes = [[0.0, 0.0, float(rw), float(rh)]] + boxes
+        if V.tokenmap in entry:
+            boxes = _expand_by_tokenmap(boxes, entry[V.tokenmap])
+        boxes = truncate_and_pad_list(boxes, self.max_len, [0.0, 0.0, 0.0, 0.0])
+        arr = np.asarray(boxes, dtype=np.float32)
+        if V.size in entry and V.scale in entry:
+            arr = rescale_box(arr, entry[V.scale])
+        entry[V.tokenbox] = arr
+        return entry
 
 
 class OCRBoxFixed(VisnProcessor):
@@ -140,4 +221,28 @@ class TokenLabels(VisnProcessor):
         entry[V.tokenlabels] = np.asarray(
             truncate_and_pad_list(ids, self.max_len, self.ignore_id), dtype=np.int32
         )
+        return entry
+
+
+class XYWHtoXYXY(VisnProcessor):
+    """(x, y, w, h) -> (x1, y1, x2, y2) on the tokenbox, box and boxes
+    columns, as float32."""
+
+    def forward(self, entry, **kwargs):
+        for key in (V.tokenbox, V.box, V.boxes):
+            if key in entry:
+                arr = np.asarray(entry[key], dtype=np.float32)
+                if arr.size:
+                    arr = arr.copy()
+                    arr[..., 2] += arr[..., 0]
+                    arr[..., 3] += arr[..., 1]
+                entry[key] = arr
+        return entry
+
+
+class RemoveBox(VisnProcessor):
+    """Drop the box column."""
+
+    def forward(self, entry, **kwargs):
+        entry.pop(V.box, None)
         return entry
