@@ -236,12 +236,45 @@ package):
    pixel of PIL's boundary), and the native fill of the committed polygons
    of ``tests/data/polygon_fill.json`` bitwise against the JAX package's
    fill of them: the native library built with this machine's ``g++``;
-32. prints the ``kernels`` JSON line (each kernel also with its launches on
+32. (right after 13, with the kernel phases) holds the RoIPool backward
+   kernel K10 (``csrc/roi_pool_bwd.cu``) against ``roi_pool_plain_vjp`` at
+   the detection training step's shape (2, 52, 84, 1024) x 300 RoIs:
+   bitwise in bf16 and float32 on cotangents of small integers times 2^-4
+   (every float32 sum exact in any order), on a relu map (zero plateaus)
+   with NaN cells, a -inf block, empty and off-map bins and bins of
+   power-of-two extent, and within the sum-order bound on random ones;
+   one launch a call; times it (median of five readings queued ahead) at
+   B=2 and at the extraction batch B=8 beside its byte bound and the plain
+   VJP;
+33. detection training at full width, bench.py's ``--train frcnn`` step in
+   the port: R-101-C4 with ``FRCNNConfig(post_nms_topk=300,
+   dtype="bfloat16")`` (6000 pre-NMS proposals, 1600 classes, 400
+   attributes), seeded tamed weights, B=2 on the 832 x 1344 canvas with 8
+   seeded ground-truth boxes an image, ``rpn_losses`` at 256 and
+   ``fast_rcnn_losses`` at 128 an image, SGD at 1e-4 for 8 steps: K1 once,
+   K10 once and K2 twice a step (K1 on its vector path), finite losses and
+   gradients; K10 timed on the step's own inputs; the RPN head without a
+   gradient from the RoI losses alone; ``remat`` at B=2 (its first step's
+   loss and gradients against the plain run's, beside the plain step
+   repeated) and at B=4; two AdamW steps with ``freeze_patterns=
+   ("^backbone/",)`` (every backbone tensor bitwise unchanged, the heads
+   moved); step ms, steps/s and peak of each run;
+34. the detection experiments from raw COCO JSON: 16 seeded images (480 x
+   640) -> the coco2014 adapter -> ``build(config)`` (36 detections,
+   segmentation ignored, the 1344 x 1344 canvas) ->
+   ``FRCNNDetectExperiment`` at R-101-C4 bf16 (class head sized from the
+   label table), B=2, one epoch of 8 steps and the eval loop (finite
+   losses, ``map50`` in [0, 1], K1 24, K10 8, K2 48 launches), the step
+   with and without the loader; a ``ComplexExperiment`` over the same model
+   (a detection train loop and an eval loop, both run); one LXMERT-base VQA
+   step at B=32 with ``remat`` against the same step without it (equal
+   loss, the peak of each);
+35. prints the ``kernels`` JSON line (each kernel also with its launches on
    the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT,
    the server, the data plane's extraction and training, the raw FUNSD and
-   DocVQA trainers and GQA's extraction and training; K3 also with its
-   times and bounds at ViT's and VisualBERT's shapes), then the device
-   line last.
+   DocVQA trainers, GQA's extraction and training, detection training and
+   the detection experiment; K3 also with its times and bounds at ViT's
+   and VisualBERT's shapes), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -249,6 +282,8 @@ It also fails without a CUDA device and outside a checkout of the repo.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -393,7 +428,7 @@ def roi_pool_path_run(feat, boxes, want_path: str):
 
 
 def phase_roi_pool(dev, ptxas) -> dict:
-    from vltk_tpu_torch.ops.roi_pool import roi_pool
+    from vltk_tpu_torch.ops.roi_pool import roi_pool_offsets
     from vltk_tpu_torch.ops.roi_pool_kernel import _lib, roi_pool_auto, roi_pool_cuda
     from vltk_tpu_torch.tools.variants import unaligned
 
@@ -412,7 +447,7 @@ def phase_roi_pool(dev, ptxas) -> dict:
         # of negative values
         feat[:, :4, :4] = -torch.rand(b, 4, 4, c, generator=gen).to(dev, dtype)
         boxes = roi_boxes(gen, b, p, dev)
-        want = roi_pool(feat, boxes, 14, 1 / 16)
+        want = roi_pool_offsets(feat, boxes, 14, 1 / 16)
         scalar_feat = unaligned(feat)
         for path, f in (("vector", feat), ("scalar", scalar_feat)):
             got = roi_pool_path_run(f, boxes, path)
@@ -429,7 +464,7 @@ def phase_roi_pool(dev, ptxas) -> dict:
         # the median of five readings of 20 calls queued ahead, as for K3
         runs = spread_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16))
         scalar_runs = spread_ms(lambda: roi_pool_cuda(scalar_feat, boxes, 14, 1 / 16), reps=5, runs=3)
-        plain_ms = cuda_ms(lambda: roi_pool(feat, boxes, 14, 1 / 16), reps=2, warmup=1)
+        plain_ms = cuda_ms(lambda: roi_pool_offsets(feat, boxes, 14, 1 / 16), reps=2, warmup=1)
         nbytes = feat.numel() * 2 + boxes.numel() * 4 + want.numel() * 2
         bound_ms, bound_by = bound(nbytes, roi_pool_ops(boxes, c))
         direct, separable = roi_pool_bytes_requested(boxes, c, 2)
@@ -442,16 +477,14 @@ def phase_roi_pool(dev, ptxas) -> dict:
         timed.append((runs, scalar_runs, plain_ms, bound_ms, bound_by))
         del want, scalar_feat
         torch.cuda.empty_cache()
-    # ROADMAP C.1: the kernel has no backward yet, so the dispatcher refuses
-    # features that want a gradient instead of cutting it
+    # features that want a gradient go through the autograd Function: K1
+    # once, and the output keeps the graph for K10 (phase 32)
     before = roi_pool_auto.launches
-    try:
-        roi_pool_auto(feat.detach().requires_grad_(), boxes, 14, 1 / 16)
-        raised = False
-    except RuntimeError:
-        raised = True
-    check(raised and roi_pool_auto.launches == before, "roi_pool_auto cut the gradient instead of raising")
-    print("roi_pool grad guard: features that require grad raise on the card, nothing launched (ROADMAP C.1)")
+    out = roi_pool_auto(feat.detach().requires_grad_(), boxes, 14, 1 / 16)
+    check(out.grad_fn is not None and roi_pool_auto.launches == before + 1,
+          "roi_pool_auto with grad: no graph, or K1 not launched once")
+    del out
+    print("roi_pool with grad: K1 once, the output keeps its graph for K10")
     # the kernels line reports the B=8 step's shape
     runs, scalar_runs, plain_ms, bound_ms, bound_by = timed[0]
     return {
@@ -486,7 +519,7 @@ def time_roi_pool_on_proposals(entry: dict, store: dict) -> None:
     """K1 timed on the features and proposals of the B=8 extraction step,
     checked bitwise against the plain version there; adds
     ``proposals_ms`` and its bound to the K1 entry."""
-    from vltk_tpu_torch.ops.roi_pool import roi_pool
+    from vltk_tpu_torch.ops.roi_pool import roi_pool_offsets
     from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
 
     feat, boxes = store["features"], store["boxes"].contiguous()
@@ -494,7 +527,7 @@ def time_roi_pool_on_proposals(entry: dict, store: dict) -> None:
           f"captured K1 inputs {tuple(feat.shape)}, {tuple(boxes.shape)}")
     got = roi_pool_path_run(feat, boxes, "vector")
     torch.cuda.synchronize()
-    eq = bitwise_equal(got, roi_pool(feat, boxes, 14, 1 / 16))
+    eq = bitwise_equal(got, roi_pool_offsets(feat, boxes, 14, 1 / 16))
     check(eq, "roi_pool kernel != plain on the extraction step's proposals")
     runs = spread_ms(lambda: roi_pool_cuda(feat, boxes, 14, 1 / 16))
     nbytes = (feat.numel() + got.numel()) * feat.element_size() + boxes.numel() * 4
@@ -1439,12 +1472,12 @@ def hold_kernels_on_pad_rows(pred, images) -> dict:
     bitwise equal, K2 exact keeps and masks at every cluster size and
     equal to the keeps the bucket used. Returns what the pad rows held
     and K2's largest keep error."""
-    from vltk_tpu_torch.ops.roi_pool import roi_pool
+    from vltk_tpu_torch.ops.roi_pool import roi_pool_offsets
 
     real = len(images)
     feat, boxes, calls = pad_row_kernel_inputs(pred, images)
     got = roi_pool_path_run(feat, boxes, "vector")
-    want = roi_pool(feat, boxes, 14, 1 / 16)
+    want = roi_pool_offsets(feat, boxes, 14, 1 / 16)
     torch.cuda.synchronize()
     check(nan_equal(got, want), "roi_pool kernel != plain on the padded VQA bucket (pad rows included)")
     held = {
@@ -3870,6 +3903,476 @@ def phase_gqa(dev, wrappers, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------- K10, the RoIPool backward (32)
+
+DET_BATCH = 2  # bench.py --train frcnn: B=2 on the 832 x 1344 canvas
+DET_CONTENT = (800.0, 1067.0)  # a 480 x 640 image resized to short side 800
+DET_GT = 8  # seeded ground-truth boxes an image
+DET_STEPS = 8
+DET_LR = 1e-4
+RPN_PER_IMAGE, ROI_PER_IMAGE = 256, 128
+# random cotangents: float32 sums in the atomics' order differ from the
+# plain VJP's by at most ~n eps of the sum of the terms' magnitudes (n
+# terms); bf16 adds one rounding of the cast
+K10_SUM_TOL = 1e-5
+K10_CAST_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def k10_close(got, want, feat, boxes, g) -> bool:
+    """Within the sum-order bound of the terms' magnitudes (the plain VJP of
+    |g|), plus one rounding of the cast in bf16."""
+    from vltk_tpu_torch.ops.roi_pool import roi_pool_plain_vjp
+
+    magnitude = roi_pool_plain_vjp(feat, boxes, g.abs(), 14, 1 / 16).float()
+    err = (got.float() - want.float()).abs()
+    return bool((err <= K10_SUM_TOL * magnitude + K10_CAST_RTOL[g.dtype] * want.float().abs()).all())
+
+
+def k10_inputs(gen: torch.Generator, b: int, dtype, dev, dyadic: bool):
+    """res4-like features (a relu map: zero plateaus; integer steps so that
+    maxima tie) with NaN cells and a -inf block, proposal-like boxes with the
+    edge cases of ``roi_boxes``, RoIs whose bins have power-of-two extents,
+    and a cotangent of small integers times 2^-4 (every float32 sum exact in
+    any order) or random."""
+    h, w = FEAT_HW
+    feat = torch.relu(torch.randint(-3, 4, (b, h, w, C_RES4), generator=gen).float())
+    feat[0, h // 5, w // 4, : C_RES4 // 16] = float("nan")
+    feat[-1, h // 2: h // 2 + 4, w // 2: w // 2 + 4, C_RES4 // 10: C_RES4 // 5] = float("-inf")
+    boxes = roi_boxes(gen, b, N_ROI, torch.device("cpu"))
+    boxes[0, 6] = torch.tensor([0.0, 0.0, 28 * 16 - 1.0, 28 * 16 - 1.0])  # 14 x 14 bins of 2 x 2 cells
+    boxes[-1, 7] = torch.tensor([64.0, 32.0, 64 + 56 * 16 - 1.0, 32 + 56 * 16 - 1.0])  # bins of 4 x 4
+    shape = (b, N_ROI, 14, 14, C_RES4)
+    g = torch.randint(-8, 9, shape, generator=gen) / 16 if dyadic else torch.randn(shape, generator=gen)
+    return feat.to(dev, dtype), boxes.to(dev), g.to(dev, dtype)
+
+
+def k10_bound(feat, boxes, g):
+    """(bound_ms, bound_by): grad_out and the features read once, the
+    gradient written once; the max comparisons of every bin's cells."""
+    nbytes = g.numel() * g.element_size() + 2 * feat.numel() * feat.element_size() + boxes.numel() * 4
+    return bound(nbytes, roi_pool_ops(boxes, feat.shape[-1]))
+
+
+def phase_roi_pool_backward(dev, ptxas) -> dict:
+    """K10 against ``roi_pool_plain_vjp`` at the training step's shape
+    (2, 52, 84, 1024) x 300 RoIs: bitwise on dyadic cotangents in bf16 and
+    float32 (ties, NaN and -inf cells, empty and off-map bins, power-of-two
+    bins), within the stated tolerance on random ones; one launch a call;
+    timed (median of five readings queued ahead) at B=2 and at the
+    extraction batch B=8, beside the bound and the plain VJP."""
+    from vltk_tpu_torch.ops.roi_pool import roi_pool_plain_vjp
+    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_backward_auto, roi_pool_backward_cuda
+
+    print("roi_pool_bwd ptxas: " + ("; ".join(ptxas) if ptxas else "cached build"))
+    gen = torch.Generator().manual_seed(32)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for dyadic in (True, False):
+            feat, boxes, g = k10_inputs(gen, DET_BATCH, dtype, dev, dyadic)
+            before = roi_pool_backward_auto.launches
+            got = roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16)
+            torch.cuda.synchronize()
+            check(roi_pool_backward_auto.launches == before + 1, "K10: not one launch a call")
+            want = roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16)
+            err = float((got.float() - want.float()).abs().max())
+            if dyadic:
+                ok = bitwise_equal(got, want)
+                worst = max(worst, err)
+            else:
+                ok = k10_close(got, want, feat, boxes, g)
+            nonzero = float((want != 0).float().mean())
+            print(f"roi_pool_backward {tuple(feat.shape)} {dtype} x {N_ROI}, {'dyadic' if dyadic else 'random'} "
+                  f"cotangent: {'bitwise_equal' if dyadic else 'allclose'}={ok} max_abs_err={err} "
+                  f"(cells with a gradient {nonzero:.4f})")
+            check(ok, f"K10 != plain VJP ({dtype}, {'dyadic' if dyadic else 'random'})")
+            del got, want
+            torch.cuda.empty_cache()
+    timed = {}
+    for b in (DET_BATCH, 8):
+        feat, boxes, g = k10_inputs(gen, b, torch.bfloat16, dev, dyadic=False)
+        runs = spread_ms(lambda: roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16), reps=10)
+        plain_ms = cuda_ms(lambda: roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16), reps=1, warmup=1)
+        bound_ms, bound_by = k10_bound(feat, boxes, g)
+        timed[b] = (runs, plain_ms, bound_ms, bound_by)
+        print(f"roi_pool_backward timing {tuple(feat.shape)} bf16 x {N_ROI}: kernel {show(runs)}, plain VJP "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), {runs[2] / bound_ms:.1f}x the bound; "
+              f"no single PyTorch call computes this gradient")
+        del feat, boxes, g
+        torch.cuda.empty_cache()
+    runs, plain_ms, bound_ms, bound_by = timed[DET_BATCH]
+    return {
+        "name": "roi_pool_backward",
+        "route": "cuda",
+        "source": "vltk_tpu_torch/csrc/roi_pool_bwd.cu",
+        "replaces": "vltk_tpu/ops/pallas_kernels.py:312",
+        "max_abs_err": worst,
+        "ms": runs[2],
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "ms_runs": runs,
+        "extraction_batch": {"ms": timed[8][0][2], "ms_runs": timed[8][0], "plain_ms": timed[8][1],
+                             "bound_ms": timed[8][2]},
+    }
+
+
+# ------------------------------------------ detection training (33, 34)
+
+
+def detection_batch(gen: torch.Generator, b: int, dev):
+    """A training batch as ``FRCNNDetectExperiment.prepare_batch`` gives it
+    at the parity canvas: caffe-normalised BGR-like values inside the
+    800 x 1067 content, zeros in the pad, and ``DET_GT`` seeded boxes an
+    image (sides 32-400 px) of classes in [0, 1600)."""
+    h, w = DET_CONTENT
+    images = torch.zeros(b, *CANVAS, 3)
+    images[:, : int(h), : int(w)] = torch.randn(b, int(h), int(w), 3, generator=gen) * 50
+    xy = torch.rand(b, DET_GT, 2, generator=gen) * torch.tensor([w - 400, h - 400])
+    wh = 32 + torch.rand(b, DET_GT, 2, generator=gen) * 368
+    return {
+        "images": images.to(dev),
+        "sizes": torch.tensor([[h, w]] * b, device=dev),
+        "gt_boxes": torch.cat([xy, xy + wh], -1).to(dev),
+        "gt_valid": torch.ones(b, DET_GT, dtype=torch.bool, device=dev),
+        "gt_classes": torch.randint(0, 1600, (b, DET_GT), generator=gen).to(dev, torch.int32),
+    }
+
+
+def detection_loss(model, batch, parts=("rpn", "roi"), seed: int = 0):
+    """bench.py's ``--train frcnn`` objective: ``rpn_losses`` at 256 anchors
+    an image and ``fast_rcnn_losses`` at 128 proposals, priorities drawn
+    from a generator on the card seeded with ``seed``."""
+    from vltk_tpu_torch.models.detection_loss import fast_rcnn_losses, rpn_losses
+
+    gen = torch.Generator(device=batch["images"].device).manual_seed(seed)
+    raw = model(batch["images"], batch["sizes"], return_raw=True)["raw"]
+    losses = []
+    if "rpn" in parts:
+        losses += rpn_losses(raw["anchors"], raw["rpn_logits"], raw["rpn_deltas"], batch["gt_boxes"],
+                             batch["gt_valid"], generator=gen, batch_size_per_image=RPN_PER_IMAGE)
+    if "roi" in parts:
+        losses += fast_rcnn_losses(raw["proposals"], raw["prop_valid"], raw["obj_logits"], raw["box_deltas"],
+                                   batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"], generator=gen,
+                                   batch_size_per_image=ROI_PER_IMAGE)
+    return losses
+
+
+def detection_steps(model, opt, batch, steps: int, wrappers, what: str, sched=None) -> dict:
+    """``steps`` training steps (zero the gradients, forward, the losses,
+    backward, the optimizer's step), the counts set to 0 before each and
+    read after it: K1 1, K10 1 and K2 2 a step, K1 on its vector path, no
+    other kernel; finite losses and gradients. Step ms from the host clock
+    (each step ends in a synchronise), peak memory over the run."""
+    paths = wrappers["roi_pool"].path_launches
+    losses, ms, grads0 = [], [], None
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        for w in wrappers.values():
+            w.launches = 0
+        paths.update(dict.fromkeys(paths, 0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        parts = detection_loss(model, batch, seed=i)
+        loss = sum(parts)
+        loss.backward()
+        if i == 0:
+            grads0 = {n: p.grad.detach().float().clone() for n, p in model.named_parameters() if p.grad is not None}
+        finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters() if p.grad is not None)
+        opt.step()
+        if sched is not None:
+            sched.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        want = {"roi_pool": 1, "roi_pool_backward": 1, "nms": 2}
+        check(launches == {k: want.get(k, 0) for k in launches} and paths["scalar"] == 0,
+              f"{what} step {i}: launches {launches}, K1 paths {paths}")
+        losses.append([float(x.detach()) for x in parts])
+        check(all(np.isfinite(losses[-1])) and finite, f"{what} step {i}: losses {losses[-1]}, finite grads {finite}")
+    steady = ms[1:] if steps > 1 else ms
+    return {"losses": losses, "step_ms": float(np.median(steady)), "step_ms_all": ms,
+            "steps_per_s": 1e3 / float(np.median(steady)), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": launches, "grads0": grads0}
+
+
+def grad_rel_err(a: dict, b: dict) -> float:
+    """The largest ||a - b|| / ||b|| over the tensors of two gradients."""
+    check(set(a) == set(b), "gradients of different tensors")
+    return max(float((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30)) for n in b)
+
+
+def phase_detection_training(dev, wrappers, smi: str) -> dict:
+    """FRCNN fine-tuning at full width (bench.py --train frcnn in the port):
+    R-101-C4 with ``FRCNNConfig(post_nms_topk=300, dtype="bfloat16")`` (6000
+    pre-NMS proposals, 1600 classes, 400 attributes), seeded and tamed
+    weights, B=2 on the 832 x 1344 canvas, 8 seeded ground-truth boxes an
+    image; SGD at 1e-4 for 8 steps: K1 1, K10 1, K2 2 a step, finite losses
+    and gradients. Then: the RPN head gets no gradient from the RoI losses
+    alone; ``remat`` at B=2, its first step's loss and gradients against the
+    plain run's (beside the plain run repeated, the noise of the atomics and
+    of cuDNN's backward); ``remat`` at B=4; two AdamW steps with
+    ``freeze_patterns=("^backbone/",)``: every backbone tensor bitwise
+    unchanged, the heads moved. Step ms, steps/s and peak of each run."""
+    from vltk_tpu_torch.adapters.frcnn import tame_random_weights
+    from vltk_tpu_torch.config import TrainConfig
+    from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
+    from vltk_tpu_torch.ops import roi_pool_kernel as RK
+    from vltk_tpu_torch.train.optim import make_optimizer
+
+    cfg = FRCNNConfig(post_nms_topk=300, dtype="bfloat16")
+    check((cfg.depth, cfg.pre_nms_topk, cfg.num_classes, cfg.num_attrs) == (101, 6000, 1600, 400), f"config {cfg}")
+    t0 = time.perf_counter()
+    state = tame_random_weights(init_weights(FRCNN(cfg), seed=0)).state_dict()
+    init_s = time.perf_counter() - t0
+
+    def model_of(c):
+        m = FRCNN(c)
+        m.load_state_dict(state)
+        return m.to(dev).train()
+
+    gen = torch.Generator().manual_seed(33)
+    batch = detection_batch(gen, DET_BATCH, dev)
+    with torch.no_grad():  # a ground-truth box on the first proposal: foreground for the box head
+        proposals = model_of(cfg)(batch["images"], batch["sizes"], return_raw=True)["raw"]["proposals"]
+    batch["gt_boxes"][:, 0] = torch.round(proposals[:, 0])
+    out = {"init_s": init_s}
+
+    # K10's inputs on the first step, to time it on the step's own proposals
+    recorded = []
+    k10 = RK.roi_pool_backward_cuda
+
+    def record(*args):
+        if not recorded:
+            recorded.append(args)
+        return k10(*args)
+
+    model = model_of(cfg)
+    RK.roi_pool_backward_cuda = record
+    try:
+        plain = detection_steps(model, torch.optim.SGD(model.parameters(), lr=DET_LR), batch, DET_STEPS, wrappers,
+                                "detection training")
+    finally:
+        RK.roi_pool_backward_cuda = k10
+    out["plain"] = {k: v for k, v in plain.items() if k != "grads0"}
+    print(f"detection training R-101-C4 bf16 B={DET_BATCH} canvas {CANVAS[0]}x{CANVAS[1]}, SGD {DET_LR}: "
+          f"{DET_STEPS} steps, step {plain['step_ms']:.1f} ms ({plain['steps_per_s']:.2f} steps/s) on {smi}; "
+          f"launches a step {plain['launches_per_step']}; peak {plain['peak_mem_gb']:.2f} GB; losses "
+          f"(rpn_obj, rpn_loc, roi_cls, roi_box) first {np.round(plain['losses'][0], 5).tolist()} last "
+          f"{np.round(plain['losses'][-1], 5).tolist()}")
+
+    feat, boxes, g, s, scale = recorded[0]
+    runs = spread_ms(lambda: k10(feat, boxes, g, s, scale), reps=10)
+    plain_ms = cuda_ms(lambda: RK.roi_pool_plain_vjp(feat, boxes, g, s, scale), reps=1, warmup=1)
+    bound_ms, bound_by = k10_bound(feat, boxes, g)
+    tied = float((RK.roi_pool_plain_vjp(feat, boxes, g.abs(), s, scale) != 0).float().mean())
+    out["k10_on_step"] = {"ms": runs[2], "ms_runs": runs, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "shape": list(feat.shape), "rois": boxes.shape[1],
+                          "cells_with_a_gradient": tied}
+    print(f"roi_pool_backward on the training step's own inputs {tuple(feat.shape)} {feat.dtype} x "
+          f"{boxes.shape[1]}: {show(runs)}, plain VJP {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{runs[2] / bound_ms:.1f}x the bound; cells with a gradient {tied:.4f}")
+    del recorded, feat, boxes, g
+
+    # gradient reach: the RoI losses alone leave the RPN head untrained
+    model.zero_grad(set_to_none=True)
+    sum(detection_loss(model, batch, parts=("roi",))).backward()
+    rpn = [p.grad for n, p in model.named_parameters() if n.startswith("proposal_generator.")]
+    check(all(g is None or not g.any() for g in rpn), "fast_rcnn_losses alone gave the RPN head a gradient")
+    check(model.roi_heads.box_predictor.cls_score.weight.grad.abs().sum() > 0, "no gradient to the RoI heads")
+    print("gradient reach: fast_rcnn_losses alone give the RPN head no gradient (proposals detached)")
+    del model
+    torch.cuda.empty_cache()
+
+    # the plain first step again (the run-to-run noise), then remat at B=2
+    repeat = model_of(cfg)
+    noise = detection_steps(repeat, torch.optim.SGD(repeat.parameters(), lr=DET_LR), batch, 1, wrappers, "repeat")
+    del repeat
+    torch.cuda.empty_cache()
+    remat_cfg = dataclasses.replace(cfg, remat=True)
+    model = model_of(remat_cfg)
+    remat = detection_steps(model, torch.optim.SGD(model.parameters(), lr=DET_LR), batch, 2, wrappers, "remat B=2")
+    noise_err = grad_rel_err(noise["grads0"], plain["grads0"])
+    remat_err = grad_rel_err(remat["grads0"], plain["grads0"])
+    loss_err = abs(sum(remat["losses"][0]) - sum(plain["losses"][0])) / abs(sum(plain["losses"][0]))
+    out["remat"] = {"step_ms": remat["step_ms"], "peak_mem_gb": remat["peak_mem_gb"], "grad_rel_err": remat_err,
+                    "repeat_grad_rel_err": noise_err, "loss_rel_err": loss_err,
+                    "repeat_loss_rel_err": abs(sum(noise["losses"][0]) - sum(plain["losses"][0]))
+                    / abs(sum(plain["losses"][0]))}
+    print(f"remat B={DET_BATCH}: first-step loss rel err {loss_err:.3g}, gradients' largest relative norm error "
+          f"{remat_err:.3g} (the plain step repeated: {noise_err:.3g}); step {remat['step_ms']:.1f} ms, peak "
+          f"{remat['peak_mem_gb']:.2f} GB (plain {plain['peak_mem_gb']:.2f} GB)")
+    check(loss_err <= 1e-3 and remat_err <= max(2.0 ** -5, 4 * noise_err),
+          f"remat changes the step: loss {loss_err}, gradients {remat_err} (repeat {noise_err})")
+    del model, remat, noise
+    torch.cuda.empty_cache()
+
+    model = model_of(remat_cfg)
+    big = detection_batch(gen, 2 * DET_BATCH, dev)
+    remat4 = detection_steps(model, torch.optim.SGD(model.parameters(), lr=DET_LR), big, 3, wrappers, "remat B=4")
+    out["remat_b4"] = {k: v for k, v in remat4.items() if k != "grads0"}
+    print(f"remat B={2 * DET_BATCH}: step {remat4['step_ms']:.1f} ms ({2 * DET_BATCH * remat4['steps_per_s']:.2f} "
+          f"images/s), peak {remat4['peak_mem_gb']:.2f} GB; losses first "
+          f"{np.round(remat4['losses'][0], 5).tolist()} last {np.round(remat4['losses'][-1], 5).tolist()}")
+    del model, big, remat4
+    torch.cuda.empty_cache()
+
+    # freeze: AdamW over the heads only
+    model = model_of(cfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt, sched = make_optimizer(model, TrainConfig(learning_rate=1e-4, warmup_ratio=0.0), 4,
+                                freeze_patterns=("^backbone/",))
+    frozen = detection_steps(model, opt, batch, 2, wrappers, "frozen backbone", sched)
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+    backbone = {n for n in before if n.startswith("backbone.")}
+    check(not (moved & backbone), f"frozen backbone tensors moved: {sorted(moved & backbone)[:5]}")
+    check("roi_heads.box_predictor.cls_score.weight" in moved and "proposal_generator.rpn_head.conv.weight" in moved,
+          "the heads did not move")
+    out["freeze"] = {"backbone_tensors": len(backbone), "moved": len(moved), "step_ms": frozen["step_ms"],
+                     "peak_mem_gb": frozen["peak_mem_gb"]}
+    print(f"freeze_patterns ^backbone/: {len(backbone)} backbone tensors bitwise unchanged, {len(moved)} head "
+          f"tensors moved over 2 AdamW steps; step {frozen['step_ms']:.1f} ms, peak {frozen['peak_mem_gb']:.2f} GB")
+    out["launches"] = {k: v * DET_STEPS for k, v in plain["launches_per_step"].items()}
+    del model, before, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+DET_IMAGES = 16
+DET_VISION_SIZE = (800, 1333)  # canvas_for -> 1344 x 1344
+
+
+def phase_detection_experiments(dev, wrappers, smi: str) -> dict:
+    """The experiments from raw COCO JSON: 16 images of the seeded corpus
+    (480 x 640, three categories) -> the coco2014 adapter's Arrow table ->
+    ``build(config)`` (max_detections 36, segmentation ignored, vision size
+    (800, 1333): the 1344 x 1344 canvas) -> ``FRCNNDetectExperiment`` at
+    R-101-C4 bf16 (tamed seeded weights, the class head sized from the label
+    table), B=2: one epoch of 8 steps and the eval loop with ``map50``;
+    launches counted over the run (train K1 1, K10 1, K2 2 a step; eval K1
+    and K2 in both of its passes); the step with the loader and without
+    it. Then a ``ComplexExperiment`` over the same model (one detection
+    train loop, one eval loop, both run, finite losses), and one LXMERT-base
+    VQA step at B=32 with ``remat`` against the same step without it."""
+    import tempfile
+
+    from vltk_tpu_torch import build
+    from vltk_tpu_torch.adapters import Adapters
+    from vltk_tpu_torch.adapters.frcnn import tame_random_weights
+    from vltk_tpu_torch.config import Config
+    from vltk_tpu_torch.experiments import FRCNNDetectExperiment, LxmertVQAExperiment
+    from vltk_tpu_torch.models.frcnn import FRCNNConfig
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.tools.synthetic_corpus import write_corpus
+    from vltk_tpu_torch.train import ComplexExperiment, Loop
+
+    class Detect(FRCNNDetectExperiment):
+        model_config = FRCNNConfig(post_nms_topk=300, dtype="bfloat16")
+
+        def build_model(self):
+            return tame_random_weights(super().build_model())
+
+    class DetectLoops(ComplexExperiment, Detect):
+        name = "frcnn_detect_loops"
+
+        def loops(self):
+            return [Loop("detect", self.train_loader), Loop.eval_instance("val", self.train_loader)]
+
+    out: dict = {}
+    n_steps = DET_IMAGES // DET_BATCH
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_detect_") as root:
+        datadir = os.path.join(root, "data")
+        write_corpus(datadir, DET_IMAGES, 16, hw=RAW_HW, seed=0)
+        t0 = time.perf_counter()
+        Adapters.get("coco2014").extract(datadir)
+        out["etl_s"] = time.perf_counter() - t0
+        config = Config()
+        config.logdir = os.path.join(root, "logs")
+        config.data.update(dict(datadir=datadir, train_datasets=(("coco2014", "train"),),
+                                train_batch_size=DET_BATCH, num_workers=4, shuffle=False, drop_last=True,
+                                max_detections=36, ignore_segmentation=True))
+        config.data.vision.update({"size": DET_VISION_SIZE})
+        config.train.update(dict(epochs=1, learning_rate=1e-4, weight_decay=0.0, warmup_ratio=0.0))
+        train, _ = build(config)
+        check(len(train) == n_steps, f"detection loader: {len(train)} batches")
+        exp = Detect(config, loaders=(train, train), device=dev)
+        classes = exp.model_config.num_classes
+        check(exp.model_config.depth == 101 and classes == len(train.metadata_ids["labels"]),
+              f"class head {classes}")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        result = exp()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        want = {"roi_pool": 3 * n_steps, "roi_pool_backward": n_steps, "nms": 6 * n_steps}
+        check(launches == {k: want.get(k, 0) for k in launches}, f"detection experiment launches {launches}")
+        train_m, eval_m = result["train"], result["eval"]
+        check(all(np.isfinite(v) for v in train_m.values()) and 0.0 <= eval_m["map50"] <= 1.0,
+              f"detection experiment: train {train_m}, eval {eval_m}")
+        _, loop = loader_against_control(exp, n_steps, "detection")
+        out["experiment"] = {"launches": launches, "train": train_m, "eval": eval_m, "run_s": run_s,
+                             "classes": classes, "step_ms_with_loader": loop["with"],
+                             "step_ms_without_loader": loop["without"]}
+        print(f"FRCNNDetectExperiment R-101-C4 bf16 from raw COCO JSON, {DET_IMAGES} images on the 1344x1344 "
+              f"canvas, B={DET_BATCH}, {classes} classes: one epoch of {n_steps} steps and the eval loop in "
+              f"{run_s:.1f} s; launches {launches} (train K1 1, K10 1, K2 2 a step; eval K1 1, K2 2 in each of "
+              f"its two passes); loss {train_m['loss']:.5f}, map50 {eval_m['map50']:.4f}; step with the loader "
+              f"{loop['with']['median']:.1f} ms, without {loop['without']['median']:.1f} ms on {smi}")
+        del exp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        config.logdir = os.path.join(root, "logs_loops")
+        loops = DetectLoops(config, loaders=(train, None), device=dev)
+        result = loops()
+        torch.cuda.synchronize()
+        check(set(result) == {"epoch", "detect", "val"} and all(np.isfinite(v) for v in result["detect"].values())
+              and all(np.isfinite(v) for v in result["val"].values()), f"ComplexExperiment: {result}")
+        with open(os.path.join(loops.logdir, "steps_log.json")) as f:
+            records = [json.loads(line) for line in f]
+        check([r["loop"] for r in records] == ["detect"] * n_steps and loops.total_steps == n_steps,
+              f"ComplexExperiment records {[r['loop'] for r in records]}, total steps {loops.total_steps}")
+        out["complex"] = {"detect": result["detect"], "val": result["val"]}
+        print(f"ComplexExperiment (detect + val loops): detect loss {result['detect']['loss']:.5f}, val rpn_obj "
+              f"{result['val']['rpn_obj']:.5f}, {n_steps} detect steps logged")
+        del loops
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        lx = {}
+        host = lxmert_train_batch(LXMERT_TRAIN_BATCH, LxmertConfig(), seed=0)
+        for remat in (False, True):
+            cfg = LxmertConfig(dtype="bfloat16", remat=remat)
+            exp = lxmert_experiment(LxmertVQAExperiment, cfg, os.path.join(root, f"lxmert_{remat}"), [host], 1e-5,
+                                    device=dev)
+            data = next(iter(exp._device_batches([host])))
+            torch.manual_seed(34)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            metrics = exp.train_step(data)
+            torch.cuda.synchronize()
+            lx[remat] = {"loss": float(metrics["loss"]), "step_ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                         "step_peak_gb": (torch.cuda.max_memory_allocated() - held) / 1e9}
+            del exp, data, metrics
+            gc.collect()  # the experiment's step holds its bound loss_fn: a cycle
+            torch.cuda.empty_cache()
+        rel = abs(lx[True]["loss"] - lx[False]["loss"]) / abs(lx[False]["loss"])
+        check(rel <= 1e-3, f"LXMERT remat loss {lx[True]['loss']} != {lx[False]['loss']}")
+        out["lxmert_remat"] = {"plain": lx[False], "remat": lx[True], "loss_rel_err": rel}
+        print(f"LXMERT-base VQA step B={LXMERT_TRAIN_BATCH} bf16 (dropout on, one seed): loss {lx[False]['loss']:.6f}, "
+              f"with remat {lx[True]['loss']:.6f} (rel err {rel:.3g}); peak {lx[False]['peak_mem_gb']:.2f} GB, "
+              f"with remat {lx[True]['peak_mem_gb']:.2f} GB (above what the step started with: "
+              f"{lx[False]['step_peak_gb']:.2f} / {lx[True]['step_peak_gb']:.2f} GB; first steps: "
+              f"{lx[False]['step_ms']:.0f} / {lx[True]['step_ms']:.0f} ms)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3896,7 +4399,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    outputs = _build.build(["roi_pool", "roi_pool_ablation", "nms", "flash_attention", "flash_attention_bwd"])
+    outputs = _build.build(["roi_pool", "roi_pool_bwd", "roi_pool_ablation", "nms", "flash_attention",
+                            "flash_attention_bwd"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({', '.join(outputs) or 'cached'})")
     for name, out in outputs.items():
         for line in _build.ptxas_lines(out):
@@ -3908,7 +4412,8 @@ def main() -> int:
     phase_nms(dev, batch=16)  # the B=16 step's shapes: checked and timed, not in the line
     entries.append(phase_flash(dev, _build.ptxas_lines(outputs.get("flash_attention", ""))))
     entries += phase_flash_backward(dev)
-    stamp("the build and the kernel phases")
+    entries.append(phase_roi_pool_backward(dev, _build.ptxas_lines(outputs.get("roi_pool_bwd", ""))))
+    stamp("the build and the kernel phases (K10: phase 32)")
 
     bundle, info = setup(
         preset="parity_300", batch_size=8, device=dev,
@@ -4009,17 +4514,31 @@ def main() -> int:
     gqa = phase_gqa(dev, KERNEL_WRAPPERS, smi)
     print("gqa_run " + json.dumps(gqa))
     stamp("GQA on Visual Genome (phase 31)")
+    detection = phase_detection_training(dev, KERNEL_WRAPPERS, smi)
+    print("detection_training_run " + json.dumps(detection))
+    # K10's line: the time on the training step's own inputs (phase 32's
+    # tie-heavy integer map stays beside it)
+    k10 = next(e for e in entries if e["name"] == "roi_pool_backward")
+    step_inputs = detection["k10_on_step"]
+    k10.update(ms_tie_heavy=k10["ms"], plain_ms_tie_heavy=k10["plain_ms"], ms=step_inputs["ms"],
+               ms_runs=step_inputs["ms_runs"], plain_ms=step_inputs["plain_ms"], bound_ms=step_inputs["bound_ms"],
+               bound_by=step_inputs["bound_by"])
+    stamp("detection training (phase 33)")
+    detect_exp = phase_detection_experiments(dev, KERNEL_WRAPPERS, smi)
+    print("detection_experiments_run " + json.dumps(detect_exp))
+    stamp("the detection experiments from raw COCO JSON (phase 34)")
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
     # run for K1 and K2, the document requests for K3, the training epoch
-    # for K4 and K5
+    # for K4 and K5, the detection training run for K10
     launches = {
         "roi_pool": runs[8]["launches"]["roi_pool"],
         "nms_fixed": runs[8]["launches"]["nms"],
         "flash_attention": doc["launches"]["flash_attention"],
         "flash_attention_dkv": train["launches"]["flash_attention_dkv"],
         "flash_attention_dq": train["launches"]["flash_attention_dq"],
+        "roi_pool_backward": detection["launches"]["roi_pool_backward"],
     }
     for e in entries:
         e["launches"] = launches[e["name"]]
@@ -4052,6 +4571,11 @@ def main() -> int:
         e["docvqa_training_launches"] = raw_docs["docvqa"]["launches"].get(key, 0)
         e["gqa_extraction_launches"] = gqa["extraction_launches"].get(key, 0)
         e["gqa_training_launches"] = gqa["training_launches"].get(key, 0)
+        # detection training (8 steps at B=2: K1 1, K10 1, K2 2 a step) and
+        # the detection experiment from raw COCO JSON (an epoch of 8 steps
+        # and its eval loop)
+        e["detection_training_launches"] = detection["launches"].get(key, 0)
+        e["detection_experiment_launches"] = detect_exp["experiment"]["launches"].get(key, 0)
     # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
     k3 = next(e for e in entries if e["name"] == "flash_attention")
     for model, run in (("vit", vit), ("visualbert", visualbert)):

@@ -19,9 +19,12 @@ backward kernels K5 and K4 also masks whose whole 64-row tiles share no id
 (the tiles the kernels skip), masks of the span-QA stream
 ``[question | pad | OCR | pad]`` (a pad hole in mid-stream), K5's fused di, strided output gradients,
 determinism, and the gradients that a training step on the card hands the
-q/k/v projections; K1's refusal to cut a gradient, both of its paths
+q/k/v projections; K1 and K10 under autograd, both of K1's paths
 (16-byte vectors and one element a thread), bins wider than its unrolled
-group, an unaligned base, NaN and infinite cells;
+group, an unaligned base, NaN and infinite cells; K10 bitwise against the
+plain VJP on dyadic cotangents (ties, NaN, empty and clipped bins, C not a
+multiple of the warp), with a stated tolerance on random ones, and its
+refusal of bins past its mask;
 for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
 multiple of the kernel's chunk, and groups of RoIs; K6 and K7 on both of
@@ -53,7 +56,7 @@ from vltk_tpu_torch.ops.flash_attention_kernel import (
 from vltk_tpu_torch.ops.nms import nms_fixed
 from vltk_tpu_torch.ops.nms_kernel import CLUSTERS, MAX_CANDIDATES, nms_fixed_auto, nms_fixed_cuda
 from vltk_tpu_torch.ops import roi_pool_ablation as ablation
-from vltk_tpu_torch.ops.roi_pool import roi_pool
+from vltk_tpu_torch.ops.roi_pool import roi_pool_offsets, roi_pool_plain_vjp
 from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
     build_table_cuda,
     pool_auto,
@@ -65,7 +68,12 @@ from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
     pool_grouped_v3_auto,
     pool_grouped_v3_cuda,
 )
-from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto, roi_pool_cuda
+from vltk_tpu_torch.ops.roi_pool_kernel import (
+    roi_pool_auto,
+    roi_pool_backward_auto,
+    roi_pool_backward_cuda,
+    roi_pool_cuda,
+)
 from vltk_tpu_torch.tools.bench_nms import nms_case
 
 pytestmark = pytest.mark.cuda
@@ -106,7 +114,7 @@ def _roi_pool_checked(feat, boxes, s):
     torch.cuda.synchronize()
     after = roi_pool_auto.path_launches
     assert {k: after[k] - before[k] for k in after} == {k: int(k == path) for k in after}
-    want = roi_pool(feat, boxes, s, 1 / 16)
+    want = roi_pool_offsets(feat, boxes, s, 1 / 16)
     assert got.shape == want.shape == (*boxes.shape[:2], s, s, feat.shape[-1])
     assert torch.equal(_bits(got), _bits(want))
     return got, path
@@ -189,7 +197,7 @@ def test_roi_pool_nonfinite_cells(dev, dtype, c):
     got = roi_pool_cuda(feat, boxes, 14, 1 / 16)
     again = roi_pool_cuda(feat, boxes, 14, 1 / 16)
     torch.cuda.synchronize()
-    want = roi_pool(feat, boxes, 14, 1 / 16)
+    want = roi_pool_offsets(feat, boxes, 14, 1 / 16)
     nan = torch.isnan(want)
     assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
     assert torch.equal(_bits(got)[~nan], _bits(want)[~nan])
@@ -808,23 +816,102 @@ def test_training_forward_on_the_card_gives_qkv_gradients(dev, monkeypatch):
 
 
 def test_roi_pool_refuses_to_cut_the_gradient(dev):
-    """ROADMAP C.1: K1 has no backward yet, so on the card features that
-    require grad raise while grad is enabled, and nothing is launched;
-    without grad the kernel runs, and on the CPU the plain version carries
-    the gradient."""
-    feat = torch.rand(1, 8, 8, 4, device=dev, requires_grad=True)
-    boxes = torch.tensor([[[0.0, 0.0, 60.0, 60.0]]], device=dev)
-    before = roi_pool_auto.launches
-    with pytest.raises(RuntimeError, match="A.12"):
-        roi_pool_auto(feat, boxes, 2)
-    assert roi_pool_auto.launches == before
+    """Features that require grad on the card go through K1 and K10 (one
+    launch each, the backward's gradient bitwise the plain VJP's on a
+    dyadic cotangent, none for the boxes); without grad K1 alone runs and
+    keeps no graph; on the CPU the plain versions carry the same
+    gradient."""
+    gen = torch.Generator().manual_seed(5)
+    feat = torch.randint(-2, 3, (1, 8, 8, 4), generator=gen).float().to(dev).requires_grad_()
+    boxes = torch.tensor([[[0.0, 0.0, 60.0, 60.0], [16.0, 8.0, 127.0, 127.0]]], device=dev)
+    g = (torch.randint(-8, 9, (1, 2, 2, 2, 4), generator=gen) / 16).to(dev)
+    before = (roi_pool_auto.launches, roi_pool_backward_auto.launches)
+    out = roi_pool_auto(feat, boxes, 2)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (roi_pool_auto.launches, roi_pool_backward_auto.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out.detach(), roi_pool_offsets(feat.detach(), boxes, 2, 1 / 16))
+    want = roi_pool_plain_vjp(feat.detach(), boxes, g, 2, 1 / 16)
+    assert torch.equal(_bits(feat.grad), _bits(want))
     with torch.no_grad():
-        out = roi_pool_auto(feat, boxes, 2)
-    assert roi_pool_auto.launches == before + 1
-    assert torch.equal(out, roi_pool(feat.detach(), boxes, 2, 1 / 16))
+        assert roi_pool_auto(feat, boxes, 2).grad_fn is None
     leaf = feat.detach().cpu().requires_grad_()
-    roi_pool_auto(leaf, boxes.cpu(), 2).sum().backward()
-    assert leaf.grad is not None and leaf.grad.abs().sum().item() > 0
+    roi_pool_auto(leaf, boxes.cpu(), 2).backward(g.cpu())
+    assert torch.equal(leaf.grad, want.cpu())
+
+
+# -------------------------------------------------- RoIPool backward, K10
+
+# (b, h, w, c, p, s): maps with and without a multiple of the warp in C,
+# the parity map (bins of up to 5 x 8 at 14 x 14), the 1344 x 1344
+# canvas's 84 x 84 map (up to 8 x 8: the mask's 16 slots a side), a map
+# smaller than the pooled grid
+K10_SHAPES = [(2, 20, 24, 8, 12, 7), (2, 13, 21, 3, 6, 5), (1, 52, 84, 64, 40, 14), (1, 84, 84, 40, 24, 14),
+              (1, 4, 4, 5, 3, 7)]
+
+
+def _k10_case(dev, dtype, b, h, w, c, p, s, dyadic=True):
+    """Integer features (ties in most bins) with NaN, +inf and -inf cells
+    and a zero plateau, boxes on and off the map and larger than it, and a
+    cotangent of small integers times 2^-4 (or random)."""
+    gen = torch.Generator().manual_seed(b * 1000 + h * 10 + c)
+    feat = torch.randint(-2, 3, (b, h, w, c), generator=gen).float()
+    feat[0, h // 2, w // 3, : max(c // 2, 1)] = float("nan")
+    feat[0, -1, -1, 0] = float("inf")
+    feat[-1, : h // 3, : w // 3, -1] = float("-inf")
+    feat[-1, h // 2:, w // 2:, :] = 0.0
+    boxes = _boxes(gen, b, p, h, w)
+    boxes[0, 1] = torch.tensor([-300.0, -200.0, w * 40.0, h * 40.0])  # bins past the table's levels
+    boxes[-1, -1] = torch.tensor([w * 16.0 + 50, 0.0, w * 16.0 + 90, 30.0])  # off the map: empty
+    shape = (b, p, s, s, c)
+    g = torch.randint(-8, 9, shape, generator=gen) / 16 if dyadic else torch.randn(shape, generator=gen)
+    return feat.to(dev, dtype), boxes.to(dev), g.to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", K10_SHAPES, ids=lambda sh: "x".join(map(str, sh)))
+def test_roi_pool_backward_exact_on_dyadic_cotangents(dev, dtype, shape):
+    """K10 bitwise equal to ``roi_pool_plain_vjp`` where every sum is exact
+    in float32 in any order: ties, NaN bins, +-inf, empty and clipped
+    bins, the features' dtype out, one launch."""
+    *geom, s = shape
+    feat, boxes, g = _k10_case(dev, dtype, *geom, s)
+    before = roi_pool_backward_auto.launches
+    got = roi_pool_backward_cuda(feat, boxes, g, s, 1 / 16)
+    torch.cuda.synchronize()
+    assert roi_pool_backward_auto.launches == before + 1
+    want = roi_pool_plain_vjp(feat, boxes, g, s, 1 / 16)
+    assert got.dtype == dtype and got.shape == feat.shape
+    assert torch.equal(_bits(got), _bits(want))
+    assert got.abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_roi_pool_backward_random_cotangents(dev, dtype):
+    """Random cotangents: the same shares, float32 sums by atomics in an
+    order that varies from run to run: within 1e-5 of the sum of the
+    terms' magnitudes (the plain VJP of |g|), plus, in bf16, one rounding
+    of the cast (2^-7 of the value)."""
+    feat, boxes, g = _k10_case(dev, dtype, 1, 52, 84, 64, 40, 14, dyadic=False)
+    got = roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16).float()
+    want = roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16).float()
+    magnitude = roi_pool_plain_vjp(feat, boxes, g.abs(), 14, 1 / 16).float()
+    cast = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((got - want).abs() <= 1e-5 * magnitude + cast * want.abs()).all())
+
+
+def test_roi_pool_backward_refuses_bins_past_its_mask(dev):
+    """A map whose largest bin exceeds 15 cells a side raises before any
+    launch; C = 0 and P = 0 give zeros."""
+    feat = torch.zeros(1, 240, 16, 8, device=dev)
+    boxes = torch.zeros(1, 2, 4, device=dev)
+    before = roi_pool_backward_auto.launches
+    with pytest.raises(ValueError, match="15"):
+        roi_pool_backward_cuda(feat, boxes, torch.zeros(1, 2, 14, 14, 8, device=dev))
+    assert roi_pool_backward_auto.launches == before
+    empty = torch.ones(1, 20, 24, 8, device=dev, dtype=torch.bfloat16)
+    got = roi_pool_backward_cuda(empty, boxes[:, :0], torch.zeros(1, 0, 14, 14, 8, device=dev, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16 and not got.any()
 
 
 # ------------------------------------------------- RoIPool ablation, K6-K9

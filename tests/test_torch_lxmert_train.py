@@ -469,13 +469,15 @@ class TestGuards:
     def test_registry(self):
         from vltk_tpu_torch.experiments import DataExperiment
 
-        assert Experiments.avail() == ["data", "docvqa_span", "lxmert_pretrain", "lxmert_vqa", "ocr_tokens"]
+        from vltk_tpu_torch.experiments import FRCNNDetectExperiment
+
+        assert Experiments.avail() == ["data", "docvqa_span", "frcnn_detect", "lxmert_pretrain", "lxmert_vqa",
+                                       "ocr_tokens"]
         for name, cls in (("data", DataExperiment), ("docvqa_span", DocVQASpanExperiment),
+                          ("frcnn_detect", FRCNNDetectExperiment),
                           ("LXMERT_vqa", LxmertVQAExperiment), ("lxmert_pretrain", LxmertPretrainExperiment),
                           ("ocr_tokens", OCRTokenExperiment)):
             assert Experiments.get(name) is cls
-        with pytest.raises(KeyError, match="A.12"):
-            Experiments.get("frcnn_detect")
         with pytest.raises(KeyError, match="unknown"):
             Experiments.get("no_such")
 

@@ -7,6 +7,8 @@ the kernels' plain versions, which are what is compared. ``chip_smoke.py``
 holds the kernels against those plain versions on the card.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -24,9 +26,12 @@ from vltk_tpu_torch.models import anchors as pt_anchors
 from vltk_tpu_torch.ops import boxes as pt_boxes
 from vltk_tpu_torch.ops import image_ops as pt_image
 from vltk_tpu_torch.ops import nms as pt_nms
-from vltk_tpu_torch.ops import roi_pool as pt_roi
 from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto
 from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_auto
+
+# the module: like ``vltk_tpu.ops``, the package exports the function
+# ``roi_pool`` under the module's name
+pt_roi = importlib.import_module("vltk_tpu_torch.ops.roi_pool")
 
 
 def t(a):

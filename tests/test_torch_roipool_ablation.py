@@ -23,7 +23,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from vltk_tpu_torch.ops import roi_pool_ablation as plain
-from vltk_tpu_torch.ops.roi_pool import roi_bin_edges, roi_pool
+from vltk_tpu_torch.ops.roi_pool import roi_bin_edges, roi_pool_offsets
 from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
     pool_auto,
     pool_contig_auto,
@@ -200,7 +200,7 @@ def test_caps_pin_the_reference_bin_extents():
     cell, and differ from it on a box far larger than the map; the box
     wider than the map in x only is exact under the v3 window, not v2."""
     _, feat_t, boxes = make_case("float32")
-    exact = roi_pool(feat_t, torch.from_numpy(boxes), 14, 1 / 16)
+    exact = roi_pool_offsets(feat_t, torch.from_numpy(boxes), 14, 1 / 16)
     v2 = plain.pool(feat_t, torch.from_numpy(boxes), "full")
     v3 = plain.pool(feat_t, torch.from_numpy(boxes), "v3")
     inside = torch.ones(2, N_BOX, dtype=torch.bool)
@@ -219,7 +219,7 @@ def test_v3_window_at_a_map_width_multiple_of_8():
     boxes = torch.tensor([[[320.0, 16.0, 640.0, 200.0], [0.0, 0.0, 383.0, 255.0], [100.0, 50.0, 300.0, 90.0]]])
     hs, he, ws, we = roi_bin_edges(boxes, 1 / 16, 16, 24, 14)
     assert int(ws[0, 0, -1]) == 24 and int(we[0, 0, -1]) == 24
-    want = roi_pool(feat, boxes, 14, 1 / 16)
+    want = roi_pool_offsets(feat, boxes, 14, 1 / 16)
     for got in (plain.pool(feat, boxes, "v3"), plain.pool_grouped_v3(feat, boxes, group=3)):
         assert torch.equal(got, want)
     assert bool((want[0, 0, :, -1] == 0).all())
@@ -258,7 +258,7 @@ def test_undefined_cases_raise(call):
 def test_modes_that_need_no_row_or_column_below_14_run_on_small_maps():
     feat = torch.randn(1, 5, 6, 4)
     boxes = torch.tensor([[[0.0, 0.0, 90.0, 70.0]]])
-    assert torch.equal(plain.pool(feat, boxes, "full"), roi_pool(feat, boxes, 14, 1 / 16))
+    assert torch.equal(plain.pool(feat, boxes, "full"), roi_pool_offsets(feat, boxes, 14, 1 / 16))
     assert plain.pool(feat[:, :, :], torch.zeros(1, 1, 4), "v3").shape == (1, 1, 14, 14, 4)
 
 

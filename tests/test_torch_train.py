@@ -390,8 +390,54 @@ class TestOptimizer:
             np.testing.assert_allclose(got, v.T if p.endswith("kernel") else v, rtol=0, atol=1e-6, err_msg=p)
 
     def test_freeze_patterns_raise(self, jax_model):
-        with pytest.raises(NotImplementedError, match="freeze_patterns"):
-            PO.make_optimizer(port_model(jax_model), PC.TrainConfig(), 10, freeze_patterns=("layer_0",))
+        """A pattern that is no regex raises when the optimizer is made, as
+        JAX's ``with_frozen`` raises when its labels are computed."""
+        import re
+
+        with pytest.raises(re.error):
+            PO.make_optimizer(port_model(jax_model), PC.TrainConfig(), 10, freeze_patterns=("layer_(0",))
+        with pytest.raises(re.error):
+            JO.with_frozen(JO.make_optimizer(JC.TrainConfig(), 10), ("layer_(0",)).init(jax_model[2])
+
+    @pytest.mark.parametrize("patterns, clip", [(("^layoutlm/embeddings/", "query"), 1.0), (("^classifier/",), 0.0)],
+                             ids=["embeddings-and-queries-clipped", "classifier"])
+    def test_freeze_patterns_match_optax(self, jax_model, rng, patterns, clip):
+        """``freeze_patterns`` on torch names (dots as ``/``) freeze the
+        tensors JAX's freeze on the flax paths, through the converter's name
+        map; five steps with the clip taken over the trained tensors only
+        equal optax's ``multi_transform`` (1e-6), and the frozen tensors stay
+        bitwise as they were (no update, no weight decay)."""
+        import re
+
+        _, _, params = jax_model
+        cfg = JC.TrainConfig(learning_rate=1e-2, weight_decay=0.1, warmup_ratio=0.2, clip_grad_norm=clip)
+        tx = JO.make_optimizer(cfg, total_steps=10, freeze_patterns=patterns)
+        state = tx.init(params)
+        update = jax.jit(tx.update)
+        names = name_map(params)
+        frozen_paths = {p for p in names if any(re.search(q, p) for q in patterns)}
+        assert frozen_paths and {names[p] for p in frozen_paths} == {
+            n for n in names.values() if PO.frozen(n, patterns)}
+        model = port_model(jax_model)
+        opt, sched = PO.make_optimizer(model, PC.TrainConfig(**{
+            k: getattr(cfg, k) for k in ("learning_rate", "weight_decay", "warmup_ratio", "clip_grad_norm")
+        }), total_steps=10, freeze_patterns=patterns)
+        pdict = dict(model.named_parameters())
+        before = {n: p.detach().clone() for n, p in pdict.items()}
+        jp = params
+        for _ in range(5):
+            grads = {p: rng.normal(size=v.shape).astype(np.float32) * 0.3 for p, v in flat_jax(jp).items()}
+            updates, state = update(tu.unflatten_dict({tuple(k.split("/")): jnp.asarray(v)
+                                                         for k, v in grads.items()}), state, jp)
+            jp = jax.tree_util.tree_map(lambda a, u: a + u, jp, updates)
+            for p, g in grads.items():
+                pdict[names[p]].grad = t(g.T if p.endswith("kernel") else g)
+            opt.step()
+            sched.step()
+        for p, v in flat_jax(jp).items():
+            got = pdict[names[p]].detach()
+            np.testing.assert_allclose(got.numpy(), v.T if p.endswith("kernel") else v, rtol=0, atol=1e-6, err_msg=p)
+            assert torch.equal(got, before[names[p]]) == (p in frozen_paths), p
 
 
 # ------------------------------------------------------------ train steps
@@ -576,8 +622,7 @@ class TestExperiment:
 
     def test_registry_and_test_run(self, jax_model, tmp_path):
         assert Experiments.get("OCR_tokens") is OCRTokenExperiment
-        with pytest.raises(KeyError, match="A.12"):
-            Experiments.get("frcnn_detect")
+        assert Experiments.get("frcnn_detect").name == "frcnn_detect"  # ported (ROADMAP A.12)
         config = port_config(tmp_path)
         config.test_run = True
         exp = port_experiment(jax_model, config, batches(np.random.default_rng(8), 3))

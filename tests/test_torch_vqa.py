@@ -244,9 +244,10 @@ class TestModules:
         np.testing.assert_allclose(got, want, rtol=1e-6)
 
     def test_unported_options_name_their_roadmap_item(self):
-        for flag, item in (("remat", "A.13"), ("activation_sharding", "A.14")):
+        for flag, item in (("activation_sharding", "A.14"), ("seq_attention_sharding", "A.14")):
             with pytest.raises(NotImplementedError, match=item):
                 PX.LxmertConfig(**{flag: True})
+        assert PX.LxmertConfig(remat=True).remat  # A.13 is ported
         assert PX.LxmertConfig(moe_experts=4).moe_experts == 4  # A.11b is ported
         assert PX.LxmertConfig(int8=True).int8  # A.9 is ported
 

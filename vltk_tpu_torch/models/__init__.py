@@ -1,4 +1,5 @@
-"""Models of the port: the Faster R-CNN extraction path, the LayoutLM
+"""Models of the port: the Faster R-CNN extraction path and its detection
+losses, the LayoutLM
 document encoder, LXMERT and VisualBERT on the shared transformer blocks
 (with the MoE feed-forward in their place under ``moe_experts > 0``), and
 the ViT image encoder."""
@@ -11,6 +12,7 @@ from vltk_tpu_torch.models.convert import (
     jax_visualbert_to_torch,
     jax_vit_to_torch,
 )
+from vltk_tpu_torch.models.detection_loss import fast_rcnn_losses, rpn_losses
 from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, calibrate_int8, init_weights
 from vltk_tpu_torch.models.layoutlm import (
     LayoutLM,
@@ -51,6 +53,7 @@ __all__ = [
     "calibrate_int8",
     "calibrate_int8_scales",
     "classification_loss",
+    "fast_rcnn_losses",
     "init_vit_weights",
     "init_weights",
     "int8_scales",
@@ -63,5 +66,6 @@ __all__ = [
     "load_int8_scales",
     "moe_aux_losses",
     "moe_capacity",
+    "rpn_losses",
     "top_k_routing",
 ]

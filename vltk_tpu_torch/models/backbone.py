@@ -11,8 +11,10 @@ res5 variant (stride 1 in the first block, dilation/padding 2 in every
 conv2, ``halve=False``). ``int8`` puts the three convs of every
 bottleneck block on the int8 path (the projection shortcut and the stem
 stay float), ``stem_s2d`` the stem on its exact space-to-depth form; both
-default off, as in JAX. ``remat`` is a training-memory option of the
-reference and is not ported.
+default off, as in JAX. ``remat`` checkpoints res2-res4 at block
+boundaries while grad is enabled (JAX's ``nn.remat(BottleneckBlock)``): the
+backward recomputes a block's internals from its input instead of keeping
+them; names and numbers are those of the plain path.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from vltk_tpu_torch.models.layers import (
@@ -145,8 +148,10 @@ class ResNetC4(nn.Module):
         dtype: Optional[torch.dtype] = None,
         int8: bool = False,
         stem_s2d: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.stem = BasicStem(3, stem_out_channels, caffe_maxpool, dtype=dtype, s2d=stem_s2d)
         blocks = NUM_BLOCKS_PER_STAGE[depth]
         bottleneck = num_groups * width_per_group
@@ -165,8 +170,10 @@ class ResNetC4(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # NHWC -> NHWC
         x = self.stem(x)
+        remat = self.remat and torch.is_grad_enabled()
         for name in ("res2", "res3", "res4"):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return x
 
 

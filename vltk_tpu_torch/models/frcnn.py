@@ -82,8 +82,8 @@ class FRCNNConfig:
     # res5 RoI chunking: pool + res5 run per chunk of this many RoIs when
     # batch * proposals exceeds it. None = one pass.
     roi_chunk: Optional[int] = 2400
-    # rematerialise backbone blocks in a backward pass (training only;
-    # inference never sees a backward, so it does nothing here)
+    # rematerialise backbone blocks in the backward pass (training only:
+    # without grad it changes nothing)
     remat: bool = False
 
     @classmethod
@@ -233,6 +233,7 @@ class FRCNN(nn.Module):
             caffe_maxpool=cfg.caffe_maxpool,
             dtype=dtype,
             int8=cfg.int8,
+            remat=cfg.remat,
         )
         self.proposal_generator = RPN(cfg, self.backbone.out_channels)
         self.roi_heads = Res5RoIHeads(

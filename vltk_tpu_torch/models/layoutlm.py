@@ -26,6 +26,7 @@ from torch import nn
 from vltk_tpu_torch.models.lxmert import (  # noqa: F401  (init_weights is re-exported)
     LxmertConfig,
     TransformerLayer,
+    encoder_layer,
     init_weights,
     masked_cross_entropy,
 )
@@ -111,7 +112,7 @@ class LayoutLM(nn.Module):
             attention_mask = torch.ones(input_ids.shape, dtype=torch.float32, device=x.device)
         mask = attention_mask.float()
         for layer in self.encoder.layer:
-            x = layer(x, mask)
+            x = encoder_layer(self.cfg, layer, x, mask)
         return x
 
 

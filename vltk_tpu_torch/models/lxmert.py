@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from vltk_tpu_torch.models.layers import Int8Linear
@@ -58,9 +59,11 @@ NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
 @dataclasses.dataclass(frozen=True)
 class LxmertConfig:
     """Static hyper-parameters; the field set of the JAX package's
-    ``LxmertConfig``. The options that need a mesh or remat raise
+    ``LxmertConfig``. The options that need a mesh raise
     ``NotImplementedError`` in the port for now; ``moe_experts > 0`` puts
-    ``models.moe.MoEFeedForward`` in every feed-forward's place."""
+    ``models.moe.MoEFeedForward`` in every feed-forward's place; ``remat``
+    checkpoints every encoder layer while grad is enabled
+    (``encoder_layer``)."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -100,7 +103,6 @@ class LxmertConfig:
         unported = {
             "activation_sharding (ROADMAP A.14)": self.activation_sharding,
             "seq_attention_sharding (ROADMAP A.14)": self.seq_attention_sharding,
-            "remat (ROADMAP A.13)": self.remat,
         }
         on = [name for name, value in unported.items() if value]
         if on:
@@ -311,6 +313,17 @@ class CrossModalityLayer(nn.Module):
         return lang2, visn2
 
 
+def encoder_layer(cfg, layer: nn.Module, *args):
+    """``layer(*args)``; with ``cfg.remat`` and grad enabled, checkpointed
+    (JAX's ``_encoder_layers``: ``nn.remat`` on every encoder layer): the
+    backward recomputes the layer from its inputs, replaying dropout with
+    the saved RNG state, instead of keeping its activations. A layer on
+    the flash route launches K3 again in that recompute."""
+    if getattr(cfg, "remat", False) and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=True)
+    return layer(*args)
+
+
 class Embeddings(nn.Module):
     """Word + position + type embeddings, LayerNorm, dropout; float32."""
 
@@ -401,12 +414,13 @@ class Lxmert(nn.Module):
             visual_mask = visual_mask.float()
         lang = self.embeddings(input_ids, token_type_ids)
         visn = self.encoder.visn_fc(visual_feats.to(dt), visual_pos.to(dt))
+        cfg = self.cfg
         for layer in self.encoder.layer:
-            lang = layer(lang, attention_mask)
+            lang = encoder_layer(cfg, layer, lang, attention_mask)
         for layer in self.encoder.r_layers:
-            visn = layer(visn, visual_mask)
+            visn = encoder_layer(cfg, layer, visn, visual_mask)
         for layer in self.encoder.x_layers:
-            lang, visn = layer(lang, attention_mask, visn, visual_mask)
+            lang, visn = encoder_layer(cfg, layer, lang, attention_mask, visn, visual_mask)
         lang = lang.float()
         return lang, visn.float(), self.pooler(lang)
 

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from vltk_tpu_torch.models.layoutlm import _Encoder
-from vltk_tpu_torch.models.lxmert import LxmertConfig, Pooler, dense
+from vltk_tpu_torch.models.lxmert import LxmertConfig, Pooler, dense, encoder_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +102,7 @@ class VisualBert(nn.Module):
             visual_mask = torch.ones((n, v), device=x.device)
         mask = torch.cat([attention_mask.float(), visual_mask.float()], dim=1)
         for layer in self.encoder.layer:
-            x = layer(x, mask)
+            x = encoder_layer(self.cfg, layer, x, mask)
         x = x.float()
         return x, self.pooler(x)
 

@@ -95,3 +95,30 @@ def nms_fixed(
     if single:
         return keep[0], keep_valid[0]
     return keep, keep_valid
+
+
+def batched_nms_fixed(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    idxs: torch.Tensor,
+    iou_threshold: float,
+    max_out: int,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Category-aware greedy NMS (JAX's ``batched_nms_fixed``): each
+    category is shifted to its own coordinate island, ``idxs * (max box
+    coordinate + 1)``, so boxes of different categories never overlap, and
+    one ``nms_fixed_auto`` call takes every row (the kernel K2 on the card).
+
+    Args: boxes (K, 4) or (R, K, 4), scores and idxs (K,) or (R, K), valid
+    optional like scores; the coordinate bound is each row's own. Returns
+    keep (max_out,) or (R, max_out) int32, -1 padded, and its mask."""
+    from vltk_tpu_torch.ops.nms_kernel import nms_fixed_auto
+
+    if boxes.shape[-2] == 0:
+        lead = boxes.shape[:-2]
+        return (torch.full((*lead, max_out), -1, dtype=torch.int32, device=boxes.device),
+                torch.zeros((*lead, max_out), dtype=torch.bool, device=boxes.device))
+    max_coord = boxes.flatten(-2).amax(-1) + 1.0  # () or (R,)
+    shifted = boxes + (idxs.to(boxes.dtype) * max_coord[..., None])[..., None]
+    return nms_fixed_auto(shifted, scores, iou_threshold, max_out, valid=valid)

@@ -147,7 +147,10 @@ def nms_fixed_auto(
     valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched fixed-budget greedy NMS: the kernel on CUDA tensors (or an
-    error), the plain version on CPU ones."""
+    error), the plain version on CPU ones. The keep-set is integer: inputs
+    that carry a gradient (the RPN's proposals in training) are detached,
+    so nothing is recorded for a backward through it."""
+    boxes, scores = boxes.detach(), scores.detach()
     if boxes.device.type == "cpu":
         return nms_fixed(boxes, scores, iou_threshold, max_out, valid)
     return nms_fixed_cuda(boxes, scores, iou_threshold, max_out, valid)

@@ -1,13 +1,21 @@
-"""RoIPool dispatcher: the CUDA kernel ``csrc/roi_pool.cu`` for tensors on
-the card, the plain version (``ops/roi_pool.py``) for tensors on the CPU.
+"""RoIPool dispatchers: the CUDA kernels ``csrc/roi_pool.cu`` (K1, the
+forward) and ``csrc/roi_pool_bwd.cu`` (K10, the backward) for tensors on
+the card, the plain versions (``ops/roi_pool.py``) for tensors on the CPU.
 
 Counterpart of ``vltk_tpu/ops/pallas_kernels.py:roi_pool_auto``, which
-dispatches to the Pallas kernel ``roi_pool_pallas`` on the TPU.
-``roi_pool_auto.launches`` counts kernel launches (CPU calls do not count),
+dispatches to the Pallas kernel ``roi_pool_pallas`` on the TPU and
+differentiates it through ``roi_pool_pallas_ad``: the Pallas forward, the
+VJP of the XLA sparse-table ``roi_pool`` backward. Here, with features that
+require a gradient while grad is enabled, ``roi_pool_auto`` runs one
+``torch.autograd.Function``: K1 and K10 on the card, the plain forward and
+``roi_pool_plain_vjp`` on the CPU. Boxes get no gradient (JAX's is zero).
+
+``roi_pool_auto.launches`` counts K1's launches (CPU calls do not count),
 and ``roi_pool_auto.path_launches`` splits them by the kernel's path:
 ``"vector"`` (16-byte loads and stores, 8 bf16 or 4 float32 channels a
 thread) where C is a multiple of that width and the features start on a
 16-byte boundary, ``"scalar"`` (one element a thread) otherwise.
+``roi_pool_backward_auto.launches`` counts K10's.
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import ctypes
 import torch
 
 from vltk_tpu_torch.ops import _build
-from vltk_tpu_torch.ops.roi_pool import roi_pool
+from vltk_tpu_torch.ops.roi_pool import roi_pool_offsets, roi_pool_plain_vjp, table_levels
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 VECTOR_BYTES = 16
@@ -110,6 +118,28 @@ def roi_pool_cuda(
     return out
 
 
+def _forward(features, boxes, output_size, spatial_scale):
+    if features.device.type == "cpu":
+        return roi_pool_offsets(features, boxes, output_size, spatial_scale)
+    return roi_pool_cuda(features, boxes, output_size, spatial_scale)
+
+
+class _RoIPool(torch.autograd.Function):
+    """K1 forward and K10 backward (the plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, output_size, spatial_scale):
+        ctx.save_for_backward(features, boxes)
+        ctx.geometry = (output_size, spatial_scale)
+        return _forward(features, boxes, output_size, spatial_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        features, boxes = ctx.saved_tensors
+        grad = roi_pool_backward_auto(features, boxes, grad_out, *ctx.geometry)
+        return grad, None, None, None
+
+
 def roi_pool_auto(
     features: torch.Tensor,
     boxes: torch.Tensor,
@@ -117,21 +147,86 @@ def roi_pool_auto(
     spatial_scale: float = 1.0 / 16,
 ) -> torch.Tensor:
     """Batched RoIPool: (B, H, W, C), (B, P, 4) -> (B, P, S, S, C). The
-    kernel on CUDA tensors (or an error), the plain version on CPU ones.
-
-    The kernel has no backward yet (ROADMAP A.12), and its output carries
-    no ``grad_fn``: on the card, features that require a gradient while
-    grad is enabled raise rather than lose it silently."""
-    if features.device.type == "cpu":
-        return roi_pool(features, boxes, output_size, spatial_scale)
+    kernel on CUDA tensors (or an error), the plain version on CPU ones;
+    differentiable in the features through K10 (or its plain version)."""
     if torch.is_grad_enabled() and features.requires_grad:
-        raise RuntimeError(
-            "roi_pool on the card: the CUDA kernel has no backward yet (ROADMAP A.12), so it would cut "
-            "the gradient to the features; call it under torch.no_grad() or torch.inference_mode(), "
-            "or with features that do not require grad"
-        )
-    return roi_pool_cuda(features, boxes, output_size, spatial_scale)
+        return _RoIPool.apply(features, boxes, output_size, spatial_scale)
+    return _forward(features, boxes, output_size, spatial_scale)
 
 
 roi_pool_auto.launches = 0
 roi_pool_auto.path_launches = {"vector": 0, "scalar": 0}
+
+
+# ------------------------------------------------------------------- K10
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("roi_pool_bwd")
+    fn = lib.roi_pool_backward
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+#: K10 keeps a bin's equality mask in 16 rows of 16 bits: each side's two
+#: lookups span at most 2 * 2^k cells, so maps whose largest bin
+#: (``table_levels``) is at most 15 cells a side (up to 210 cells at 14 x
+#: 14 bins; the parity map is 52 x 84, bins of at most 5 x 8)
+MAX_TABLE_BIN = 15
+
+
+def roi_pool_backward_cuda(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    grad_out: torch.Tensor,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16,
+) -> torch.Tensor:
+    """Launch K10: the cotangent of the features (B, H, W, C) from that of
+    the pooled (B, P, S, S, C), JAX's rule (``roi_pool_plain_vjp``),
+    summed in float32 with atomics and cast once; features float32 or
+    bfloat16, boxes float32, on one CUDA device. Counts one launch."""
+    _check(features, boxes)
+    b, h, w, c = features.shape
+    p = boxes.shape[1]
+    if tuple(grad_out.shape) != (b, p, output_size, output_size, c):
+        raise ValueError(f"roi_pool backward: grad_out {tuple(grad_out.shape)} does not match the pooled shape")
+    max_bin_h, max_bin_w, _, _ = table_levels(h, w, output_size)
+    if max(max_bin_h, max_bin_w) > MAX_TABLE_BIN:
+        raise ValueError(
+            f"roi_pool backward kernel: bins of up to {max_bin_h} x {max_bin_w} cells on a {h} x {w} map "
+            f"exceed its {MAX_TABLE_BIN}-cell mask"
+        )
+    features = features.contiguous()
+    grad_out = grad_out.to(features.dtype).contiguous()
+    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=features.device)
+    out = acc if features.dtype == torch.float32 else torch.empty_like(features)
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream(features.device).cuda_stream
+        err = _bwd_lib().roi_pool_backward(
+            features.data_ptr(), boxes.contiguous().data_ptr(), grad_out.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), b, h, w, c, p, output_size, float(spatial_scale), max_bin_h, max_bin_w,
+            _DTYPE_CODE[features.dtype], stream,
+        )
+    _build.check(err, "roi_pool_backward launch")
+    roi_pool_backward_auto.launches += 1
+    return out
+
+
+def roi_pool_backward_auto(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    grad_out: torch.Tensor,
+    output_size: int = 14,
+    spatial_scale: float = 1.0 / 16,
+) -> torch.Tensor:
+    """The RoIPool backward: K10 on CUDA tensors (or an error), the plain
+    VJP on CPU ones."""
+    if features.device.type == "cpu":
+        return roi_pool_plain_vjp(features, boxes, grad_out, output_size, spatial_scale)
+    return roi_pool_backward_cuda(features, boxes, grad_out, output_size, spatial_scale)
+
+
+roi_pool_backward_auto.launches = 0

@@ -43,7 +43,7 @@ import torch
 
 from vltk_tpu_torch.ops import _build
 from vltk_tpu_torch.ops import roi_pool_kernel as RK
-from vltk_tpu_torch.ops.roi_pool import roi_pool
+from vltk_tpu_torch.ops.roi_pool import roi_pool_offsets
 from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_cuda
 from vltk_tpu_torch.tools.probe_roipool_ablation import SHAPE, make_inputs, timed
 from vltk_tpu_torch.tools.variants import card_name, compile_variant, queued_ms, unaligned
@@ -122,7 +122,7 @@ def sweep(shapes, step: tuple, probe: tuple, iters: int, variants=()) -> dict:
     probe's inputs)."""
     libs = build(shapes, variants)
     feat, boxes = step
-    want = roi_pool(feat, boxes, 14, 1.0 / 16)
+    want = roi_pool_offsets(feat, boxes, 14, 1.0 / 16)
     cases = {"step": (feat, boxes), "step scalar": (unaligned(feat), boxes), "probe": probe}
     for key, lib in libs.items():
         for path, case in (("vector", "step"), ("scalar", "step scalar")):
@@ -172,7 +172,7 @@ def main(argv=None) -> dict:
     feat, boxes = make_inputs(args.b, args.h, args.w, args.c, args.p, dev)
     kernels = {
         "cuda": lambda f, b: roi_pool_cuda(f, b, 14, 1.0 / 16),
-        "plain": lambda f, b: roi_pool(f, b, 14, 1.0 / 16),
+        "plain": lambda f, b: roi_pool_offsets(f, b, 14, 1.0 / 16),
     }
     names = args.kernels.split(",")
     unknown = [n for n in names if n not in kernels]

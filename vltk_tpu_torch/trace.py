@@ -7,6 +7,7 @@
     python -m vltk_tpu_torch.trace --model vqa [--batch 8] [--int8]
     python -m vltk_tpu_torch.trace --model vit [--attn flash|xla] [--batch 64] [--int8]
     python -m vltk_tpu_torch.trace --model visualbert [--attn flash|xla] [--batch 32]
+    python -m vltk_tpu_torch.trace --model frcnn --train [--batch 2] [--remat]
 
 ``--model frcnn`` (default) builds the ``--preset`` extraction (default
 ``parity_300``: R-101-C4, 1600 classes, 400 attributes, bf16; ``production``
@@ -35,7 +36,15 @@ each layer's self-attention (197 tokens, no mask) to K3. ``--model
 visualbert`` builds the VisualBERT classifier at visualbert-vqa width (12
 layers, 768, 2048-d regions; bf16) over 32 rows of 128 text tokens of
 varied real length and 36 regions (164 positions, padded to 256 by K3),
-``--attn flash`` (default) or ``xla``. It prints:
+``--attn flash`` (default) or ``xla``. ``--model frcnn --train`` times
+bench.py's ``--train frcnn`` step in the port: R-101-C4 with
+``FRCNNConfig(post_nms_topk=300, dtype="bfloat16")`` (6000 pre-NMS
+proposals, 1600 classes, 400 attributes; ``--remat`` checkpoints the
+backbone blocks), seeded tamed weights, batch 2 on the 832x1344 canvas
+with 8 seeded ground-truth boxes an image (the first on a proposal),
+``rpn_losses`` at 256 and ``fast_rcnn_losses`` at 128 an image, SGD at
+1e-4: the RoIPool forward K1 and backward K10 once and the NMS K2 twice a
+step. It prints:
 
 * the step time over ``--repeats`` windows of ``--steps`` steps (host
   clock, synchronised), to show the spread;
@@ -76,6 +85,8 @@ _CLASSES = (
     ("flash_fwd", "flash attention kernel"),
     ("flash_bwd_dkv", "flash dk/dv kernel (K4)"),
     ("flash_bwd_dq", "flash dq kernel (K5)"),
+    ("roi_pool_bwd", "roi_pool backward kernel (K10)"),
+    ("cast_out", "roi_pool backward kernel (K10)"),  # K10's cast pass
     ("roi_pool_", "roi_pool kernel"),  # K1: roi_pool_{bf16,f32}_{vector,scalar}
     ("gemm_s8", "int8 gemm"),  # torch._int_mm's cuBLASLt products (cutlass_80_..._i16832gemm_s8_...)
     ("imma", "int8 gemm"),
@@ -330,23 +341,67 @@ def timed_stages(names, run, steps: int):
     return {k: v / steps for k, v in totals.items()}
 
 
-def stage_times_train(exp, data, steps: int):
+def stage_times_train(model, opt, loss_fn, data, steps: int, scheduler=None):
     """Mean device ms of forward (with the loss), backward and optimizer
-    (clip, AdamW, schedule) over ``steps`` training steps."""
-    model, opt = exp.model, exp.optimizer
+    (the optimizer's step and the schedule's) over ``steps`` training
+    steps."""
     model.train()
 
     def run(mark):
-        opt.zero_grad(set_to_none=True)
-        loss, _ = exp.loss_fn(model, data)
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, data)
         mark()
         loss.backward()
         mark()
         opt.step()
-        exp.scheduler.step()
+        if scheduler is not None:
+            scheduler.step()
         mark()
 
     return timed_stages(("forward", "backward", "optimizer"), run, steps)
+
+
+DET_CONTENT = (800, 1067)  # a 480 x 640 image resized to short side 800
+DET_GT = 8
+
+
+def build_frcnn_train(batch: int, remat: bool = False):
+    """(model, SGD optimizer, loss_fn(model, data) -> (loss, aux), data) of
+    the detection training step (see the module's docstring)."""
+    from vltk_tpu_torch.adapters.frcnn import tame_random_weights
+    from vltk_tpu_torch.models.detection_loss import fast_rcnn_losses, rpn_losses
+    from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
+
+    cfg = FRCNNConfig(post_nms_topk=300, dtype="bfloat16", remat=remat)
+    model = tame_random_weights(init_weights(FRCNN(cfg), seed=0)).cuda().train()
+    gen = torch.Generator().manual_seed(0)
+    h, w = DET_CONTENT
+    images = torch.zeros(batch, *CANVAS, 3)
+    images[:, :h, :w] = torch.randn(batch, h, w, 3, generator=gen) * 50
+    xy = torch.rand(batch, DET_GT, 2, generator=gen) * torch.tensor([w - 400.0, h - 400.0])
+    wh = 32 + torch.rand(batch, DET_GT, 2, generator=gen) * 368
+    data = {
+        "images": images.cuda(),
+        "sizes": torch.tensor([[float(h), float(w)]] * batch, device="cuda"),
+        "gt_boxes": torch.cat([xy, xy + wh], -1).cuda(),
+        "gt_valid": torch.ones(batch, DET_GT, dtype=torch.bool, device="cuda"),
+        "gt_classes": torch.randint(0, cfg.num_classes, (batch, DET_GT), generator=gen).cuda(),
+    }
+    with torch.no_grad():
+        proposals = model(data["images"], data["sizes"], return_raw=True)["raw"]["proposals"]
+    data["gt_boxes"][:, 0] = torch.round(proposals[:, 0])
+
+    def loss_fn(m, d):
+        sampler = torch.Generator(device="cuda").manual_seed(0)
+        raw = m(d["images"], d["sizes"], return_raw=True)["raw"]
+        obj, loc = rpn_losses(raw["anchors"], raw["rpn_logits"], raw["rpn_deltas"], d["gt_boxes"], d["gt_valid"],
+                              generator=sampler, batch_size_per_image=256)
+        cls, box = fast_rcnn_losses(raw["proposals"], raw["prop_valid"], raw["obj_logits"], raw["box_deltas"],
+                                    d["gt_boxes"], d["gt_classes"], d["gt_valid"], generator=sampler,
+                                    batch_size_per_image=128)
+        return obj + loc + cls + box, {}
+
+    return model, torch.optim.SGD(model.parameters(), lr=1e-4), loss_fn, data
 
 
 @torch.inference_mode()
@@ -504,12 +559,15 @@ def main() -> None:
     ap.add_argument("--attn", choices=("auto", "flash", "xla"), default=None,
                     help="layoutlm: attention_impl auto (the flash kernel at seq 1024, default) or xla; "
                          "vit, visualbert: flash (default) or xla")
-    ap.add_argument("--train", action="store_true", help="layoutlm: the training step (bench.py --train)")
+    ap.add_argument("--train", action="store_true",
+                    help="layoutlm, frcnn: the training step (bench.py --train)")
+    ap.add_argument("--remat", action="store_true", help="frcnn --train: checkpointed backbone blocks")
     ap.add_argument("--lrs", type=float, nargs="+", default=None,
                     help="layoutlm --train: instead of tracing, print the losses of chip_smoke.py's "
                          "8-step epoch at each of these learning rates")
     ap.add_argument("--batch", type=int, default=None,
-                    help="default 8 (frcnn, vqa), 32 (layoutlm, visualbert), 8 (layoutlm --train), 64 (vit)")
+                    help="default 8 (frcnn, vqa), 32 (layoutlm, visualbert), 8 (layoutlm --train), "
+                         "2 (frcnn --train), 64 (vit)")
     ap.add_argument("--preset", default="parity_300", help="frcnn: the extraction preset (production = int8_300)")
     ap.add_argument("--int8", action="store_true", help="vqa, layoutlm, vit: the int8 serving presets")
     ap.add_argument("--steps", type=int, default=3)
@@ -522,6 +580,8 @@ def main() -> None:
         ap.error(f"--attn {args.attn} is not a route of --model {args.model}")
     if args.train and args.int8:
         ap.error("the int8 presets are for serving (round has a zero gradient)")
+    if args.train and args.model not in ("layoutlm", "frcnn") or args.remat and not (args.train and args.model == "frcnn"):
+        ap.error("--train is a mode of --model layoutlm and frcnn, --remat of --model frcnn --train")
     if not torch.cuda.is_available():
         raise SystemExit("trace: needs a CUDA device")
     smi = subprocess.run(
@@ -539,7 +599,18 @@ def main() -> None:
                 losses = epoch_losses(args.batch or 8, 8, lr, logdir, args.attn)
             print(json.dumps({"card": smi, "attn": args.attn, "lr": lr, "epoch_losses": losses}))
         return
-    if args.model == "frcnn":
+    if args.model == "frcnn" and args.train:
+        batch = args.batch or 2
+        model, opt, loss_fn, data = build_frcnn_train(batch, args.remat)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss_fn(model, data)[0].backward()
+            opt.step()
+
+        stages_fn = lambda: stage_times_train(model, opt, loss_fn, data, args.steps)  # noqa: E731
+        unit = "images_per_s"
+    elif args.model == "frcnn":
         batch = args.batch or 8
         bundle, raw, sizes = build_frcnn(batch, args.preset)
         step = lambda: bundle["step"](raw, sizes)  # noqa: E731
@@ -572,7 +643,8 @@ def main() -> None:
         tmp = tempfile.TemporaryDirectory(prefix="vltk_trace_")
         exp, data = build_layoutlm_train(batch, args.attn, tmp.name)
         step = lambda: exp.train_step(data)  # noqa: E731
-        stages_fn = lambda: stage_times_train(exp, data, args.steps)  # noqa: E731
+        stages_fn = lambda: stage_times_train(exp.model, exp.optimizer, exp.loss_fn, data, args.steps,  # noqa: E731
+                                              exp.scheduler)
         unit = "sequences_per_s"
     else:
         batch = args.batch or 32
@@ -646,8 +718,9 @@ def main() -> None:
         "train": bool(args.train),
         "peak_mem_gb": peak_gb,
         "attn": args.attn if args.model in ("layoutlm", "vit", "visualbert") else None,
-        "preset": args.preset if args.model == "frcnn" else None,
-        "int8": bool(args.int8) if args.model != "frcnn" else bundle["cfg"].int8,
+        "preset": args.preset if args.model == "frcnn" and not args.train else None,
+        "remat": bool(args.remat),
+        "int8": bool(args.int8) if args.model != "frcnn" or args.train else bundle["cfg"].int8,
         "int8_ms_per_step": {k: v / 1e3 / args.steps for k, v in int8_split.items()},
         "batch": batch,
         "step_ms_windows": windows,

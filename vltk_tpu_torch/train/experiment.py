@@ -108,7 +108,7 @@ class SimpleExperiment(abc.ABC):
             self.model, self.loss_fn, self.optimizer, self.scheduler,
             accum_steps=int(getattr(self.config.train, "accum_steps", 1)),
         )
-        self.eval_step = make_eval_step(self.model, self.eval_metrics)
+        self.eval_step = make_eval_step(self.model, self._eval_metric_fn)
         self.start_epoch = 0
         self.global_step = 0
         self._skip_steps = 0  # batches to replay-skip on a mid-epoch resume
@@ -295,6 +295,9 @@ class SimpleExperiment(abc.ABC):
             drain(pending)
         return {k: v / max(count, 1) for k, v in totals.items()}
 
+    def _eval_metric_fn(self, model: nn.Module, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return self.eval_metrics(model, batch)
+
     def _device_batches(self, loader, skip: int = 0) -> Iterable[Dict[str, Any]]:
         """The loader's prepared batches on the device
         (``data.loader.device_put_iter``: pinned buffers and a side stream
@@ -350,3 +353,8 @@ class SimpleExperiment(abc.ABC):
     def write_epoch(self, line: str) -> None:
         with open(os.path.join(self.logdir, "epoch_log.txt"), "a") as f:
             f.write(line + "\n")
+
+    def write_iter(self, record: Dict[str, Any]) -> None:
+        """One step's record as a line of ``steps_log.json``."""
+        with open(os.path.join(self.logdir, "steps_log.json"), "a") as f:
+            f.write(json.dumps(record) + "\n")

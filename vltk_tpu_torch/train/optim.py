@@ -10,11 +10,20 @@ when ``norm >= max_norm``, on the device, no host sync).
 
 The schedule is optax's ``join_schedules`` of two linear pieces with the
 optimizer's update count as its argument, so the first update gets lr 0.
+
+``freeze_patterns`` are JAX's ``with_frozen`` regexes, searched in each
+parameter's torch name with dots turned into ``/`` (JAX searches the
+``/``-joined flax path): a matching parameter is left out of the optimizer,
+so it gets no AdamW step and no weight decay, and the clip norm is taken
+over the trained parameters alone, as optax's clip sits in the ``"train"``
+branch of ``multi_transform``. Frozen parameters keep ``requires_grad``:
+their gradients are computed and not applied, as in JAX.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+import re
+from typing import Callable, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -47,8 +56,16 @@ def decays(name: str) -> bool:
     return not any(m.lower() in _NO_DECAY_MODULES for m in mods)
 
 
-def param_groups(model: nn.Module, weight_decay: float) -> List[Dict]:
-    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+def frozen(name: str, patterns: Sequence[str]) -> bool:
+    """Whether any regex of ``patterns`` is found in ``name`` with dots as
+    ``/``."""
+    path = name.replace(".", "/")
+    return any(re.search(p, path) for p in patterns)
+
+
+def param_groups(model: nn.Module, weight_decay: float, freeze_patterns: Sequence[str] = ()) -> List[Dict]:
+    named = [(n, p) for n, p in model.named_parameters()
+             if p.requires_grad and not frozen(n, freeze_patterns)]
     return [
         {"params": [p for n, p in named if decays(n)], "weight_decay": weight_decay},
         {"params": [p for n, p in named if not decays(n)], "weight_decay": 0.0},
@@ -81,13 +98,12 @@ def make_optimizer(
     model: nn.Module, train_config, total_steps: int, freeze_patterns=(),
 ) -> Tuple[ClippedAdamW, torch.optim.lr_scheduler.LambdaLR]:
     """(optimizer, scheduler) with the semantics of the JAX package's
-    ``make_optimizer``: step the optimizer, then the scheduler."""
-    if freeze_patterns:
-        raise NotImplementedError(
-            "freeze_patterns are flax path regexes and match no torch name yet (ROADMAP A.13)"
-        )
+    ``make_optimizer``: step the optimizer, then the scheduler. Parameters
+    matching ``freeze_patterns`` are not trained."""
+    for p in freeze_patterns:
+        re.compile(p)  # a bad pattern raises here, as JAX's with_frozen does
     opt = ClippedAdamW(
-        param_groups(model, train_config.weight_decay),
+        param_groups(model, train_config.weight_decay, freeze_patterns),
         clip_grad_norm=getattr(train_config, "clip_grad_norm", 0.0),
         lr=train_config.learning_rate, betas=(0.9, 0.999), eps=1e-8,
     )

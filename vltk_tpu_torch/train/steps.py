@@ -42,7 +42,7 @@ def make_train_step(
 
     def step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)  # frozen parameters' too, which the optimizer does not hold
         micro = [batch] if accum_steps == 1 else _split(batch, accum_steps)
         total: Dict[str, torch.Tensor] = {}
         for mb in micro:
