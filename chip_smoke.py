@@ -238,21 +238,24 @@ package):
    fill of them: the native library built with this machine's ``g++``;
 32. (right after 13, with the kernel phases) holds the RoIPool backward
    kernel K10 (``csrc/roi_pool_bwd.cu``) against ``roi_pool_plain_vjp`` at
-   the detection training step's shape (2, 52, 84, 1024) x 300 RoIs:
-   bitwise in bf16 and float32 on cotangents of small integers times 2^-4
-   (every float32 sum exact in any order), on a relu map (zero plateaus)
+   the detection training step's shape (2, 52, 84, 1024) x 300 RoIs and at
+   the 1344 x 1344 canvas's (2, 84, 84, 1024): bitwise in bf16 and float32
+   on cotangents of small integers times 2^-4 (every float32 sum exact in
+   any order; a second call bitwise equal), on a relu map (zero plateaus)
    with NaN cells, a -inf block, empty and off-map bins and bins of
    power-of-two extent, and within the sum-order bound on random ones;
-   one launch a call; times it (median of five readings queued ahead) at
-   B=2 and at the extraction batch B=8 beside its byte bound and the plain
-   VJP;
+   one launch a call on the path its planner picks (``vector``; bf16 at
+   84 x 84 ``vector_banded``), its shared memory equal to the kernel's
+   count; prints its tiles; times it (median of five readings queued
+   ahead) at B=2, at the extraction batch B=8 and at 84 x 84 beside its
+   byte bound and the plain VJP;
 33. detection training at full width, bench.py's ``--train frcnn`` step in
    the port: R-101-C4 with ``FRCNNConfig(post_nms_topk=300,
    dtype="bfloat16")`` (6000 pre-NMS proposals, 1600 classes, 400
    attributes), seeded tamed weights, B=2 on the 832 x 1344 canvas with 8
    seeded ground-truth boxes an image, ``rpn_losses`` at 256 and
    ``fast_rcnn_losses`` at 128 an image, SGD at 1e-4 for 8 steps: K1 once,
-   K10 once and K2 twice a step (K1 on its vector path), finite losses and
+   K10 once and K2 twice a step (K1 and K10 on their vector paths), finite losses and
    gradients; K10 timed on the step's own inputs; the RPN head without a
    gradient from the RoI losses alone; ``remat`` at B=2 (its first step's
    loss and gradients against the plain run's, beside the plain step
@@ -264,7 +267,8 @@ package):
    segmentation ignored, the 1344 x 1344 canvas) ->
    ``FRCNNDetectExperiment`` at R-101-C4 bf16 (class head sized from the
    label table), B=2, one epoch of 8 steps and the eval loop (finite
-   losses, ``map50`` in [0, 1], K1 24, K10 8, K2 48 launches), the step
+   losses, ``map50`` in [0, 1], K1 24, K10 8, K2 48 launches; K10 on its
+   two-band path, timed on the first step's own inputs), the step
    with and without the loader; a ``ComplexExperiment`` over the same model
    (a detection train loop and an eval loop, both run); one LXMERT-base VQA
    step at B=32 with ``remat`` against the same step without it (equal
@@ -282,6 +286,7 @@ It also fails without a CUDA device and outside a checkout of the repo.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -390,11 +395,12 @@ def roi_boxes(gen: torch.Generator, b: int, p: int, dev) -> torch.Tensor:
     return boxes.to(dev)
 
 
-def roi_pool_ops(boxes: torch.Tensor, c: int) -> float:
-    """Max comparisons this data needs: cells of every bin times C."""
+def roi_pool_ops(boxes: torch.Tensor, c: int, hw=FEAT_HW) -> float:
+    """Max comparisons this data needs: cells of every bin times C (on the
+    52 x 84 map unless ``hw`` says otherwise)."""
     from vltk_tpu_torch.ops.roi_pool import roi_bin_edges
 
-    hs, he, ws, we = roi_bin_edges(boxes, 1.0 / 16, FEAT_HW[0], FEAT_HW[1], 14)
+    hs, he, ws, we = roi_bin_edges(boxes, 1.0 / 16, hw[0], hw[1], 14)
     cells = (he - hs).clamp(min=0)[..., :, None] * (we - ws).clamp(min=0)[..., None, :]
     return float(cells.sum()) * c
 
@@ -2468,8 +2474,6 @@ class Int8Shapes:
         self.convs, self.dense = set(), set()
 
     def recording(self):
-        import contextlib
-
         from vltk_tpu_torch.ops import int8 as q8
 
         @contextlib.contextmanager
@@ -3928,13 +3932,16 @@ def k10_close(got, want, feat, boxes, g) -> bool:
     return bool((err <= K10_SUM_TOL * magnitude + K10_CAST_RTOL[g.dtype] * want.float().abs()).all())
 
 
-def k10_inputs(gen: torch.Generator, b: int, dtype, dev, dyadic: bool):
+EXP_HW = (84, 84)  # the res4 map of the detection experiment's 1344 x 1344 canvas
+
+
+def k10_inputs(gen: torch.Generator, b: int, dtype, dev, dyadic: bool, hw=FEAT_HW):
     """res4-like features (a relu map: zero plateaus; integer steps so that
     maxima tie) with NaN cells and a -inf block, proposal-like boxes with the
     edge cases of ``roi_boxes``, RoIs whose bins have power-of-two extents,
     and a cotangent of small integers times 2^-4 (every float32 sum exact in
-    any order) or random."""
-    h, w = FEAT_HW
+    any order) or random; on the training canvas's 52 x 84 map or ``hw``."""
+    h, w = hw
     feat = torch.relu(torch.randint(-3, 4, (b, h, w, C_RES4), generator=gen).float())
     feat[0, h // 5, w // 4, : C_RES4 // 16] = float("nan")
     feat[-1, h // 2: h // 2 + 4, w // 2: w // 2 + 4, C_RES4 // 10: C_RES4 // 5] = float("-inf")
@@ -3950,70 +3957,116 @@ def k10_bound(feat, boxes, g):
     """(bound_ms, bound_by): grad_out and the features read once, the
     gradient written once; the max comparisons of every bin's cells."""
     nbytes = g.numel() * g.element_size() + 2 * feat.numel() * feat.element_size() + boxes.numel() * 4
-    return bound(nbytes, roi_pool_ops(boxes, feat.shape[-1]))
+    return bound(nbytes, roi_pool_ops(boxes, feat.shape[-1], tuple(feat.shape[1:3])))
+
+
+@contextlib.contextmanager
+def first_call_of(module, name: str):
+    """While the block runs, ``module.name`` records the arguments of its
+    first call into the list this yields, and then calls through."""
+    fn = getattr(module, name)
+    recorded = []
+
+    def record(*args):
+        if not recorded:
+            recorded.append(args)
+        return fn(*args)
+
+    setattr(module, name, record)
+    try:
+        yield recorded
+    finally:
+        setattr(module, name, fn)
+
+
+def k10_call(feat, boxes, g, what: str):
+    """K10 once: one launch, counted on the path its planner picks for the
+    map. Returns (gradient, plan)."""
+    from vltk_tpu_torch.ops.roi_pool_kernel import plan_backward, roi_pool_backward_auto, roi_pool_backward_cuda
+
+    plan = plan_backward(*feat.shape[1:], feat.dtype)
+    before = roi_pool_backward_auto.launches, dict(roi_pool_backward_auto.path_launches)
+    got = roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16)
+    torch.cuda.synchronize()
+    paths = {k: v - before[1][k] for k, v in roi_pool_backward_auto.path_launches.items()}
+    check(roi_pool_backward_auto.launches == before[0] + 1 and paths == {k: int(k == plan.path) for k in paths},
+          f"K10 {what}: not one launch on the {plan.path} path ({paths})")
+    return got, plan
 
 
 def phase_roi_pool_backward(dev, ptxas) -> dict:
     """K10 against ``roi_pool_plain_vjp`` at the training step's shape
-    (2, 52, 84, 1024) x 300 RoIs: bitwise on dyadic cotangents in bf16 and
-    float32 (ties, NaN and -inf cells, empty and off-map bins, power-of-two
-    bins), within the stated tolerance on random ones; one launch a call;
-    timed (median of five readings queued ahead) at B=2 and at the
-    extraction batch B=8, beside the bound and the plain VJP."""
+    (2, 52, 84, 1024) x 300 RoIs and at the 1344 x 1344 canvas's
+    (2, 84, 84, 1024): bitwise on dyadic cotangents in bf16 and float32
+    (ties, NaN and -inf cells, empty and off-map bins, power-of-two bins),
+    within the stated tolerance on random ones; one launch a call on the
+    planner's path; timed
+    (median of five readings queued ahead) on the tie-heavy map at B=2, at
+    the extraction batch B=8 and at 84 x 84, beside the bound and the plain
+    VJP."""
     from vltk_tpu_torch.ops.roi_pool import roi_pool_plain_vjp
-    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_backward_auto, roi_pool_backward_cuda
+    from vltk_tpu_torch.ops.roi_pool_kernel import roi_pool_backward_cuda
 
     print("roi_pool_bwd ptxas: " + ("; ".join(ptxas) if ptxas else "cached build"))
     gen = torch.Generator().manual_seed(32)
     worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        for dyadic in (True, False):
-            feat, boxes, g = k10_inputs(gen, DET_BATCH, dtype, dev, dyadic)
-            before = roi_pool_backward_auto.launches
-            got = roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16)
-            torch.cuda.synchronize()
-            check(roi_pool_backward_auto.launches == before + 1, "K10: not one launch a call")
-            want = roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16)
-            err = float((got.float() - want.float()).abs().max())
-            if dyadic:
-                ok = bitwise_equal(got, want)
-                worst = max(worst, err)
-            else:
-                ok = k10_close(got, want, feat, boxes, g)
-            nonzero = float((want != 0).float().mean())
-            print(f"roi_pool_backward {tuple(feat.shape)} {dtype} x {N_ROI}, {'dyadic' if dyadic else 'random'} "
-                  f"cotangent: {'bitwise_equal' if dyadic else 'allclose'}={ok} max_abs_err={err} "
-                  f"(cells with a gradient {nonzero:.4f})")
-            check(ok, f"K10 != plain VJP ({dtype}, {'dyadic' if dyadic else 'random'})")
-            del got, want
-            torch.cuda.empty_cache()
+    plans = {}
+    for hw in (FEAT_HW, EXP_HW):
+        for dtype in (torch.bfloat16, torch.float32):
+            for dyadic in (True, False):
+                feat, boxes, g = k10_inputs(gen, DET_BATCH, dtype, dev, dyadic, hw)
+                got, plan = k10_call(feat, boxes, g, f"{hw} {dtype}")
+                plans[f"{hw[0]}x{hw[1]} {str(dtype)[6:]}"] = plan.__dict__
+                want = roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16)
+                err = float((got.float() - want.float()).abs().max())
+                if dyadic:
+                    ok = bitwise_equal(got, want)
+                    worst = max(worst, err)
+                    again, _ = k10_call(feat, boxes, g, f"{hw} {dtype} again")
+                    repeat = bitwise_equal(again, got)
+                    check(repeat, f"K10 {hw} {dtype}: two calls differ on dyadic cotangents")
+                    del again
+                else:
+                    ok = k10_close(got, want, feat, boxes, g)
+                nonzero = float((want != 0).float().mean())
+                print(f"roi_pool_backward {tuple(feat.shape)} {dtype} x {N_ROI}, {'dyadic' if dyadic else 'random'} "
+                      f"cotangent, {plan.path} path ({plan.slabs} slabs x {plan.bands} bands of {plan.band_rows} "
+                      f"rows, {plan.smem_bytes} B shared a block): {'bitwise_equal' if dyadic else 'allclose'}={ok}"
+                      f"{', a second call bitwise equal' if dyadic else ''} max_abs_err={err} "
+                      f"(cells with a gradient {nonzero:.4f})")
+                check(ok, f"K10 != plain VJP ({hw}, {dtype}, {'dyadic' if dyadic else 'random'})")
+                del got, want
+                torch.cuda.empty_cache()
     timed = {}
-    for b in (DET_BATCH, 8):
-        feat, boxes, g = k10_inputs(gen, b, torch.bfloat16, dev, dyadic=False)
+    for key, b, hw in (("tie_heavy", DET_BATCH, FEAT_HW), ("extraction_batch", 8, FEAT_HW),
+                       ("canvas_1344", DET_BATCH, EXP_HW)):
+        feat, boxes, g = k10_inputs(gen, b, torch.bfloat16, dev, dyadic=False, hw=hw)
         runs = spread_ms(lambda: roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16), reps=10)
         plain_ms = cuda_ms(lambda: roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16), reps=1, warmup=1)
         bound_ms, bound_by = k10_bound(feat, boxes, g)
-        timed[b] = (runs, plain_ms, bound_ms, bound_by)
-        print(f"roi_pool_backward timing {tuple(feat.shape)} bf16 x {N_ROI}: kernel {show(runs)}, plain VJP "
-              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), {runs[2] / bound_ms:.1f}x the bound; "
-              f"no single PyTorch call computes this gradient")
+        timed[key] = {"ms": runs[2], "ms_runs": runs, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "shape": list(feat.shape)}
+        print(f"roi_pool_backward timing {tuple(feat.shape)} bf16 x {N_ROI} (tie-heavy integer relu map): kernel "
+              f"{show(runs)}, plain VJP {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{runs[2] / bound_ms:.1f}x the bound; no single PyTorch call computes this gradient")
         del feat, boxes, g
         torch.cuda.empty_cache()
-    runs, plain_ms, bound_ms, bound_by = timed[DET_BATCH]
+    print("roi_pool_backward plans " + json.dumps(plans))
+    tie = timed["tie_heavy"]
     return {
         "name": "roi_pool_backward",
         "route": "cuda",
         "source": "vltk_tpu_torch/csrc/roi_pool_bwd.cu",
         "replaces": "vltk_tpu/ops/pallas_kernels.py:312",
         "max_abs_err": worst,
-        "ms": runs[2],
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": tie["ms"],
+        "plain_ms": tie["plain_ms"],
+        "bound_ms": tie["bound_ms"],
+        "bound_by": tie["bound_by"],
         "library_ms": None,
-        "ms_runs": runs,
-        "extraction_batch": {"ms": timed[8][0][2], "ms_runs": timed[8][0], "plain_ms": timed[8][1],
-                             "bound_ms": timed[8][2]},
+        "ms_runs": tie["ms_runs"],
+        "extraction_batch": {k: timed["extraction_batch"][k] for k in ("ms", "ms_runs", "plain_ms", "bound_ms")},
+        "canvas_1344": timed["canvas_1344"],
     }
 
 
@@ -4061,16 +4114,18 @@ def detection_loss(model, batch, parts=("rpn", "roi"), seed: int = 0):
 def detection_steps(model, opt, batch, steps: int, wrappers, what: str, sched=None) -> dict:
     """``steps`` training steps (zero the gradients, forward, the losses,
     backward, the optimizer's step), the counts set to 0 before each and
-    read after it: K1 1, K10 1 and K2 2 a step, K1 on its vector path, no
-    other kernel; finite losses and gradients. Step ms from the host clock
+    read after it: K1 1, K10 1 and K2 2 a step, K1 and K10 on their vector
+    paths, no other kernel; finite losses and gradients. Step ms from the host clock
     (each step ends in a synchronise), peak memory over the run."""
     paths = wrappers["roi_pool"].path_launches
+    k10_paths = wrappers["roi_pool_backward"].path_launches
     losses, ms, grads0 = [], [], None
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         for w in wrappers.values():
             w.launches = 0
         paths.update(dict.fromkeys(paths, 0))
+        k10_paths.update(dict.fromkeys(k10_paths, 0))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         model.zero_grad(set_to_none=True)
@@ -4087,8 +4142,9 @@ def detection_steps(model, opt, batch, steps: int, wrappers, what: str, sched=No
         ms.append((time.perf_counter() - t0) * 1e3)
         launches = {k: w.launches for k, w in wrappers.items()}
         want = {"roi_pool": 1, "roi_pool_backward": 1, "nms": 2}
-        check(launches == {k: want.get(k, 0) for k in launches} and paths["scalar"] == 0,
-              f"{what} step {i}: launches {launches}, K1 paths {paths}")
+        check(launches == {k: want.get(k, 0) for k in launches} and paths["scalar"] == 0
+              and k10_paths["vector"] == 1, f"{what} step {i}: launches {launches}, K1 paths {paths}, K10 paths "
+              f"{k10_paths}")
         losses.append([float(x.detach()) for x in parts])
         check(all(np.isfinite(losses[-1])) and finite, f"{what} step {i}: losses {losses[-1]}, finite grads {finite}")
     steady = ms[1:] if steps > 1 else ms
@@ -4139,22 +4195,12 @@ def phase_detection_training(dev, wrappers, smi: str) -> dict:
     batch["gt_boxes"][:, 0] = torch.round(proposals[:, 0])
     out = {"init_s": init_s}
 
-    # K10's inputs on the first step, to time it on the step's own proposals
-    recorded = []
-    k10 = RK.roi_pool_backward_cuda
-
-    def record(*args):
-        if not recorded:
-            recorded.append(args)
-        return k10(*args)
-
     model = model_of(cfg)
-    RK.roi_pool_backward_cuda = record
-    try:
+    # K10's inputs on the first step, to time it on the step's own proposals
+    with first_call_of(RK, "roi_pool_backward_cuda") as recorded:
         plain = detection_steps(model, torch.optim.SGD(model.parameters(), lr=DET_LR), batch, DET_STEPS, wrappers,
                                 "detection training")
-    finally:
-        RK.roi_pool_backward_cuda = k10
+    k10 = RK.roi_pool_backward_cuda
     out["plain"] = {k: v for k, v in plain.items() if k != "grads0"}
     print(f"detection training R-101-C4 bf16 B={DET_BATCH} canvas {CANVAS[0]}x{CANVAS[1]}, SGD {DET_LR}: "
           f"{DET_STEPS} steps, step {plain['step_ms']:.1f} ms ({plain['steps_per_s']:.2f} steps/s) on {smi}; "
@@ -4250,9 +4296,9 @@ def phase_detection_experiments(dev, wrappers, smi: str) -> dict:
     (800, 1333): the 1344 x 1344 canvas) -> ``FRCNNDetectExperiment`` at
     R-101-C4 bf16 (tamed seeded weights, the class head sized from the label
     table), B=2: one epoch of 8 steps and the eval loop with ``map50``;
-    launches counted over the run (train K1 1, K10 1, K2 2 a step; eval K1
-    and K2 in both of its passes); the step with the loader and without
-    it. Then a ``ComplexExperiment`` over the same model (one detection
+    launches counted over the run (train K1 1, K10 1, K2 2 a step, K10 on
+    its two-band path; eval K1 and K2 in both of its passes); K10 timed on
+    the first step's own inputs; the step with the loader and without it. Then a ``ComplexExperiment`` over the same model (one detection
     train loop, one eval loop, both run, finite losses), and one LXMERT-base
     VQA step at B=32 with ``remat`` against the same step without it."""
     import tempfile
@@ -4264,6 +4310,7 @@ def phase_detection_experiments(dev, wrappers, smi: str) -> dict:
     from vltk_tpu_torch.experiments import FRCNNDetectExperiment, LxmertVQAExperiment
     from vltk_tpu_torch.models.frcnn import FRCNNConfig
     from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.ops import roi_pool_kernel as RK
     from vltk_tpu_torch.tools.synthetic_corpus import write_corpus
     from vltk_tpu_torch.train import ComplexExperiment, Loop
 
@@ -4302,13 +4349,30 @@ def phase_detection_experiments(dev, wrappers, smi: str) -> dict:
               f"class head {classes}")
         for w in wrappers.values():
             w.launches = 0
-        t0 = time.perf_counter()
-        result = exp()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+        k10_paths = wrappers["roi_pool_backward"].path_launches
+        k10_paths.update(dict.fromkeys(k10_paths, 0))
+        # K10's inputs on the first step, to time it on the canvas's own proposals
+        with first_call_of(RK, "roi_pool_backward_cuda") as recorded:
+            t0 = time.perf_counter()
+            result = exp()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        k10 = RK.roi_pool_backward_cuda
         launches = {k: w.launches for k, w in wrappers.items()}
         want = {"roi_pool": 3 * n_steps, "roi_pool_backward": n_steps, "nms": 6 * n_steps}
         check(launches == {k: want.get(k, 0) for k in launches}, f"detection experiment launches {launches}")
+        # the 84 x 84 map: bf16 sums in two row bands
+        check(k10_paths["vector_banded"] == n_steps, f"detection experiment K10 paths {k10_paths}")
+        paths = dict(k10_paths)  # the epoch's, before the timing calls below add theirs
+        feat, boxes, g, s, scale = recorded[0]
+        runs = spread_ms(lambda: k10(feat, boxes, g, s, scale), reps=10)
+        bound_ms, bound_by = k10_bound(feat, boxes, g)
+        out["k10_on_step"] = {"ms": runs[2], "ms_runs": runs, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "shape": list(feat.shape), "rois": boxes.shape[1], "paths": paths}
+        print(f"roi_pool_backward on the experiment step's own inputs {tuple(feat.shape)} {feat.dtype} x "
+              f"{boxes.shape[1]} (vector_banded path): {show(runs)}, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{runs[2] / bound_ms:.1f}x the bound")
+        del recorded, feat, boxes, g
         train_m, eval_m = result["train"], result["eval"]
         check(all(np.isfinite(v) for v in train_m.values()) and 0.0 <= eval_m["map50"] <= 1.0,
               f"detection experiment: train {train_m}, eval {eval_m}")
@@ -4526,6 +4590,8 @@ def main() -> int:
     stamp("detection training (phase 33)")
     detect_exp = phase_detection_experiments(dev, KERNEL_WRAPPERS, smi)
     print("detection_experiments_run " + json.dumps(detect_exp))
+    # and on the 1344 x 1344 experiment's own inputs (phase 34)
+    k10["canvas_1344"]["experiment_inputs"] = detect_exp["k10_on_step"]
     stamp("the detection experiments from raw COCO JSON (phase 34)")
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 

@@ -23,8 +23,11 @@ q/k/v projections; K1 and K10 under autograd, both of K1's paths
 (16-byte vectors and one element a thread), bins wider than its unrolled
 group, an unaligned base, NaN and infinite cells; K10 bitwise against the
 plain VJP on dyadic cotangents (ties, NaN, empty and clipped bins, C not a
-multiple of the warp), with a stated tolerance on random ones, and its
-refusal of bins past its mask;
+multiple of the warp or of a 16-byte vector, the 84 x 84 map, every path
+its planner takes: row bands and features read through L2, also forced by
+a small shared-memory budget), twice, with a stated tolerance on random
+ones, its shared memory against the planner's, and its refusal of bins
+past its mask;
 for the RoIPool ablation kernels K6-K9 every mode in both types on maps
 whose width is and is not a multiple of 8, channel counts that are not a
 multiple of the kernel's chunk, and groups of RoIs; K6 and K7 on both of
@@ -69,6 +72,8 @@ from vltk_tpu_torch.ops.roi_pool_ablation_kernel import (
     pool_grouped_v3_cuda,
 )
 from vltk_tpu_torch.ops.roi_pool_kernel import (
+    SMEM_BUDGET,
+    plan_backward,
     roi_pool_auto,
     roi_pool_backward_auto,
     roi_pool_backward_cuda,
@@ -844,10 +849,26 @@ def test_roi_pool_refuses_to_cut_the_gradient(dev):
 
 # (b, h, w, c, p, s): maps with and without a multiple of the warp in C,
 # the parity map (bins of up to 5 x 8 at 14 x 14), the 1344 x 1344
-# canvas's 84 x 84 map (up to 8 x 8: the mask's 16 slots a side), a map
-# smaller than the pooled grid
+# canvas's 84 x 84 map (up to 8 x 8: the masks' 16 slots a side; in bf16
+# its sums take two row bands), a map smaller than the pooled grid, a C that
+# is no whole number of 16-byte vectors in bf16 (the scalar path), and a
+# 130 x 130 map whose staged slab does not fit (features read through L2)
 K10_SHAPES = [(2, 20, 24, 8, 12, 7), (2, 13, 21, 3, 6, 5), (1, 52, 84, 64, 40, 14), (1, 84, 84, 40, 24, 14),
-              (1, 4, 4, 5, 3, 7)]
+              (1, 4, 4, 5, 3, 7), (1, 52, 84, 12, 20, 14), (1, 130, 130, 16, 8, 14)]
+# the path each shape takes, per dtype (``plan_backward``)
+K10_PATHS = {
+    (1, 84, 84, 40, 24, 14): {torch.float32: "vector", torch.bfloat16: "vector_banded"},
+    (1, 52, 84, 12, 20, 14): {torch.float32: "vector", torch.bfloat16: "scalar"},
+    (1, 130, 130, 16, 8, 14): {torch.float32: "vector_l2", torch.bfloat16: "vector_l2"},
+    (2, 13, 21, 3, 6, 5): {torch.float32: "scalar", torch.bfloat16: "scalar"},
+}
+# (shape, shared-memory budget the planner is given, path per dtype):
+# budgets cut small so that bins straddle bands
+K10_FORCED = [
+    ((1, 20, 24, 16, 12, 7), 16000, {torch.float32: "vector", torch.bfloat16: "vector_banded"}),
+    ((1, 20, 24, 16, 12, 7), 5000, {torch.float32: "vector_l2", torch.bfloat16: "vector_l2"}),
+    ((2, 13, 21, 3, 6, 5), 1200, {torch.float32: "scalar_l2", torch.bfloat16: "scalar_banded"}),
+]
 
 
 def _k10_case(dev, dtype, b, h, w, c, p, s, dyadic=True):
@@ -868,41 +889,77 @@ def _k10_case(dev, dtype, b, h, w, c, p, s, dyadic=True):
     return feat.to(dev, dtype), boxes.to(dev), g.to(dev, dtype)
 
 
+def _k10_checked(feat, boxes, g, s, budget=SMEM_BUDGET):
+    """K10 once: one launch, counted on the path the planner picks."""
+    b, h, w, c = feat.shape
+    path = plan_backward(h, w, c, feat.dtype, budget=budget).path
+    before = roi_pool_backward_auto.launches, dict(roi_pool_backward_auto.path_launches)
+    got = roi_pool_backward_cuda(feat, boxes, g, s, 1 / 16, _budget=budget)
+    torch.cuda.synchronize()
+    after = roi_pool_backward_auto.path_launches
+    assert roi_pool_backward_auto.launches == before[0] + 1
+    assert {k: after[k] - before[1][k] for k in after} == {k: int(k == path) for k in after}
+    assert got.dtype == feat.dtype and got.shape == feat.shape
+    return got, path
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", K10_SHAPES, ids=lambda sh: "x".join(map(str, sh)))
 def test_roi_pool_backward_exact_on_dyadic_cotangents(dev, dtype, shape):
     """K10 bitwise equal to ``roi_pool_plain_vjp`` where every sum is exact
     in float32 in any order: ties, NaN bins, +-inf, empty and clipped
-    bins, the features' dtype out, one launch."""
+    bins, the features' dtype out, one launch on the planner's path (the
+    stated one where ``K10_PATHS`` names it); a second call bitwise equal
+    to the first."""
     *geom, s = shape
     feat, boxes, g = _k10_case(dev, dtype, *geom, s)
-    before = roi_pool_backward_auto.launches
-    got = roi_pool_backward_cuda(feat, boxes, g, s, 1 / 16)
-    torch.cuda.synchronize()
-    assert roi_pool_backward_auto.launches == before + 1
+    got, path = _k10_checked(feat, boxes, g, s)
+    if shape in K10_PATHS:
+        assert path == K10_PATHS[shape][dtype]
     want = roi_pool_plain_vjp(feat, boxes, g, s, 1 / 16)
-    assert got.dtype == dtype and got.shape == feat.shape
     assert torch.equal(_bits(got), _bits(want))
     assert got.abs().sum() > 0
+    again, _ = _k10_checked(feat, boxes, g, s)
+    assert torch.equal(_bits(again), _bits(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", K10_FORCED, ids=lambda c: f"{'x'.join(map(str, c[0]))}-{c[1]}")
+def test_roi_pool_backward_bands_and_l2(dev, dtype, case):
+    """A shared-memory budget cut small: the sums in row bands (bins that
+    straddle them walked by each band's tiles) and the features read
+    through L2; bitwise equal to the plain VJP on dyadic cotangents, twice,
+    on the stated path."""
+    (*geom, s), budget, paths = case
+    feat, boxes, g = _k10_case(dev, dtype, *geom, s)
+    got, path = _k10_checked(feat, boxes, g, s, budget)
+    assert path == paths[dtype]
+    want = roi_pool_plain_vjp(feat, boxes, g, s, 1 / 16)
+    assert torch.equal(_bits(got), _bits(want))
+    again, _ = _k10_checked(feat, boxes, g, s, budget)
+    assert torch.equal(_bits(again), _bits(got))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_roi_pool_backward_random_cotangents(dev, dtype):
-    """Random cotangents: the same shares, float32 sums by atomics in an
-    order that varies from run to run: within 1e-5 of the sum of the
-    terms' magnitudes (the plain VJP of |g|), plus, in bf16, one rounding
-    of the cast (2^-7 of the value)."""
+    """Random cotangents: the same shares, float32 sums by shared-memory
+    atomics in an order that varies from run to run: within 1e-5 of the sum
+    of the terms' magnitudes (the plain VJP of |g|), plus, in bf16, one
+    rounding of the cast (2^-7 of the value); two calls within the same
+    bound of each other."""
     feat, boxes, g = _k10_case(dev, dtype, 1, 52, 84, 64, 40, 14, dyadic=False)
     got = roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16).float()
+    again = roi_pool_backward_cuda(feat, boxes, g, 14, 1 / 16).float()
     want = roi_pool_plain_vjp(feat, boxes, g, 14, 1 / 16).float()
     magnitude = roi_pool_plain_vjp(feat, boxes, g.abs(), 14, 1 / 16).float()
     cast = 0.0 if dtype == torch.float32 else 2.0 ** -7
-    assert bool(((got - want).abs() <= 1e-5 * magnitude + cast * want.abs()).all())
+    for x in (got, again):
+        assert bool(((x - want).abs() <= 1e-5 * magnitude + cast * want.abs()).all())
 
 
 def test_roi_pool_backward_refuses_bins_past_its_mask(dev):
     """A map whose largest bin exceeds 15 cells a side raises before any
-    launch; C = 0 and P = 0 give zeros."""
+    launch; C = 0 gives an empty result with no launch, P = 0 zeros."""
     feat = torch.zeros(1, 240, 16, 8, device=dev)
     boxes = torch.zeros(1, 2, 4, device=dev)
     before = roi_pool_backward_auto.launches
@@ -910,6 +967,8 @@ def test_roi_pool_backward_refuses_bins_past_its_mask(dev):
         roi_pool_backward_cuda(feat, boxes, torch.zeros(1, 2, 14, 14, 8, device=dev))
     assert roi_pool_backward_auto.launches == before
     empty = torch.ones(1, 20, 24, 8, device=dev, dtype=torch.bfloat16)
+    none = roi_pool_backward_cuda(empty[..., :0], boxes, torch.zeros(1, 2, 14, 14, 0, device=dev))
+    assert none.shape == (1, 20, 24, 0) and roi_pool_backward_auto.launches == before
     got = roi_pool_backward_cuda(empty, boxes[:, :0], torch.zeros(1, 0, 14, 14, 8, device=dev, dtype=torch.bfloat16))
     assert got.dtype == torch.bfloat16 and not got.any()
 

@@ -15,12 +15,17 @@ and ``roi_pool_auto.path_launches`` splits them by the kernel's path:
 ``"vector"`` (16-byte loads and stores, 8 bf16 or 4 float32 channels a
 thread) where C is a multiple of that width and the features start on a
 16-byte boundary, ``"scalar"`` (one element a thread) otherwise.
-``roi_pool_backward_auto.launches`` counts K10's.
+``roi_pool_backward_auto.launches`` counts K10's, and its ``path_launches``
+split them by the path ``plan_backward`` chose: ``"vector"`` (16-byte slabs
+of channels) or ``"scalar"`` (one channel a slab), each plain (the map and
+its sums in one tile's shared memory), ``_banded`` (the sums in row bands)
+or ``_l2`` (the features read through L2).
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -164,17 +169,76 @@ roi_pool_auto.path_launches = {"vector": 0, "scalar": 0}
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("roi_pool_bwd")
     fn = lib.roi_pool_backward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-#: K10 keeps a bin's equality mask in 16 rows of 16 bits: each side's two
-#: lookups span at most 2 * 2^k cells, so maps whose largest bin
-#: (``table_levels``) is at most 15 cells a side (up to 210 cells at 14 x
-#: 14 bins; the parity map is 52 x 84, bins of at most 5 x 8)
+#: K10 keeps a bin's row masks in 16 bits: each side's two lookups span at
+#: most 2 * 2^k cells, so maps whose largest bin (``table_levels``) is at
+#: most 15 cells a side (up to 195 x 195 cells at 14 x 14 bins; the parity
+#: map is 52 x 84, bins of at most 5 x 8)
 MAX_TABLE_BIN = 15
+#: the shared memory a block may take on an H100 (227 KB)
+SMEM_BUDGET = 232_448
+#: K10's paths: 16-byte slabs of channels or one channel a slab, times
+#: where the features are read from (shared memory, the whole map and the
+#: sums in one tile; shared memory with the sums in row bands; L2)
+BACKWARD_PATHS = tuple(f"{a}{p}" for a in ("vector", "scalar") for p in ("", "_banded", "_l2"))
+
+
+@dataclass(frozen=True)
+class BackwardPlan:
+    """K10's tiles for one map: every tile is one image, ``v`` channels
+    (a slab) and ``band_rows`` map rows (a band; the last may be shorter);
+    ``staged``: the block holds the image's slab of the features in shared
+    memory (else it reads them through L2); ``smem_bytes``: what a block
+    takes (the staged slab, 16-byte aligned, and the band's float32 sums)."""
+
+    path: str
+    v: int
+    slabs: int
+    staged: bool
+    band_rows: int
+    bands: int
+    smem_bytes: int
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def plan_backward(
+    h: int, w: int, c: int, dtype: torch.dtype, aligned: bool = True, budget: int = SMEM_BUDGET
+) -> BackwardPlan:
+    """K10's tiles for a (B, h, w, c) map of ``dtype``, pure host
+    arithmetic. A slab holds 16 bytes of channels where c is a multiple of
+    that and the features and the cotangent start on 16-byte boundaries
+    (``aligned``), else one channel. The block keeps the image's slab of
+    the features and the float32 sums of the whole map in shared memory
+    where both fit the ``budget``; else, where the slab takes at most half
+    of it, the sums in row bands that fit beside it (``_banded``); else
+    the sums in bands of what the budget holds, the features read through
+    L2 (``_l2``). Bands are balanced to equal rows."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    per_vector = VECTOR_BYTES // elt
+    vector = aligned and c % per_vector == 0
+    v = per_vector if vector else 1
+    feat = _align16(h * w * v * elt)
+    row = w * v * 4
+    if feat + h * row <= budget:
+        staged, rows, kind = True, h, ""
+    elif 2 * feat <= budget and budget - feat >= row:
+        staged, rows, kind = True, (budget - feat) // row, "_banded"
+    else:
+        staged, rows, kind = False, budget // row, "_l2"
+    if rows < 1 or h < 1:
+        raise ValueError(f"roi_pool backward kernel: no tile of a {h} x {w} map fits {budget} bytes")
+    bands = -(-h // rows)
+    rows = -(-h // bands)
+    smem = (feat if staged else 0) + rows * row
+    return BackwardPlan(("vector" if vector else "scalar") + kind, v, c // v, staged, rows, bands, smem)
 
 
 def roi_pool_backward_cuda(
@@ -183,11 +247,16 @@ def roi_pool_backward_cuda(
     grad_out: torch.Tensor,
     output_size: int = 14,
     spatial_scale: float = 1.0 / 16,
+    _budget: int = SMEM_BUDGET,
 ) -> torch.Tensor:
     """Launch K10: the cotangent of the features (B, H, W, C) from that of
     the pooled (B, P, S, S, C), JAX's rule (``roi_pool_plain_vjp``),
-    summed in float32 with atomics and cast once; features float32 or
-    bfloat16, boxes float32, on one CUDA device. Counts one launch."""
+    summed in float32 in shared memory and written once in the features'
+    dtype; features float32 or bfloat16, boxes float32, on one CUDA
+    device. One launch a call (none for an empty output), counted in
+    ``roi_pool_backward_auto.launches`` and, by the planner's path, in
+    ``.path_launches``. ``_budget`` (tests only) shrinks the shared memory
+    the planner may give a block, to force bands or the L2 path."""
     _check(features, boxes)
     b, h, w, c = features.shape
     p = boxes.shape[1]
@@ -197,21 +266,25 @@ def roi_pool_backward_cuda(
     if max(max_bin_h, max_bin_w) > MAX_TABLE_BIN:
         raise ValueError(
             f"roi_pool backward kernel: bins of up to {max_bin_h} x {max_bin_w} cells on a {h} x {w} map "
-            f"exceed its {MAX_TABLE_BIN}-cell mask"
+            f"exceed its {MAX_TABLE_BIN}-cell masks"
         )
     features = features.contiguous()
     grad_out = grad_out.to(features.dtype).contiguous()
-    acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=features.device)
-    out = acc if features.dtype == torch.float32 else torch.empty_like(features)
+    out = torch.empty_like(features)
+    if out.numel() == 0:
+        return out
+    aligned = features.data_ptr() % VECTOR_BYTES == 0 and grad_out.data_ptr() % VECTOR_BYTES == 0
+    plan = plan_backward(h, w, c, features.dtype, aligned, _budget)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream(features.device).cuda_stream
         err = _bwd_lib().roi_pool_backward(
-            features.data_ptr(), boxes.contiguous().data_ptr(), grad_out.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), b, h, w, c, p, output_size, float(spatial_scale), max_bin_h, max_bin_w,
-            _DTYPE_CODE[features.dtype], stream,
+            features.data_ptr(), boxes.contiguous().data_ptr(), grad_out.data_ptr(), out.data_ptr(),
+            b, h, w, c, p, output_size, float(spatial_scale), max_bin_h, max_bin_w,
+            _DTYPE_CODE[features.dtype], int(plan.v > 1), int(plan.staged), plan.band_rows, stream,
         )
-    _build.check(err, "roi_pool_backward launch")
+    _build.check(err, f"roi_pool_backward launch ({plan.path} path)")
     roi_pool_backward_auto.launches += 1
+    roi_pool_backward_auto.path_launches[plan.path] += 1
     return out
 
 
@@ -230,3 +303,4 @@ def roi_pool_backward_auto(
 
 
 roi_pool_backward_auto.launches = 0
+roi_pool_backward_auto.path_launches = dict.fromkeys(BACKWARD_PATHS, 0)
