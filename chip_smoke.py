@@ -273,12 +273,36 @@ package):
    (a detection train loop and an eval loop, both run); one LXMERT-base VQA
    step at B=32 with ``remat`` against the same step without it (equal
    loss, the peak of each);
-35. prints the ``kernels`` JSON line (each kernel also with its launches on
+35. how users start the system: seeded tamed parity FRCNN weights as a
+   torch ``.pt`` and a detectron ``.pkl`` (gamma/beta names) and an
+   LXMERT-base ``pytorch_model.bin`` load through ``from_pretrained`` (the
+   two FRCNN files bitwise equal); ``vltk_tpu_torch.cli.main`` runs
+   ``extract frcnn coco2014`` over 16 seeded JPEGs (parity_300, B=8: K1 1,
+   K2 2 a batch; the Arrow table equal to ``FRCNN.extract``'s), ``predict``
+   with ``--frcnn/--lxmert/--answers`` (the predictor's answer), ``config``,
+   ``adapters`` and ``experiments``;
+36. serving bundles at full width: the VQA predictor (parity_300 +
+   LXMERT-base bf16, B=8) and its int8 twin exported after one request
+   and loaded with ``from_bundle``, the three VQA requests bitwise equal
+   to the eager predictor's with K1 1 and K2 2 a bucket inside the loaded
+   program; ``serve --bundle`` over 11 JSONL requests in order; the same
+   for ``DocTokenClassifier`` (B=32, seq 1024, K3 12 a bucket) and
+   ``DocSpanQA`` (64 + 960); export and load seconds, bundle sizes, step
+   ms eager against bundle;
+37. ``tools.probe_trained_drift`` at full geometry for 40 steps (K1 1, K10
+   1, K2 2 a step), the drift harness's ten presets at B=8 at the tamed
+   and the trained weights, and at both ``parity_300`` with cuDNN TF32 on
+   and off: the RPN's keeps and the final box slots that move;
+38. ``tools.probe_int8_fidelity`` at base width for 40 steps each (LXMERT
+   no kernel; LayoutLM seq 1024 K3, K5, K4 12 each a step): bf16 and int8
+   accuracy, agreement, flips, logit drift;
+39. prints the ``kernels`` JSON line (each kernel also with its launches on
    the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT,
    the server, the data plane's extraction and training, the raw FUNSD and
-   DocVQA trainers, GQA's extraction and training, detection training and
-   the detection experiment; K3 also with its times and bounds at ViT's
-   and VisualBERT's shapes), then the device line last.
+   DocVQA trainers, GQA's extraction and training, detection training, the
+   detection experiment, the CLI's extraction, the loaded bundles, the
+   trained-drift training and the int8 probe; K3 also with its times and
+   bounds at ViT's and VisualBERT's shapes), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
 It also fails without a CUDA device and outside a checkout of the repo.
@@ -4437,6 +4461,444 @@ def phase_detection_experiments(dev, wrappers, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 35
+
+CLI_IMAGES = 16  # two extraction batches of 8
+
+
+def detectron_pickle(sd, path: str) -> None:
+    """A state dict as a detectron ``.pkl``: ``{"model": {name: ndarray}}``,
+    the norms' weight and bias named gamma and beta."""
+    import pickle
+
+    def name(k: str) -> str:
+        if ".norm." in k and k.endswith((".weight", ".bias")):
+            return k[: k.rindex(".")] + (".gamma" if k.endswith(".weight") else ".beta")
+        return k
+
+    with open(path, "wb") as f:
+        pickle.dump({"model": {name(k): v.detach().cpu().numpy() for k, v in sd.items()}}, f)
+
+
+def arrow_rows(path: str):
+    """An extraction table without its schema metadata (which names the
+    dataset's directory)."""
+    import pyarrow as pa
+
+    return pa.ipc.open_stream(pa.memory_map(path)).read_all().replace_schema_metadata(None)
+
+
+def run_cli(args, stdin=None):
+    """``vltk_tpu_torch.cli.main(args)`` -> (exit code, what it printed)."""
+    import contextlib
+    import io
+
+    from vltk_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    return rc, buf.getvalue()
+
+
+def phase_pretrained_cli(dev, wrappers, smi: str) -> dict:
+    """Phase 35: checkpoints through ``from_pretrained`` and the ``vltk-torch``
+    CLI at full width. Seeded tamed parity FRCNN weights as a torch ``.pt``
+    and as a detectron ``.pkl`` (gamma/beta names) load bitwise equal; an
+    LXMERT-base ``LxmertForVQA`` (3129 answers) loads from a checkpoint
+    directory's ``pytorch_model.bin``. ``extract frcnn coco2014`` over a
+    seeded corpus of 16 JPEGs from the ``.pkl`` (parity_300, B=8: K1 1 and
+    K2 2 a batch, no other kernel) writes the same Arrow table as
+    ``FRCNN.extract`` from the ``.pt``;
+    ``predict`` with ``--frcnn/--lxmert/--answers`` answers as the
+    predictor built from the same files does (K1 1, K2 2); ``config``,
+    ``adapters`` and ``experiments`` print the resolved config and the
+    registries."""
+    import tempfile
+
+    from PIL import Image
+
+    from vltk_tpu_torch.adapters import Adapters
+    from vltk_tpu_torch.adapters.frcnn import tame_random_weights
+    from vltk_tpu_torch.experiments import Experiments
+    from vltk_tpu_torch.models.frcnn import FRCNN, FRCNNConfig, init_weights
+    from vltk_tpu_torch.models.lxmert import LxmertConfig, LxmertForVQA
+    from vltk_tpu_torch.models.lxmert import init_weights as init_lxmert
+    from vltk_tpu_torch.models.pretrained import from_pretrained
+    from vltk_tpu_torch.predict import VQAPredictor
+    from vltk_tpu_torch.tools.synthetic_corpus import write_corpus
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_cli_") as root:
+        sd = tame_random_weights(init_weights(FRCNN(FRCNNConfig.vg_extraction()), seed=0)).state_dict()
+        pt, pkl = os.path.join(root, "frcnn.pt"), os.path.join(root, "frcnn.pkl")
+        torch.save(sd, pt)
+        detectron_pickle(sd, pkl)
+        lxmert_dir = os.path.join(root, "lxmert")
+        os.makedirs(lxmert_dir)
+        lx_sd = init_lxmert(LxmertForVQA(LxmertConfig(dtype="bfloat16")), seed=1).state_dict()
+        torch.save(lx_sd, os.path.join(lxmert_dir, "pytorch_model.bin"))
+        answers = os.path.join(root, "answers.json")
+        with open(answers, "w") as f:
+            json.dump({f"answer {i}": i for i in range(3129)}, f)
+
+        t0 = time.perf_counter()
+        from_pt = from_pretrained("frcnn", pt, device=dev).state_dict()
+        from_pkl = from_pretrained("frcnn", pkl, device=dev).state_dict()
+        lxmert = from_pretrained("lxmert", lxmert_dir, config=LxmertConfig(dtype="bfloat16"), device=dev)
+        out["from_pretrained_s"] = time.perf_counter() - t0
+        check(set(from_pt) == set(sd) == set(from_pkl)
+              and all(bitwise_equal(from_pt[k], from_pkl[k]) and bitwise_equal(from_pt[k].cpu(), sd[k].float())
+                      for k in sd),
+              "the .pt and the detectron .pkl FRCNN do not load bitwise equal")
+        got = lxmert.state_dict()
+        check(type(lxmert).__name__ == "LxmertForVQA" and set(got) == set(lx_sd)
+              and all(bitwise_equal(got[k].cpu(), lx_sd[k]) for k in lx_sd), "LXMERT-base from its directory")
+        del from_pt, from_pkl, lxmert, got
+        print(f"from_pretrained: FRCNN .pt and detectron .pkl bitwise equal, LXMERT-base from a checkpoint "
+              f"directory; {out['from_pretrained_s']:.1f} s for the three")
+
+        cli_dir, direct_dir = os.path.join(root, "cli"), os.path.join(root, "direct")
+        for d in (cli_dir, direct_dir):
+            write_corpus(d, CLI_IMAGES, CLI_IMAGES, hw=RAW_HW, seed=0)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        rc, _ = run_cli(["extract", "frcnn", "coco2014", f"--data.datadir={cli_dir}", f"--checkpoint={pkl}",
+                         "--preset=parity_300", f"--device={dev}"])
+        torch.cuda.synchronize()
+        out["cli_extract_s"] = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        batches = CLI_IMAGES // 8
+        check(rc == 0 and launches["roi_pool"] == batches and launches["nms"] == 2 * batches
+              and not any(v for k, v in launches.items() if k not in ("roi_pool", "nms")),
+              f"vltk-torch extract: rc {rc}, launches {launches} over {batches} batches")
+        out["extract_launches"] = launches
+        Adapters.get("frcnn").extract(direct_dir, dataset_name="coco2014", checkpoint=pt, preset="parity_300",
+                                      device=dev)
+        tables = [arrow_rows(os.path.join(d, "coco2014", "frcnn", "train.arrow")) for d in (cli_dir, direct_dir)]
+        check(tables[0].num_rows == CLI_IMAGES and tables[0].equals(tables[1]),
+              "the CLI's extraction table from the .pkl differs from FRCNN.extract's from the .pt")
+        print(f"vltk-torch extract frcnn coco2014 --checkpoint=.pkl (parity_300, B=8, {CLI_IMAGES} images on the "
+              f"adapter's 1344x1344 canvas): {out['cli_extract_s']:.1f} s, launches {launches}; table equal to "
+              f"FRCNN.extract's from the .pt")
+
+        rng = np.random.default_rng(3)
+        image = os.path.join(root, "image.jpg")
+        Image.fromarray(rng.integers(0, 256, (*RAW_HW, 3), dtype=np.uint8)).save(image)
+        question = "what is on the table"
+        for w in wrappers.values():
+            w.launches = 0
+        rc, printed = run_cli(["predict", image, *question.split(), f"--frcnn={pkl}", f"--lxmert={lxmert_dir}",
+                               f"--answers={answers}", f"--device={dev}"])
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(rc == 0 and launches["roi_pool"] == 1 and launches["nms"] == 2,
+              f"vltk-torch predict: rc {rc}, launches {launches}")
+        res = json.loads(printed.strip().splitlines()[-1])
+        eager = VQAPredictor.from_pretrained(pt, lxmert_dir, answers, batch_size=1, device=dev)([image], [question])[0]
+        check(res["answer"] == eager["answer"] and abs(res["score"] - round(eager["score"], 4)) < 1e-9
+              and res["num_boxes"] == eager["num_boxes"],
+              f"vltk-torch predict {res} vs the predictor {eager['answer']}")
+        out["predict"] = res
+        print(f"vltk-torch predict (--frcnn .pkl, --lxmert dir, --answers json): {res}")
+
+        rc, printed = run_cli(["config", "--train.epochs=2", f"--logdir={root}"])
+        check(rc == 0 and json.loads(printed)["train"]["epochs"] == 2, "vltk-torch config")
+        rc, printed = run_cli(["adapters"])
+        check(rc == 0 and printed.split() == Adapters.avail(), "vltk-torch adapters")
+        rc, printed = run_cli(["experiments"])
+        check(rc == 0 and printed.split() == Experiments.avail(), "vltk-torch experiments")
+        out["launches"] = out["extract_launches"]
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ phase 36
+
+BUNDLE_SERVE_REQUESTS = 11  # a full bucket of 8 and a partial one at B=8
+
+
+def time_step(fn, steps: int = 5) -> float:
+    """ms a call of ``fn`` over ``steps`` calls after one warm-up, one
+    synchronise at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def export_and_load(pred, path: str, dev):
+    """``pred.export_bundle(path)`` then ``type(pred).from_bundle``: (the
+    loaded predictor, export s, load s, bundle MB)."""
+    t0 = time.perf_counter()
+    pred.export_bundle(path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = type(pred).from_bundle(path, device=dev)
+    load_s = time.perf_counter() - t0
+    return loaded, export_s, load_s, os.path.getsize(path) / 1e6
+
+
+def bundle_launches(wrappers, fn):
+    for w in wrappers.values():
+        w.launches = 0
+    paths = wrappers["roi_pool"].path_launches
+    paths.update(dict.fromkeys(paths, 0))
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k: w.launches for k, w in wrappers.items()}, dict(paths)
+
+
+def same_vqa(got, want) -> bool:
+    return all(g["answer"] == w["answer"] and g["topk"] == w["topk"] and np.array_equal(g["boxes"], w["boxes"])
+               and np.array_equal(g["objects"], w["objects"]) and g["num_boxes"] == w["num_boxes"]
+               for g, w in zip(got, want)) and len(got) == len(want)
+
+
+def serve_lines(wrappers, bundle: str, lines, dev):
+    """``vltk-torch serve --bundle=...`` over JSONL ``lines``: (results,
+    launches, seconds)."""
+    import contextlib
+    import io
+
+    from vltk_tpu_torch import cli
+
+    buf = io.StringIO()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.cmd_serve([], {"bundle": bundle, "device": str(dev), "max_delay_ms": "20"},
+                           stdin=io.StringIO("\n".join(json.dumps(x) for x in lines) + "\n"), stdout=buf)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"vltk-torch serve --bundle={bundle}: rc {rc}")
+    results = [json.loads(x) for x in buf.getvalue().strip().splitlines()]
+    check(len(results) == len(lines) and not any("error" in r for r in results if isinstance(r, dict)),
+          f"serve: {len(results)} results for {len(lines)} requests")
+    return results, {k: w.launches for k, w in wrappers.items()}, seconds
+
+
+def phase_bundles(dev, wrappers, smi: str) -> dict:
+    """Phase 36: serving bundles at full width. The VQA predictor
+    (parity_300 + LXMERT-base bf16, B=8, 20-token questions) and its int8
+    twin (int8_300 + LXMERT-base int8) each serve one request, are exported
+    (the twin's calibrated scales baked in) and loaded with ``from_bundle``;
+    the three VQA requests through each bundle equal the eager predictor's
+    bitwise, the loaded program launching K1 once and K2 twice a bucket;
+    ``vltk-torch serve --bundle`` answers 11 JSONL requests in input order.
+    The same for ``DocTokenClassifier`` (LayoutLM-base, B=32, seq 1024: K3
+    12 a bucket) and ``DocSpanQA`` (64 + 960). Export and load seconds,
+    bundle sizes and the step ms eager against bundle are printed."""
+    import tempfile
+
+    from PIL import Image
+
+    from vltk_tpu_torch import vars as V
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig
+    from vltk_tpu_torch.predict import DocSpanQA, DocTokenClassifier
+    from vltk_tpu_torch.trace import bench_documents, build_vqa, vqa_inputs
+
+    out: dict = {"launches": {}}
+    requests = vqa_requests(np.random.default_rng(0))
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_bundles_") as root:
+        for name, int8 in (("vqa", False), ("vqa_int8", True)):
+            pred = build_vqa(8, dev, int8=int8)
+            first = pred(*requests[0])  # an int8 twin calibrates here
+            if int8:
+                check(pred.frcnn_scales is not None and pred.lxmert_scales is not None, "int8 twin not calibrated")
+            loaded, export_s, load_s, mb = export_and_load(pred, os.path.join(root, f"{name}.zip"), dev)
+            want = [first] + [pred(*r) for r in requests[1:]]
+            got, launches, paths = bundle_launches(wrappers, lambda: [loaded(*r) for r in requests])
+            buckets = len(requests)
+            check(launches["roi_pool"] == buckets and launches["nms"] == 2 * buckets and paths["scalar"] == 0
+                  and not any(v for k, v in launches.items() if k not in ("roi_pool", "nms")),
+                  f"{name} bundle: launches {launches} ({paths}) over {buckets} buckets")
+            check(all(same_vqa(g, w) for g, w in zip(got, want)), f"{name} bundle's answers differ from the eager "
+                  f"predictor's: {[differing(g, w) for g, w in zip(got, want)]}")
+            bucket = vqa_inputs(pred, 8, dev)
+            eager_ms = time_step(lambda: pred.step(*bucket))
+            bundle_ms = time_step(lambda: loaded.step(*bucket))
+            out[name] = {"export_s": export_s, "load_s": load_s, "bundle_mb": mb, "eager_step_ms": eager_ms,
+                         "bundle_step_ms": bundle_ms, "launches": launches}
+            print(f"{name} bundle (parity_300 + LXMERT-base {'int8' if int8 else 'bf16'}, B=8): export "
+                  f"{export_s:.1f} s, load {load_s:.1f} s, {mb:.0f} MB; 3 requests bitwise equal to the eager "
+                  f"predictor's, launches {launches}; step {eager_ms:.3f} ms eager, {bundle_ms:.3f} ms bundle on {smi}")
+            if not int8:
+                out["launches"]["vqa"] = launches
+                images = []
+                for i, img in enumerate(requests[0][0] + requests[1][0][:3]):
+                    images.append(os.path.join(root, f"q{i}.jpg"))
+                    Image.fromarray(img).save(images[-1])
+                questions = [requests[0][1][i % 8] for i in range(BUNDLE_SERVE_REQUESTS)]
+                served, launches, seconds = serve_lines(
+                    wrappers, os.path.join(root, f"{name}.zip"),
+                    [{"image": p, "question": q} for p, q in zip(images, questions)], dev)
+                direct = pred(images, questions)
+                check([r["answer"] for r in served] == [r["answer"] for r in direct]
+                      and [r["num_boxes"] for r in served] == [r["num_boxes"] for r in direct],
+                      "vltk-torch serve --bundle=vqa.zip: answers out of order or unlike one batched call")
+                out[name]["serve"] = {"requests": len(served), "seconds": seconds, "launches": launches}
+                print(f"vltk-torch serve --bundle=vqa.zip: {len(served)} JSONL requests in {seconds:.2f} s "
+                      f"(load included), in order, launches {launches}")
+            del pred, loaded
+            torch.cuda.empty_cache()
+
+        with open(V.VOCABPATH) as f:
+            vocab_words = [w for w in f.read().split("\n") if w.isascii() and w.isalpha()]
+        rng = np.random.default_rng(0)
+        doc_requests = [synthetic_documents(rng, vocab_words, counts) for counts in DOC_REQUESTS]
+        cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=DOC_SEQ)
+        clf = DocTokenClassifier(DOC_LABELS, config=cfg, batch_size=32, max_seq_length=DOC_SEQ, device=dev)
+        want = [clf(docs) for docs in doc_requests]
+        loaded, export_s, load_s, mb = export_and_load(clf, os.path.join(root, "doc.zip"), dev)
+        got, launches, _ = bundle_launches(wrappers, lambda: [loaded(docs) for docs in doc_requests])
+        check(launches["flash_attention"] == 12 * len(doc_requests)
+              and not any(v for k, v in launches.items() if k != "flash_attention"),
+              f"document bundle: launches {launches} over {len(doc_requests)} buckets")
+        check(got == want, "the document bundle's labels and scores differ from the eager classifier's")
+        ids, boxes, mask = bench_documents(32, cfg.vocab_size, dev)
+        eager_ms = time_step(lambda: clf.step(ids, boxes, mask))
+        bundle_ms = time_step(lambda: loaded.step(ids, boxes, mask))
+        out["doc"] = {"export_s": export_s, "load_s": load_s, "bundle_mb": mb, "eager_step_ms": eager_ms,
+                      "bundle_step_ms": bundle_ms, "launches": launches}
+        out["launches"]["doc"] = launches
+        lines = [doc for docs in doc_requests for doc in docs][:BUNDLE_SERVE_REQUESTS]
+        served, s_launches, seconds = serve_lines(wrappers, os.path.join(root, "doc.zip"), lines, dev)
+        direct = clf(lines)
+        check([[w["label"] for w in r] for r in served] == [[w["label"] for w in r] for r in direct],
+              "vltk-torch serve --bundle=doc.zip: labels out of order or unlike one batched call")
+        out["doc"]["serve"] = {"requests": len(served), "seconds": seconds, "launches": s_launches}
+        print(f"doc bundle (LayoutLM-base bf16, B=32, seq {DOC_SEQ}): export {export_s:.1f} s, load {load_s:.1f} s, "
+              f"{mb:.0f} MB; requests equal to the eager classifier's, launches {launches}; step {eager_ms:.3f} ms "
+              f"eager, {bundle_ms:.3f} ms bundle on {smi}; serve: {len(served)} requests in {seconds:.2f} s, "
+              f"launches {s_launches}")
+        del clf, loaded
+        torch.cuda.empty_cache()
+
+        cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=SPAN_Q + SPAN_DOC)
+        qa = DocSpanQA(config=cfg, batch_size=32, question_len=SPAN_Q, doc_len=SPAN_DOC, device=dev)
+        rng = np.random.default_rng(1)
+        span_requests = [(synthetic_documents(rng, vocab_words, counts), span_questions(rng, vocab_words, len(counts)))
+                         for counts in SPAN_REQUESTS]
+        want = [qa(docs, qs) for docs, qs in span_requests]
+        loaded, export_s, load_s, mb = export_and_load(qa, os.path.join(root, "span.zip"), dev)
+        got, launches, _ = bundle_launches(wrappers, lambda: [loaded(docs, qs) for docs, qs in span_requests])
+        check(launches["flash_attention"] == 12 * len(span_requests)
+              and not any(v for k, v in launches.items() if k != "flash_attention"),
+              f"span bundle: launches {launches} over {len(span_requests)} buckets")
+        check(got == want, "the span bundle's answers differ from the eager DocSpanQA's")
+        ids, boxes, mask = bench_documents(32, cfg.vocab_size, dev)
+        eager_ms = time_step(lambda: qa.step(ids, boxes, mask))
+        bundle_ms = time_step(lambda: loaded.step(ids, boxes, mask))
+        out["span"] = {"export_s": export_s, "load_s": load_s, "bundle_mb": mb, "eager_step_ms": eager_ms,
+                       "bundle_step_ms": bundle_ms, "launches": launches}
+        out["launches"]["span"] = launches
+        pairs = [(d, q) for docs, qs in span_requests for d, q in zip(docs, qs)]
+        pairs = (pairs * 2)[:BUNDLE_SERVE_REQUESTS]
+        served, s_launches, seconds = serve_lines(wrappers, os.path.join(root, "span.zip"),
+                                                  [{"doc": d, "question": q} for d, q in pairs], dev)
+        direct = qa([d for d, _ in pairs], [q for _, q in pairs])
+        check([r["answer"] for r in served] == [r["answer"] for r in direct],
+              "vltk-torch serve --bundle=span.zip: answers out of order or unlike one batched call")
+        out["span"]["serve"] = {"requests": len(served), "seconds": seconds, "launches": s_launches}
+        print(f"span bundle (LayoutLM-base bf16, B=32, {SPAN_Q} + {SPAN_DOC}): export {export_s:.1f} s, load "
+              f"{load_s:.1f} s, {mb:.0f} MB; requests equal to the eager DocSpanQA's, launches {launches}; step "
+              f"{eager_ms:.3f} ms eager, {bundle_ms:.3f} ms bundle on {smi}; serve: {len(served)} requests in "
+              f"{seconds:.2f} s, launches {s_launches}")
+        del qa, loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------------ phase 37
+
+TRAINED_DRIFT_STEPS = 40  # the tool's default is 300; the full run is in PERF.md
+
+
+def step_counter(wrappers, want: dict, what: str):
+    """(before, after) hooks of a training step: the counts set to 0 before
+    it, held to ``want`` (every other kernel 0) after it; the steps' counts
+    summed into the returned dict."""
+    total = dict.fromkeys(wrappers, 0)
+
+    def before(i):
+        for w in wrappers.values():
+            w.launches = 0
+
+    def after(i):
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(launches == {k: want.get(k, 0) for k in launches}, f"{what} step {i}: launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+
+    return before, after, total
+
+
+def phase_trained_drift(dev, wrappers, smi: str) -> dict:
+    """Phase 37: ``tools.probe_trained_drift`` at full geometry (R-101-C4,
+    832 x 1344, B=2) for ``TRAINED_DRIFT_STEPS`` steps (K1 1, K10 1, K2 2 a
+    step, no other kernel), then the drift harness's ten presets at B=8 at
+    the tamed and the trained weights on the same fresh scenes; at both
+    weights ``parity_300`` with cuDNN's TF32 on and off, counting the RPN's
+    keeps and the final box slots that move (ROADMAP C.3), beside a control
+    of two forwards with TF32 on that must not differ at all."""
+    from vltk_tpu_torch.tools import probe_trained_drift
+
+    before, after, total = step_counter(wrappers, {"roi_pool": 1, "roi_pool_backward": 1, "nms": 2},
+                                        "trained-drift training")
+    res = probe_trained_drift.run(steps=TRAINED_DRIFT_STEPS, device=dev, before_step=before, after_step=after,
+                                  quiet=True)
+    meta = res["meta"]
+    check(np.isfinite(meta["last_step_loss"]), f"trained drift: loss {meta}")
+    print("trained_drift_meta " + json.dumps(meta))
+    for label in ("tamed", "trained"):
+        print(f"preset_drift_{label} " + json.dumps({k: v for k, v in res[label].items() if k != "outputs"}))
+    print("trained_minus_tamed " + json.dumps(res["diff"]))
+
+    moved = res["tf32"]
+    check(all(m["rpn_keeps"] > 0 for m in moved.values()), f"TF32 count: {moved}")
+    check(all(m["control"][k] == 0 for m in moved.values()
+              for k in ("rpn_keeps_moved", "rpn_keep_slots_reordered", "box_slots_bitwise_different")),
+          f"two forwards with TF32 on differ, so the TF32 count is not TF32's alone: {moved}")
+    print(f"parity_300 on the eval scenes, cuDNN TF32 off vs on (C.3; control: two forwards with TF32 on), "
+          f"tamed and trained weights: {moved} on {smi}")
+    torch.cuda.empty_cache()
+    return {"meta": meta, "tamed_rows": res["tamed"]["rows"], "trained_rows": res["trained"]["rows"],
+            "diff": res["diff"], "tf32": moved, "launches": total}
+
+
+# ------------------------------------------------------------------ phase 38
+
+INT8_FIDELITY_STEPS = 40  # the tool's default is 300; the full runs are in PERF.md
+
+
+def phase_int8_fidelity(dev, wrappers, smi: str) -> dict:
+    """Phase 38: ``tools.probe_int8_fidelity`` at base width for
+    ``INT8_FIDELITY_STEPS`` steps each: LXMERT-base VQA at B=32 (no kernel:
+    its streams are under K3's 128 gate) and LayoutLM-base token
+    classification at B=8, seq 1024 (K3, K5, K4 12 each a step); bf16 and
+    int8 accuracy, agreement, flips and logit drift."""
+    from vltk_tpu_torch.tools import probe_int8_fidelity as P
+
+    out = {"launches": dict.fromkeys(wrappers, 0)}
+    for name, fn, want in (
+        ("lxmert", P.run_lxmert, {}),
+        ("layoutlm", P.run_layoutlm, {"flash_attention": 12, "flash_attention_dq": 12, "flash_attention_dkv": 12}),
+    ):
+        before, after, total = step_counter(wrappers, want, f"int8 fidelity {name} training")
+        row = fn(steps=INT8_FIDELITY_STEPS, device=dev, before_step=before, after_step=after, quiet=True)
+        check(np.isfinite(row["last_step_loss"]) and row["n_eval"] > 0, f"int8 fidelity {name}: {row}")
+        print(f"int8_fidelity_{name} " + json.dumps(row) + f" on {smi}")
+        out[name] = row
+        for k, v in total.items():
+            out["launches"][k] += v
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4593,6 +5055,18 @@ def main() -> int:
     # and on the 1344 x 1344 experiment's own inputs (phase 34)
     k10["canvas_1344"]["experiment_inputs"] = detect_exp["k10_on_step"]
     stamp("the detection experiments from raw COCO JSON (phase 34)")
+    cli_run = phase_pretrained_cli(dev, KERNEL_WRAPPERS, smi)
+    print("pretrained_cli_run " + json.dumps(cli_run))
+    stamp("from_pretrained and the CLI (phase 35)")
+    bundles = phase_bundles(dev, KERNEL_WRAPPERS, smi)
+    print("bundles_run " + json.dumps(bundles))
+    stamp("the serving bundles (phase 36)")
+    trained_drift = phase_trained_drift(dev, KERNEL_WRAPPERS, smi)
+    print("trained_drift_run " + json.dumps(trained_drift))
+    stamp("the trained drift (phase 37)")
+    int8_fidelity = phase_int8_fidelity(dev, KERNEL_WRAPPERS, smi)
+    print("int8_fidelity_run " + json.dumps(int8_fidelity))
+    stamp("int8 fidelity (phase 38)")
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
@@ -4642,6 +5116,15 @@ def main() -> int:
         # and its eval loop)
         e["detection_training_launches"] = detection["launches"].get(key, 0)
         e["detection_experiment_launches"] = detect_exp["experiment"]["launches"].get(key, 0)
+        # the CLI's extraction (2 batches: K1 2, K2 4), the three bundles'
+        # loaded programs (VQA 3 buckets: K1 3, K2 6; documents and span
+        # QA 3 buckets each: K3 36 each), the trained-drift training (K1,
+        # K10 1 and K2 2 a step) and the int8 probe's LayoutLM training
+        # (K3, K5, K4 12 each a step)
+        e["cli_extract_launches"] = cli_run["launches"].get(key, 0)
+        e["bundle_launches"] = sum(run.get(key, 0) for run in bundles["launches"].values())
+        e["trained_drift_launches"] = trained_drift["launches"].get(key, 0)
+        e["int8_fidelity_launches"] = int8_fidelity["launches"].get(key, 0)
     # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
     k3 = next(e for e in entries if e["name"] == "flash_attention")
     for model, run in (("vit", vit), ("visualbert", visualbert)):

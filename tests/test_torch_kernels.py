@@ -1244,3 +1244,82 @@ def test_int8_quantize_nan_is_zero_on_the_card(dev):
     q_card, _ = q8.quantize_per_tensor(big, torch.tensor(3.0, device=dev))
     q_cpu, _ = q8.quantize_per_tensor(big.cpu(), torch.tensor(3.0))
     assert torch.equal(q_card.cpu(), q_cpu) and int(q_card[7, 9]) == 0
+
+
+# ------------------------------------------------ the kernels as registered ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", ["vector", "scalar"])
+def test_roi_pool_op_is_the_wrapper(dev, dtype, path):
+    """``torch.ops.vltk_tpu_torch.roi_pool`` launches K1 as ``roi_pool_cuda``
+    does, bitwise, on both of its paths, counted in the same counters."""
+    gen = torch.Generator().manual_seed(40)
+    c = 1024 if path == "vector" else 300 + 1
+    feat = torch.randn(2, 52, 84, c, generator=gen).to(dev, dtype)
+    boxes = _boxes(gen, 2, 50, 52, 84).to(dev)
+    want = roi_pool_cuda(feat, boxes, 14, 1 / 16)
+    before, paths = roi_pool_auto.launches, dict(roi_pool_auto.path_launches)
+    got = torch.ops.vltk_tpu_torch.roi_pool(feat, boxes, 14, 1 / 16)
+    torch.cuda.synchronize()
+    assert roi_pool_auto.launches == before + 1
+    assert {k: roi_pool_auto.path_launches[k] - paths[k] for k in paths} == {k: int(k == path) for k in paths}
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(roi_pool_auto(feat, boxes)), _bits(want))  # the eager path calls the op
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_nms_op_is_the_wrapper(dev, per_row):
+    """``torch.ops.vltk_tpu_torch.nms_fixed`` launches K2 as
+    ``nms_fixed_cuda`` does: the same keeps, one launch, one count."""
+    gen = torch.Generator().manual_seed(41)
+    boxes, scores, _ = nms_case(gen, 6, 6000, dev)
+    thr = torch.tensor([0.3, 0.5, 0.7, 0.5, 0.6, 0.7], device=dev) if per_row else 0.7
+    want = nms_fixed_cuda(boxes, scores, thr, 300)
+    before = nms_fixed_auto.launches
+    got = torch.ops.vltk_tpu_torch.nms_fixed(boxes, scores, thr if per_row else None, 0.0 if per_row else thr, 300,
+                                             None)
+    torch.cuda.synchronize()
+    assert nms_fixed_auto.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(a, b) for a, b in zip(nms_fixed_auto(boxes, scores, thr, 300), want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_ops_are_the_wrappers(dev, dtype):
+    """``torch.ops.vltk_tpu_torch.flash_attention`` and
+    ``flash_attention_residuals`` launch K3 as ``flash_attention_cuda`` and
+    ``flash_attention_fwd_residuals_cuda`` do: bitwise, one count each; so
+    does ``FlashAttentionFunction``'s forward, which runs the latter op."""
+    gen = torch.Generator().manual_seed(42)
+    q, k, v = (torch.randn(3, 1024, 2, 64, generator=gen).to(dev, dtype) for _ in range(3))
+    mask = torch.ones(3, 1024, device=dev)
+    mask[1, 700:] = 0
+    want = flash_attention_cuda(q, k, v, mask, 64)
+    want_o, (want_m, want_l) = flash_attention_fwd_residuals_cuda(q, k, v, mask, 64)
+    before = flash_attention_auto.launches
+    got = torch.ops.vltk_tpu_torch.flash_attention(q, k, v, mask, 64)
+    got_o, got_m, got_l = torch.ops.vltk_tpu_torch.flash_attention_residuals(q, k, v, mask, 64)
+    torch.cuda.synchronize()
+    assert flash_attention_auto.launches == before + 2
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(got_o), _bits(want_o))
+    assert torch.equal(got_m, want_m) and torch.equal(got_l, want_l)
+    assert torch.equal(_bits(flash_attention_auto(q, k, v, mask, 64)), _bits(want))
+    before = flash_attention_auto.launches
+    trained = flash_attention_auto(q.clone().requires_grad_(), k, v, mask, 64)
+    torch.cuda.synchronize()
+    assert flash_attention_auto.launches == before + 1 and torch.equal(_bits(trained.detach()), _bits(want))
+
+
+def test_ops_raise_on_a_kernel_error(dev):
+    """A launch the kernel refuses raises through the op; nothing gives way
+    to the plain version on the card."""
+    q = torch.randn(1, 128, 1, 32, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        torch.ops.vltk_tpu_torch.flash_attention(q, q, q, None, 32)
+    boxes = torch.rand(1, MAX_CANDIDATES + 1, 4, device=dev)
+    with pytest.raises(ValueError, match="candidates"):
+        torch.ops.vltk_tpu_torch.nms_fixed(boxes, boxes[..., 0], None, 0.5, 10, None)
+    with pytest.raises(TypeError, match="dtype"):
+        torch.ops.vltk_tpu_torch.roi_pool(torch.zeros(1, 4, 4, 8, dtype=torch.float16, device=dev),
+                                         torch.zeros(1, 1, 4, device=dev), 14, 1 / 16)

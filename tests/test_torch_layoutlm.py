@@ -420,8 +420,8 @@ class TestHostChain:
                 DocTokenClassifier(DOC_LABELS, tokenizer=tok, max_seq_length=16)
         clf = DocTokenClassifier(DOC_LABELS, config=port_cfg(jax_model[0]), tokenizer=tok,
                                  max_seq_length=16, device="cpu")
-        with pytest.raises(NotImplementedError):
-            clf.export_bundle("x.zip")
+        with pytest.raises(ValueError, match="platforms"):  # the round trip: tests/test_torch_aot.py
+            clf.export_bundle("x.zip", platforms=("tpu",))
 
     def test_from_pretrained_loads_hf_names(self, tiny_vocab, jax_model, port_sd, tmp_path):
         """An HF-named state dict (with a pooler and the position-id buffer,

@@ -523,10 +523,11 @@ class TestGuards:
         assert VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, tokenizer=tok, max_seq_length=S)).tokenizer is tok
         int8 = VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, frcnn_config=FRCNNConfig(**TINY_FRCNN, int8=True)))
         assert int8.frcnn_config.int8 and int8.frcnn_scales is None  # calibrates on its first request
-        with pytest.raises(NotImplementedError, match="A.15"):
-            port.export_bundle("vqa.bundle")
-        with pytest.raises(NotImplementedError, match="A.15"):
-            VQAPredictor.from_bundle("vqa.bundle")
+        # bundles (the round trip: tests/test_torch_aot.py)
+        with pytest.raises(ValueError, match="platforms"):
+            port.export_bundle("vqa.bundle", platforms=("cpu", "tpu"))
+        with pytest.raises(FileNotFoundError):
+            VQAPredictor.from_bundle("vqa.bundle", device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 VQAPredictor(ANSWERS, **port_kwargs(ref, tiny_vocab, device=None))

@@ -25,9 +25,11 @@ predictors and ``MicroBatchServer`` load on first use.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Union
 
 import torch
+
+__version__ = "0.1.0"
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -42,14 +44,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "available; pass device='cpu' to run the plain CPU path"
         )
     return dev
-
-
-def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A torch state dict file, unwrapped when a training checkpoint keeps
-    it under ``"model"``."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    inner = sd.get("model") if isinstance(sd, Mapping) else None
-    return dict(inner if isinstance(inner, Mapping) else sd)
 
 
 def build(config):
@@ -95,4 +89,4 @@ def __getattr__(name):
     raise AttributeError(f"module 'vltk_tpu_torch' has no attribute {name!r}")
 
 
-__all__ = ["build", "read_state_dict", "resolve_device"]
+__all__ = ["build", "resolve_device"]

@@ -11,8 +11,9 @@ extraction pipeline (``VisnExtraction.extract``): K1 (RoIPool) once and K2
 (``schema``: features, boxes rounded to whole raw pixels, object and
 attribute ids, the raw size).
 
-Weights come from a local reference-named torch state dict
-(``checkpoint=``), or are seeded random without one. Every preset of
+Weights come from a reference-named checkpoint (``checkpoint=``: a torch
+file, a detectron ``.pkl`` or a directory, read by
+``models.pretrained``), or are seeded random without one. Every preset of
 ``FRCNNConfig.PRESETS`` is taken; an int8 one (``production`` is
 ``int8_300``) is calibrated once, on the first at most 4 images of the
 step's first batch, before that step runs, as the JAX adapter does, and
@@ -28,12 +29,13 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from vltk_tpu_torch import DeviceLike, read_state_dict, resolve_device
+from vltk_tpu_torch import DeviceLike, resolve_device
 from vltk_tpu_torch import vars as V
 from vltk_tpu_torch.adapters.extraction import VisnExtraction
 from vltk_tpu_torch.config import VisionConfig
 from vltk_tpu_torch.features import Features
 from vltk_tpu_torch.models.frcnn import FRCNN as FRCNNModel, FRCNNConfig, calibrate_int8, init_weights
+from vltk_tpu_torch.models.pretrained import pretrained_state_dict
 from vltk_tpu_torch.ops.image_ops import preprocess_batch
 
 # static canvases and the shortest-edge targets of the reference adapter
@@ -100,20 +102,6 @@ def collate(entries: List[Dict[str, Any]], raw_canvas: Tuple[int, int] = RAW_CAN
     return {V.img: images, V.rawsize: raw_sizes, V.imgid: imgids}
 
 
-def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-named torch state dict file, without the anchor buffers
-    and ``num_batches_tracked`` counters the port's FRCNN does not keep."""
-    return {
-        k: v for k, v in read_state_dict(path).items()
-        if "anchor_generator" not in k and "num_batches_tracked" not in k
-    }
-
-
-def load_checkpoint(model: FRCNNModel, path: str) -> None:
-    """Load a reference-named torch state dict strictly."""
-    model.load_state_dict(read_checkpoint(path), strict=True)
-
-
 def setup(
     checkpoint: Optional[str] = None,
     batch_size: Optional[int] = None,
@@ -140,7 +128,7 @@ def setup(
 
     model = FRCNNModel(cfg).eval()
     if checkpoint is not None:
-        load_checkpoint(model, checkpoint)
+        model.load_state_dict(pretrained_state_dict("frcnn", checkpoint, config=cfg)[1])
     else:
         init_weights(model, seed=int(overrides.get("seed", 0)))
     model.to(dev)

@@ -7,9 +7,11 @@ tracking), ``LangConfig`` (the tokenizer, ``ignore_id``, the sequence
 lengths and the pretraining corruption rates), ``VisionConfig`` (the host
 image pipeline), ``DataConfig`` (datasets, extractor, processors,
 iteration order, batching, capacities, ETL control, the host feed and host
-shards), ``TrainConfig`` (every field, same defaults), ``MeshConfig`` and
-``Config`` (``logdir``, ``checkpoint_dir``, ``test_run``,
-``break_loop_on_test``, ``save_on_crash``). Field names and defaults are
+shards), ``TrainConfig`` (every field, same defaults), ``ModelsConfig`` /
+``ModelConfig`` and ``EvalConfig`` (declared, as in the JAX package, where
+nothing reads them either), ``MeshConfig`` and ``Config`` (``logdir``,
+``checkpoint_dir``, ``test_run``, ``break_loop_on_test``, ``save_on_crash``;
+``from_flags`` and ``unflatten_dict`` for the CLI). Field names and defaults are
 the JAX package's. The default tokenizer ``"BertWordPieceTokenizer"`` runs
 on the port's native WordPiece over the same vocabulary.
 
@@ -17,12 +19,14 @@ Not honoured yet: a device mesh (data, tensor or sequence parallelism).
 Setting any ``MeshConfig`` field to a value other than its default raises
 ``NotImplementedError``. ``accum_steps`` is honoured: it needs no mesh.
 Left out because no code reads them: ``LangConfig.pad_direction`` and
-``add_special_tokens``, ``DataConfig.redownload``; ``update`` raises
-``KeyError`` on them.
+``add_special_tokens``, ``DataConfig.redownload``, and ``Config.email``
+(the JAX CLI mails its crash report; the port's writes it to disk only);
+``update`` raises ``KeyError`` on them.
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field, fields
 from typing import Any, Dict, Optional, Tuple
 
@@ -88,6 +92,18 @@ def _coerce(value: Any) -> Any:
     return value
 
 
+def unflatten_dict(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"a.b": 1}`` -> ``{"a": {"b": 1}}``: dot flags into nested updates."""
+    out: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        cur = out
+        for part in parts[:-1]:
+            cur = cur.setdefault(part, {})
+        cur[parts[-1]] = value
+    return out
+
+
 @dataclass
 class BaseConfig:
     """Shared behaviour of the config dataclasses."""
@@ -134,6 +150,12 @@ class BaseConfig:
     @property
     def overwritten(self) -> Dict[str, Any]:
         return dict(self._overwritten)
+
+    def print_config(self) -> str:
+        """Print (and return) ``to_dict()`` as indented JSON."""
+        text = json.dumps(self.to_dict(), indent=2, default=str)
+        print(text)
+        return text
 
 
 @dataclass
@@ -252,6 +274,31 @@ class TrainConfig(BaseConfig):
 
 
 @dataclass
+class ModelConfig(BaseConfig):
+    """One model's checkpoint and dtype (declared as in the JAX package;
+    the experiments build their models from their own configs)."""
+
+    name: str = ""
+    checkpoint: Optional[str] = None
+    dtype: str = "bfloat16"
+    freeze_layers: Tuple[str, ...] = ()
+
+
+@dataclass
+class ModelsConfig(BaseConfig):
+    """Named model collection."""
+
+    main: ModelConfig = field(default_factory=ModelConfig)
+    aux: ModelConfig = field(default_factory=ModelConfig)
+
+
+@dataclass
+class EvalConfig(BaseConfig):
+    half_precision: bool = True
+    metrics: Tuple[str, ...] = ("accuracy",)
+
+
+@dataclass
 class MeshConfig(BaseConfig):
     """The JAX package's device-mesh declaration. Not ported: any
     non-default value raises."""
@@ -276,7 +323,9 @@ class Config(BaseConfig):
     """Top-level experiment config."""
 
     data: DataConfig = field(default_factory=DataConfig)
+    models: ModelsConfig = field(default_factory=ModelsConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    evaluate: EvalConfig = field(default_factory=EvalConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     logdir: str = "logs"
     test_run: bool = False
@@ -288,3 +337,16 @@ class Config(BaseConfig):
         super().__post_init__()
         if self.test_run:
             self.data.num_workers = 0
+
+    @classmethod
+    def from_flags(cls, yaml_path: Optional[str] = None, **dot_flags) -> "Config":
+        """A YAML base (when given) with ``a.b.c=x`` overrides on top."""
+        cfg = cls()
+        if yaml_path is not None:
+            import yaml
+
+            with open(yaml_path) as f:
+                cfg.update(yaml.safe_load(f) or {})
+        if dot_flags:
+            cfg.update(unflatten_dict(dot_flags))
+        return cfg

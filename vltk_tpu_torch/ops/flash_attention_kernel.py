@@ -8,6 +8,13 @@ card the forward is K3 (``csrc/flash_attention.cu``) and the backward is K5
 (dk, dv, reading K5's di) (``csrc/flash_attention_bwd.cu``), joined by
 ``FlashAttentionFunction``.
 
+Without autograd, ``flash_attention_auto`` calls K3 (or the plain version
+on the CPU) through the registered op
+``torch.ops.vltk_tpu_torch.flash_attention`` (``flash_attention_op``), which
+``torch.export`` keeps in a serving bundle's program. With autograd,
+``FlashAttentionFunction`` runs K3 with its row statistics through
+``torch.ops.vltk_tpu_torch.flash_attention_residuals``.
+
 Launch counters (CPU calls do not count): ``flash_attention_auto.launches``
 for K3, ``flash_attention_dkv_cuda.launches`` for K4,
 ``flash_attention_dq_cuda.launches`` for K5.
@@ -21,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 
 from vltk_tpu_torch.ops import _build
-from vltk_tpu_torch.ops.flash_attention import flash_self_attention
+from vltk_tpu_torch.ops.flash_attention import flash_self_attention, flash_self_attention_fwd_residuals
 
 HEAD_DIM = 64  # the kernels' head size: that of every model config in the repo
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -217,22 +224,66 @@ def flash_attention_backward_cuda(
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """K3 forward (with its row statistics), K4 and K5 backward. Saves q,
-    k, v, the segment ids, the output and the statistics."""
+    """K3 forward with its row statistics (the registered op
+    ``flash_attention_residuals``), K4 and K5 backward. Saves q, k, v, the
+    mask, the output and the statistics."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, dh):
-        _check(q, k, v, dh)
-        ids = _segment_ids(mask, q)
-        out, stats = _forward(q, k, v, ids, residuals=True)
-        ctx.save_for_backward(q, k, v, ids, out, *stats)
+        out, m, l = flash_attention_residuals_op(q, k, v, mask, dh)  # noqa: E741
+        ctx.save_for_backward(q, k, v, mask, out, m, l)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, ids, out, m, l = ctx.saved_tensors  # noqa: E741
-        dq, dk, dv = _backward(q, k, v, ids, out, (m, l), do)
+        q, k, v, mask, out, m, l = ctx.saved_tensors  # noqa: E741
+        dq, dk, dv = _backward(q, k, v, _segment_ids(mask, q), out, (m, l), do)
         return dq, dk, dv, None, None
+
+
+@torch.library.custom_op("vltk_tpu_torch::flash_attention", mutates_args=(), device_types="cuda")
+def flash_attention_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor], dh: int,
+) -> torch.Tensor:
+    """K3 as a registered op (``torch.ops.vltk_tpu_torch.flash_attention``),
+    so a program that ``torch.export`` traces keeps the kernel: on CUDA
+    tensors ``flash_attention_cuda`` (same launch and counter), on CPU ones
+    the plain version."""
+    return flash_attention_cuda(q, k, v, mask, dh)
+
+
+@flash_attention_op.register_kernel("cpu")
+def _flash_attention_op_cpu(q, k, v, mask, dh):
+    return flash_self_attention(q, k, v, mask, dh).contiguous()
+
+
+@flash_attention_op.register_fake
+def _flash_attention_op_fake(q, k, v, mask, dh):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("vltk_tpu_torch::flash_attention_residuals", mutates_args=(), device_types="cuda")
+def flash_attention_residuals_op(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor], dh: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 with its row statistics as a registered op: (out, m, l), the
+    contract of ``flash_attention_fwd_residuals_cuda`` flattened.
+    ``FlashAttentionFunction``'s forward."""
+    out, (m, l) = flash_attention_fwd_residuals_cuda(q, k, v, mask, dh)  # noqa: E741
+    return out, m, l
+
+
+@flash_attention_residuals_op.register_kernel("cpu")
+def _flash_attention_residuals_op_cpu(q, k, v, mask, dh):
+    out, (m, l) = flash_self_attention_fwd_residuals(q, k, v, mask, dh)  # noqa: E741
+    return out.contiguous(), m.contiguous(), l.contiguous()
+
+
+@flash_attention_residuals_op.register_fake
+def _flash_attention_residuals_op_fake(q, k, v, mask, dh):
+    n, s, nh, _ = q.shape
+    stats = (n, nh, s)
+    return q.new_empty(q.shape), q.new_empty(stats, dtype=torch.float32), q.new_empty(stats, dtype=torch.float32)
 
 
 def flash_attention_auto(
@@ -244,11 +295,11 @@ def flash_attention_auto(
     ``FlashAttentionFunction`` (K3, then K4 and K5 in the backward) when
     grad is enabled and an input requires it. On CPU tensors the plain
     version, which autograd differentiates."""
-    if q.device.type == "cpu":
-        return flash_self_attention(q, k, v, mask, dh)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cpu":
+            return flash_self_attention(q, k, v, mask, dh)
         return FlashAttentionFunction.apply(q, k, v, mask, dh)
-    return flash_attention_cuda(q, k, v, mask, dh)
+    return flash_attention_op(q, k, v, mask, dh)
 
 
 flash_attention_auto.launches = 0

@@ -9,6 +9,9 @@ allocates the output, so a call is one launch. The kernel sorts a row in
 one CTA's shared memory, which caps it at ``MAX_CANDIDATES`` (6144)
 candidates a row (every configuration's ``pre_nms_topk`` is at most 6000);
 a longer row raises ``ValueError`` on the card.
+``nms_fixed_auto`` calls both through the registered op
+``torch.ops.vltk_tpu_torch.nms_fixed`` (``nms_op``), which ``torch.export``
+keeps in a serving bundle's program.
 ``nms_fixed_auto.launches`` counts kernel launches (CPU calls do not).
 """
 
@@ -139,6 +142,34 @@ def nms_fixed_cuda(
     return keep, kept
 
 
+@torch.library.custom_op("vltk_tpu_torch::nms_fixed", mutates_args=(), device_types="cuda")
+def nms_op(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    thresholds: Optional[torch.Tensor],
+    iou_threshold: float,
+    max_out: int,
+    valid: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 as a registered op (``torch.ops.vltk_tpu_torch.nms_fixed``), so a
+    program that ``torch.export`` traces keeps the kernel: on CUDA tensors
+    ``nms_fixed_cuda`` (same launch and counter), on CPU ones the plain
+    version. The threshold is the per-row ``thresholds`` tensor where it
+    is given, else the number ``iou_threshold``."""
+    return nms_fixed_cuda(boxes, scores, iou_threshold if thresholds is None else thresholds, max_out, valid)
+
+
+@nms_op.register_kernel("cpu")
+def _nms_op_cpu(boxes, scores, thresholds, iou_threshold, max_out, valid):
+    return nms_fixed(boxes, scores, iou_threshold if thresholds is None else thresholds, max_out, valid)
+
+
+@nms_op.register_fake
+def _nms_op_fake(boxes, scores, thresholds, iou_threshold, max_out, valid):
+    shape = (max_out,) if boxes.dim() == 2 else (boxes.shape[0], max_out)
+    return scores.new_empty(shape, dtype=torch.int32), scores.new_empty(shape, dtype=torch.bool)
+
+
 def nms_fixed_auto(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -151,9 +182,9 @@ def nms_fixed_auto(
     that carry a gradient (the RPN's proposals in training) are detached,
     so nothing is recorded for a backward through it."""
     boxes, scores = boxes.detach(), scores.detach()
-    if boxes.device.type == "cpu":
-        return nms_fixed(boxes, scores, iou_threshold, max_out, valid)
-    return nms_fixed_cuda(boxes, scores, iou_threshold, max_out, valid)
+    if torch.is_tensor(iou_threshold):
+        return nms_op(boxes, scores, iou_threshold.detach(), 0.0, max_out, valid)
+    return nms_op(boxes, scores, None, float(iou_threshold), max_out, valid)
 
 
 nms_fixed_auto.launches = 0

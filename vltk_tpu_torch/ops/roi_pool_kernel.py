@@ -10,6 +10,10 @@ require a gradient while grad is enabled, ``roi_pool_auto`` runs one
 ``torch.autograd.Function``: K1 and K10 on the card, the plain forward and
 ``roi_pool_plain_vjp`` on the CPU. Boxes get no gradient (JAX's is zero).
 
+Without autograd, ``roi_pool_auto`` calls K1 through the registered op
+``torch.ops.vltk_tpu_torch.roi_pool`` (``roi_pool_op``), which
+``torch.export`` keeps in a serving bundle's program.
+
 ``roi_pool_auto.launches`` counts K1's launches (CPU calls do not count),
 and ``roi_pool_auto.path_launches`` splits them by the kernel's path:
 ``"vector"`` (16-byte loads and stores, 8 bf16 or 4 float32 channels a
@@ -129,6 +133,26 @@ def _forward(features, boxes, output_size, spatial_scale):
     return roi_pool_cuda(features, boxes, output_size, spatial_scale)
 
 
+@torch.library.custom_op("vltk_tpu_torch::roi_pool", mutates_args=(), device_types="cuda")
+def roi_pool_op(features: torch.Tensor, boxes: torch.Tensor, output_size: int, spatial_scale: float) -> torch.Tensor:
+    """K1 as a registered op (``torch.ops.vltk_tpu_torch.roi_pool``), so a
+    program that ``torch.export`` traces keeps the kernel: on CUDA tensors
+    ``roi_pool_cuda`` (same launch, path and counters), on CPU ones the
+    plain version."""
+    return roi_pool_cuda(features, boxes, output_size, spatial_scale)
+
+
+@roi_pool_op.register_kernel("cpu")
+def _roi_pool_op_cpu(features, boxes, output_size, spatial_scale):
+    return roi_pool_offsets(features, boxes, output_size, spatial_scale)
+
+
+@roi_pool_op.register_fake
+def _roi_pool_op_fake(features, boxes, output_size, spatial_scale):
+    b, _, _, c = features.shape
+    return features.new_empty((b, boxes.shape[1], output_size, output_size, c))
+
+
 class _RoIPool(torch.autograd.Function):
     """K1 forward and K10 backward (the plain versions on the CPU)."""
 
@@ -156,7 +180,7 @@ def roi_pool_auto(
     differentiable in the features through K10 (or its plain version)."""
     if torch.is_grad_enabled() and features.requires_grad:
         return _RoIPool.apply(features, boxes, output_size, spatial_scale)
-    return _forward(features, boxes, output_size, spatial_scale)
+    return roi_pool_op(features, boxes, output_size, float(spatial_scale))
 
 
 roi_pool_auto.launches = 0

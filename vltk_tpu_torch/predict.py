@@ -25,6 +25,12 @@ pad sits in the middle of the stream; at ``question_len + doc_len >= 1024``
 on the card every self-attention runs K3 on that mask. The span decode
 (``_best_span``) is host numpy over the float32 log-probabilities.
 
+Serving bundles (``export_bundle`` / ``from_bundle``, ``aot.py``): the
+predictor's step traced with ``torch.export``, the weights (and an int8
+preset's calibrated scales) its state, the kernels registered ops; a
+bundled predictor keeps the host side and runs the loaded program as its
+step, on the device it was exported on.
+
 int8 presets (an int8 ``FRCNNConfig``, ``LxmertConfig(int8=True)``,
 ``LayoutLMConfig(int8=True)``): each predictor calibrates its static int8
 scales once, under a lock, on the first request, as the JAX predictors do
@@ -37,14 +43,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from vltk_tpu_torch import DeviceLike, read_state_dict, resolve_device
+from vltk_tpu_torch import DeviceLike, resolve_device
 from vltk_tpu_torch import vars as V
+from vltk_tpu_torch.models.pretrained import _load_by_name, _materialise, load_state_dict, resolve_checkpoint
 
 ImageLike = Union[str, np.ndarray]
 
@@ -90,6 +98,69 @@ def _load_answer_list(answers: Union[str, Sequence[str]]) -> List[str]:
     return list(answers)
 
 
+def _tokenizer_bundle_parts(tok):
+    """(meta dict, vocab bytes) of a tokenizer, for a serving bundle."""
+    with open(tok._vocab_path, "rb") as f:
+        vocab = f.read()
+    meta = {"name": tok.name, "lowercase": bool(tok.lowercase), "max_seq_length": int(tok.max_seq_length)}
+    return meta, vocab
+
+
+def _tokenizer_from_bundle(meta: Dict[str, Any], vocab: bytes):
+    """-> (Tokenizer, TemporaryDirectory) from a bundle's tokenizer meta and
+    vocab. Keep the directory alive as long as the tokenizer: it reads the
+    vocab file again to decode."""
+    import tempfile
+
+    from vltk_tpu_torch.data.tokenizer import Tokenizer
+
+    tmpdir = tempfile.TemporaryDirectory(prefix="vltk_aot_")
+    path = os.path.join(tmpdir.name, "vocab.txt")
+    with open(path, "wb") as f:
+        f.write(vocab)
+    tok = Tokenizer(
+        name=meta["name"], vocab_path=path, lowercase=bool(meta.get("lowercase", True)),
+        max_seq_length=int(meta["max_seq_length"]),
+    )
+    return tok, tmpdir
+
+
+def _check_bundle_kind(path: str, meta: Dict[str, Any], want: str) -> None:
+    if meta.get("kind") != want:
+        raise ValueError(f"{path}: bundle kind {meta.get('kind')!r} is not a {want} export")
+
+
+def _export_step_bundle(obj, path: str, *, kind: str, example_args, extra_meta: Dict[str, Any], platforms) -> str:
+    """The two document predictors' export: ``obj._step`` traced with
+    ``obj.model`` held (its weights and any calibrated int8 scales are the
+    program's state), bundled with the tokenizer vocab and the geometry."""
+    from vltk_tpu_torch.aot import export_step, save_bundle
+
+    step = export_step(obj._step, example_args, modules={"model": obj.model}, platforms=platforms)
+    tmeta, vocab = _tokenizer_bundle_parts(obj.tokenizer)
+    meta = {"kind": kind, "batch_size": obj.batch_size, "tokenizer": tmeta, **extra_meta}
+    return save_bundle(path, {"step": step}, meta=meta, files={"vocab.txt": vocab})
+
+
+def _load_step_bundle(obj, path: str, kind: str, device: DeviceLike) -> Dict[str, Any]:
+    """The two document predictors' restore: the tokenizer from the shipped
+    vocab, the loaded program standing in for ``_step`` (the weights are
+    its state). Returns the manifest meta for the class's geometry."""
+    from vltk_tpu_torch.aot import bundle_manifest, load_bundle
+
+    _check_bundle_kind(path, bundle_manifest(path)["meta"], kind)
+    obj.device = resolve_device(device)
+    bundle = load_bundle(path, obj.device)
+    obj.batch_size = int(bundle.meta["batch_size"])
+    obj.tokenizer, obj._vocab_dir = _tokenizer_from_bundle(bundle.meta["tokenizer"], bundle.files["vocab.txt"])
+    obj.model = None  # the weights are the program's state
+    obj.config = None
+    obj.int8_scales = None  # any int8 scales are too
+    obj._step = bundle.fns["step"]
+    obj.platforms = bundle.platforms
+    return bundle.meta
+
+
 def _check_head_width(state_dict: Mapping[str, torch.Tensor], key: str, n: int, what: str) -> None:
     """A loaded head must be as wide as the label vocabulary."""
     weight = state_dict.get(key)
@@ -100,48 +171,13 @@ def _check_head_width(state_dict: Mapping[str, torch.Tensor], key: str, n: int, 
         )
 
 
-def _materialise(make, params: Optional[Mapping[str, torch.Tensor]], init, seed: int, device) -> torch.nn.Module:
-    """``make()`` in eval mode on ``device``: with ``params`` (the model's
-    own names, loaded strictly), or seeded random weights when None. A
-    model that loads is built without weights first, so no random draws
-    are spent on what the load overwrites."""
-    if params is None:
-        return init(make(), seed=seed).eval().to(device)
-    with torch.device("meta"):
-        model = make().eval()
-    model.to_empty(device=device)
-    model.load_state_dict(params)
-    return model
-
-
-def _load_by_name(make, sd: Mapping[str, torch.Tensor], rename, required: str, path: str, what: str) -> Dict[str, torch.Tensor]:
-    """A checkpoint's tensors under the names of ``make()``'s state dict,
-    float32. ``rename`` maps a checkpoint key to the model's name; keys
-    the model does not have are skipped. Every name that starts with
-    ``required`` must be there, else ``KeyError`` naming the first five
-    missing and their count: the JAX predictors fail on a missing
-    parameter."""
-    with torch.device("meta"):
-        names = set(make().state_dict())
-    out = {}
-    for key, value in sd.items():
-        name = rename(key)
-        if name in names:
-            out[name] = value.float()
-    missing = sorted(k for k in names if k.startswith(required) and k not in out)
-    if missing:
-        more = f" and {len(missing) - 5} more" if len(missing) > 5 else ""
-        raise KeyError(f"{path} lacks {len(missing)} {what} weights: {', '.join(missing[:5])}{more}")
-    return out
-
-
 def _layoutlm_params(make, checkpoint: str, head: str, init_weights) -> Dict[str, torch.Tensor]:
     """An HF LayoutLM(-For...) state dict file -> ``make()``'s state dict:
     the encoder by name (the pooler and the ``position_ids`` buffer
     dropped), every encoder weight required (the C.4 rule); the task head
     ``head`` loaded when the file has it, else seeded (``init_weights``,
     seed 0)."""
-    sd = read_state_dict(checkpoint)
+    sd = load_state_dict(resolve_checkpoint(checkpoint))
     root = "layoutlm." if any(k.startswith("layoutlm.") for k in sd) else ""
 
     def rename(key: str) -> str:
@@ -182,8 +218,9 @@ def _maybe_calibrate_doc_int8(obj, ids: torch.Tensor, boxes: torch.Tensor, mask:
     """LayoutLM int8 (``config.int8``): static scales of the encoder's
     ``Int8Linear`` layers from the first at most 4 documents of the first
     (padded) bucket, once, under the predictor's lock (JAX's
-    ``_maybe_calibrate_doc_int8``)."""
-    if not obj.config.int8 or obj.int8_scales is not None:
+    ``_maybe_calibrate_doc_int8``). A loaded bundle (no config) carries its
+    scales in its program."""
+    if obj.config is None or not obj.config.int8 or obj.int8_scales is not None:
         return
     from vltk_tpu_torch.models.layers import calibrate_int8_scales
 
@@ -269,19 +306,36 @@ class DocTokenClassifier:
         params = _layoutlm_params(lambda: LayoutLMForTokenClassification(cfg), checkpoint, "classifier", init_weights)
         return cls(labels, params=params, **kwargs)
 
-    def export_bundle(self, path: str, **kwargs) -> str:
-        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+    def export_bundle(self, path: str, *, platforms: Optional[Sequence[str]] = None) -> str:
+        """One serving file: the step traced with the weights (and, after a
+        request, the int8 preset's calibrated scales) as its state, plus
+        the vocab, the labels and the geometry (``aot.py``)."""
+        b, seq = self.batch_size, self.max_seq_length
+        dev = self.device
+        return _export_step_bundle(
+            self, path, kind="doc_token_classifier",
+            example_args=(torch.zeros((b, seq), dtype=torch.int64, device=dev),
+                          torch.zeros((b, seq, 4), dtype=torch.int64, device=dev),
+                          torch.zeros((b, seq), device=dev)),
+            extra_meta={"labels": list(self.labels), "max_seq_length": seq}, platforms=platforms,
+        )
 
     @classmethod
-    def from_bundle(cls, path: str) -> "DocTokenClassifier":
-        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+    def from_bundle(cls, path: str, device: DeviceLike = None) -> "DocTokenClassifier":
+        """Serve from an ``export_bundle`` file on ``device`` (CUDA unless
+        "cpu" is asked for; it must be the device the bundle was exported
+        on): no model is built, the loaded program is the step."""
+        return _BundledDocTokenClassifier(path, device)
+
+    def _step(self, ids: torch.Tensor, boxes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        logits = self.model(ids, boxes, mask)
+        return torch.softmax(logits.float(), dim=-1)
 
     @torch.inference_mode()
     def step(self, ids: torch.Tensor, boxes: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """One forward of the bucket on the device: (B, L) ids, (B, L, 4)
         boxes, (B, L) mask -> (B, L, num_labels) float32 probabilities."""
-        logits = self.model(ids, boxes, mask)
-        return torch.softmax(logits.float(), dim=-1)
+        return self._step(ids, boxes, mask)
 
     def _prep(self, doc: Dict[str, Any]) -> Dict[str, Any]:
         return _prep_ocr_entry(self._aux, self._boxfix, doc)
@@ -442,20 +496,37 @@ class DocSpanQA:
         params = _layoutlm_params(lambda: LayoutLMForSpanQA(cfg), checkpoint, "qa_outputs", init_weights)
         return cls(params=params, **kwargs)
 
-    def export_bundle(self, path: str, **kwargs) -> str:
-        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+    def export_bundle(self, path: str, *, platforms: Optional[Sequence[str]] = None) -> str:
+        """One serving file: the span step traced with the weights (and,
+        after a request, the int8 preset's calibrated scales) as its
+        state, plus the vocab and the stream's geometry (``aot.py``)."""
+        b, seq = self.batch_size, self.q_len + self.doc_len
+        dev = self.device
+        return _export_step_bundle(
+            self, path, kind="doc_span_qa",
+            example_args=(torch.zeros((b, seq), dtype=torch.int64, device=dev),
+                          torch.zeros((b, seq, 4), dtype=torch.int64, device=dev),
+                          torch.zeros((b, seq), device=dev)),
+            extra_meta={"question_len": self.q_len, "doc_len": self.doc_len, "max_span": self.max_span},
+            platforms=platforms,
+        )
 
     @classmethod
-    def from_bundle(cls, path: str) -> "DocSpanQA":
-        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+    def from_bundle(cls, path: str, device: DeviceLike = None) -> "DocSpanQA":
+        """Serve from an ``export_bundle`` file on ``device`` (CUDA unless
+        "cpu" is asked for; the bundle's own device)."""
+        return _BundledDocSpanQA(path, device)
+
+    def _step(self, ids: torch.Tensor, boxes: torch.Tensor, mask: torch.Tensor):
+        start, end = self.model(ids, boxes, mask)
+        return torch.log_softmax(start.float(), dim=-1), torch.log_softmax(end.float(), dim=-1)
 
     @torch.inference_mode()
     def step(self, ids: torch.Tensor, boxes: torch.Tensor, mask: torch.Tensor):
         """One forward of the bucket on the device: (B, L) ids, (B, L, 4)
         boxes, (B, L) mask -> float32 log-softmax of the start and end
         logits, (B, L) each."""
-        start, end = self.model(ids, boxes, mask)
-        return torch.log_softmax(start.float(), dim=-1), torch.log_softmax(end.float(), dim=-1)
+        return self._step(ids, boxes, mask)
 
     def prepare(self, documents: Sequence[Dict[str, Any]], questions: Sequence[str]):
         """Host prep of every pair: (ids, boxes, mask) of the concatenated
@@ -626,8 +697,8 @@ class VQAPredictor:
         answers: Union[str, Sequence[str]],
         **kwargs,
     ) -> "VQAPredictor":
-        """Torch state dict files -> predictor: a reference-named FRCNN
-        (loaded strictly, as ``adapters.frcnn.load_checkpoint``) and an HF
+        """Checkpoints -> predictor: a reference-named FRCNN (a torch file
+        or a detectron ``.pkl``, as extraction loads it) and an HF
         ``LxmertForQuestionAnswering`` loaded by name. Every weight of
         ``LxmertForVQA``, the answer head included, must be there: a
         checkpoint that lacks one (a bare ``LxmertModel`` lacks the head)
@@ -635,22 +706,51 @@ class VQAPredictor:
         fails on a missing parameter. Keys the model does not have (the
         pretraining heads ``cls.*`` and ``obj_predict_head.*``, buffers)
         are skipped."""
-        from vltk_tpu_torch.adapters.frcnn import read_checkpoint
         from vltk_tpu_torch.models.lxmert import LxmertForVQA
+        from vltk_tpu_torch.models.pretrained import pretrained_state_dict
 
-        _, lcfg = _vqa_configs(kwargs.get("frcnn_config"), kwargs.get("lxmert_config"), len(_load_answer_list(answers)))
+        fcfg, lcfg = _vqa_configs(kwargs.get("frcnn_config"), kwargs.get("lxmert_config"),
+                                  len(_load_answer_list(answers)))
+        _, frcnn = pretrained_state_dict("frcnn", frcnn_checkpoint, config=fcfg)
         lxmert = _load_by_name(
-            lambda: LxmertForVQA(lcfg), read_state_dict(lxmert_checkpoint), str, "",
+            lambda: LxmertForVQA(lcfg), load_state_dict(resolve_checkpoint(lxmert_checkpoint)), str, "",
             lxmert_checkpoint, "LxmertForVQA",
         )
-        return cls(answers, frcnn_params=read_checkpoint(frcnn_checkpoint), lxmert_params=lxmert, **kwargs)
+        return cls(answers, frcnn_params=frcnn, lxmert_params=lxmert, **kwargs)
 
-    def export_bundle(self, path: str, **kwargs) -> str:
-        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+    def export_bundle(self, path: str, *, platforms: Optional[Sequence[str]] = None) -> str:
+        """One serving file: the composed step (preprocess, FRCNN with K1 and
+        K2 as registered ops, LXMERT, sigmoid) traced with both models'
+        weights (and, after a request, an int8 preset's calibrated scales)
+        as its state, plus the vocab, the answers and the geometry
+        (``aot.py``)."""
+        from vltk_tpu_torch.aot import export_step, save_bundle
+
+        b, (ch, cw), seq = self.batch_size, self.raw_canvas, self.tokenizer.max_seq_length
+        dev = self.device
+        step = export_step(
+            self._step,
+            (torch.zeros((b, ch, cw, 3), dtype=torch.uint8, device=dev), torch.zeros((b, 2), device=dev),
+             torch.zeros((b, seq), dtype=torch.int32, device=dev), torch.zeros((b, seq), device=dev)),
+            modules={"frcnn": self.frcnn, "lxmert": self.lxmert}, platforms=platforms,
+        )
+        tmeta, vocab = _tokenizer_bundle_parts(self.tokenizer)
+        meta = {
+            "kind": "vqa_predictor",
+            "answers": list(self.answers),
+            "batch_size": b,
+            "raw_canvas": [ch, cw],
+            "tokenizer": tmeta,
+        }
+        return save_bundle(path, {"vqa": step}, meta=meta, files={"vocab.txt": vocab})
 
     @classmethod
-    def from_bundle(cls, path: str) -> "VQAPredictor":
-        raise NotImplementedError("serving bundles are not ported yet (ROADMAP A.15)")
+    def from_bundle(cls, path: str, device: DeviceLike = None) -> "VQAPredictor":
+        """Serve from an ``export_bundle`` file on ``device`` (CUDA unless
+        "cpu" is asked for; the bundle's own device): no model is built,
+        the loaded program is the step and the host side comes from the
+        manifest."""
+        return _BundledVQAPredictor(path, device)
 
     # ------------------------------------------------------------ device
 
@@ -661,12 +761,15 @@ class VQAPredictor:
             raw_images, raw_sizes, canvas_hw=self._resized_canvas, short=self._short, maximum=self._maximum,
         )
 
+    def _detect(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        pre = self._preprocess(raw_images, raw_sizes)
+        return self.frcnn(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+
     @torch.inference_mode()
     def detect(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Preprocess and FRCNN: (B, Hr, Wr, 3) uint8 raw pixels and (B, 2)
         raw (h, w) -> the FRCNN output dict, boxes in raw pixels."""
-        pre = self._preprocess(raw_images, raw_sizes)
-        return self.frcnn(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+        return self._detect(raw_images, raw_sizes)
 
     @torch.inference_mode()
     def calibrate_int8(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor, ids: torch.Tensor,
@@ -704,6 +807,10 @@ class VQAPredictor:
     def answer(self, det: Dict[str, torch.Tensor], raw_sizes: torch.Tensor, ids: torch.Tensor,
                tmask: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Box normalisation, LXMERT and sigmoid on ``detect``'s output."""
+        return self._answer(det, raw_sizes, ids, tmask)
+
+    def _answer(self, det: Dict[str, torch.Tensor], raw_sizes: torch.Tensor, ids: torch.Tensor,
+                tmask: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats, norm, vmask = visual_inputs(det, raw_sizes)
         logits = self.lxmert(ids, feats, norm, tmask, vmask)
         return {
@@ -721,7 +828,11 @@ class VQAPredictor:
         raw sizes, (B, L) int32 question ids and (B, L) float32 mask ->
         ``scores`` (B, num_answers), ``boxes`` (B, D, 4) raw-pixel xyxy,
         ``mask`` (B, D), ``obj_ids`` and ``obj_probs`` (B, D)."""
-        return self.answer(self.detect(raw_images, raw_sizes), raw_sizes, ids, tmask)
+        return self._step(raw_images, raw_sizes, ids, tmask)
+
+    def _step(self, raw_images: torch.Tensor, raw_sizes: torch.Tensor, ids: torch.Tensor,
+              tmask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._answer(self._detect(raw_images, raw_sizes), raw_sizes, ids, tmask)
 
     def warmup(self) -> None:
         """One step on a zero bucket, ahead of the first request (the
@@ -801,3 +912,60 @@ class VQAPredictor:
                     "num_boxes": int(out["mask"][j].sum()),
                 })
         return results
+
+
+class _BundledVQAPredictor(VQAPredictor):
+    """``VQAPredictor`` serving a bundle: the host side (decode, collate,
+    tokenize, rank) is inherited, the step is the loaded program; no model
+    is built and no weights are read (``aot.py``)."""
+
+    def __init__(self, path: str, device: DeviceLike = None):  # deliberately not super().__init__
+        from vltk_tpu_torch.aot import bundle_manifest, load_bundle
+
+        _check_bundle_kind(path, bundle_manifest(path)["meta"], "vqa_predictor")
+        self.device = resolve_device(device)
+        bundle = load_bundle(path, self.device)
+        meta = bundle.meta
+        self.answers = list(meta["answers"])
+        self.batch_size = int(meta["batch_size"])
+        self.raw_canvas = tuple(meta["raw_canvas"])
+        self.tokenizer, self._vocab_dir = _tokenizer_from_bundle(meta["tokenizer"], bundle.files["vocab.txt"])
+        self.frcnn = self.lxmert = None  # the weights are the program's state
+        self.frcnn_config = self.lxmert_config = None
+        self.frcnn_scales = self.lxmert_scales = None  # any int8 scales are too
+        self._step = bundle.fns["vqa"]
+        self.platforms = bundle.platforms
+
+    def calibrate_int8(self, *bucket) -> None:
+        """Nothing to calibrate: an int8 bundle carries its scales."""
+
+
+class _BundledDocTokenClassifier(DocTokenClassifier):
+    """``DocTokenClassifier`` serving a bundle: the OCR chain rebuilt from
+    the manifest, the step from the program; no model is built."""
+
+    def __init__(self, path: str, device: DeviceLike = None):  # deliberately not super().__init__
+        from vltk_tpu_torch.processing.visn import AuxTokenize, OCRBoxFixed
+
+        meta = _load_step_bundle(self, path, "doc_token_classifier", device)
+        self.labels = list(meta["labels"])
+        self.max_seq_length = int(meta["max_seq_length"])
+        self._aux = AuxTokenize(tokenizer=self.tokenizer, max_visual_seq_length=self.max_seq_length)
+        self._boxfix = OCRBoxFixed(max_visual_seq_length=self.max_seq_length)
+        self._calib_lock = threading.Lock()
+
+
+class _BundledDocSpanQA(DocSpanQA):
+    """``DocSpanQA`` serving a bundle: the stream's host prep rebuilt from
+    the manifest, the span step from the program; no model is built."""
+
+    def __init__(self, path: str, device: DeviceLike = None):  # deliberately not super().__init__
+        from vltk_tpu_torch.processing.visn import AuxTokenize, OCRBoxFixed
+
+        meta = _load_step_bundle(self, path, "doc_span_qa", device)
+        self.q_len = int(meta["question_len"])
+        self.doc_len = int(meta["doc_len"])
+        self.max_span = int(meta["max_span"])
+        self._aux = AuxTokenize(tokenizer=self.tokenizer, max_visual_seq_length=self.doc_len)
+        self._boxfix = OCRBoxFixed(max_visual_seq_length=self.doc_len)
+        self._calib_lock = threading.Lock()
