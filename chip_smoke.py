@@ -296,12 +296,26 @@ package):
 38. ``tools.probe_int8_fidelity`` at base width for 40 steps each (LXMERT
    no kernel; LayoutLM seq 1024 K3, K5, K4 12 each a step): bf16 and int8
    accuracy, agreement, flips, logit drift;
-39. prints the ``kernels`` JSON line (each kernel also with its launches on
+39. data, tensor and sequence parallelism on a one-rank NCCL group (the
+   card is one rank; the multi-rank paths are held against the JAX package
+   on a CPU gloo group in ``tests/test_torch_parallel.py``): run A trains
+   ``OCRTokenExperiment`` (LayoutLM-base, bf16, seq 1024, B=8, dropout off)
+   4 steps without a mesh and 4 under ``(data 1, model 1)`` with
+   ``LXMERT_RULES`` and ZeRO-1 on ``data``, both on PyTorch's
+   deterministic kernels: losses and final parameters bitwise equal, K3,
+   K4, K5 12 each a step on both, and the collective
+   counters show the data-parallel reduce, the TP reduces (2 a layer) and
+   the ZeRO gather ran; run B is one LayoutLM-base forward at B=1, seq
+   4096 under ``(data 1, seq 1, model 1)`` on each sequence backend
+   (Ulysses bitwise the dense route; the ring's online softmax within a
+   relative L2 of 2^-6); step ms with and without the mesh, peak memory;
+40. prints the ``kernels`` JSON line (each kernel also with its launches on
    the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT,
    the server, the data plane's extraction and training, the raw FUNSD and
    DocVQA trainers, GQA's extraction and training, detection training, the
    detection experiment, the CLI's extraction, the loaded bundles, the
-   trained-drift training and the int8 probe; K3 also with its times and
+   trained-drift training, the int8 probe and phase 39's mesh training and
+   sequence-parallel forwards; K3 also with its times and
    bounds at ViT's and VisualBERT's shapes), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -4899,6 +4913,164 @@ def phase_int8_fidelity(dev, wrappers, smi: str) -> dict:
     return out
 
 
+MESH_STEPS = 4
+SP_SEQ = 4096
+# run B: relative L2 of the ring's output against the dense route's. The
+# dense route rounds the scores to bf16 (product, / sqrt(dh), + bias) and
+# normalises in float32; the ring keeps the scores in float32 and
+# normalises at the end, over 12 layers of a bf16 model
+SP_RING_REL_L2 = 2.0 ** -6
+
+
+def phase_parallel(dev, wrappers, smi: str) -> dict:
+    """Phase 39: the parallel layer on a one-rank NCCL group. Run A: the
+    LayoutLM-base training epoch of phase 12 with dropout off, 4 steps
+    without a mesh and 4 under (data 1, model 1) with ZeRO-1, both epochs
+    on PyTorch's deterministic kernels: bitwise the same losses and
+    parameters, K3/K4/K5 12 each a step, every collective called; the
+    steps are then timed on the default kernels. Run B: the
+    sequence-parallel forwards at seq 4096."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vltk_tpu_torch.config import MeshConfig
+    from vltk_tpu_torch.models.layoutlm import LayoutLM, LayoutLMConfig, init_weights
+    from vltk_tpu_torch.parallel import collectives as C
+    from vltk_tpu_torch.parallel import make_mesh, use_mesh
+    from vltk_tpu_torch.trace import layoutlm_train_config, train_documents, train_experiment
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(MeshConfig(axes=(("data", 1), ("model", 1))), device=dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, f"group {dist.get_backend()}")
+    cfg = layoutlm_train_config("auto", hidden_dropout=0.0)
+    host = {k: v.numpy() for k, v in train_documents(TRAIN_BATCH, cfg.vocab_size, cfg.num_labels, "cpu").items()}
+    want_k = {"flash_attention": 12, "flash_attention_dq": 12, "flash_attention_dkv": 12}
+    runs, out = {}, {"launches": dict.fromkeys(wrappers, 0)}
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_mesh_") as logdir:
+        for tag, m in (("no_mesh", None), ("mesh", mesh)):
+            exp = train_experiment(cfg, os.path.join(logdir, tag), [host] * MESH_STEPS, TRAIN_LR, mesh=m)
+            before, after, total = step_counter(wrappers, want_k, f"mesh training ({tag})")
+            step = exp.train_step
+            calls = iter(range(MESH_STEPS))
+
+            def counted(batch, step=step, before=before, after=after, calls=calls):
+                i = next(calls)
+                before(i)
+                metrics = step(batch)
+                torch.cuda.synchronize()
+                after(i)
+                return metrics
+
+            exp.train_step = counted
+            C.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            # CUDA's default embedding backward sums a row's gradients in
+            # no fixed order (two mesh-less runs differ in the token-type
+            # table's gradient): the pair runs on the deterministic kernels
+            os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+            torch.use_deterministic_algorithms(True)
+            try:
+                t0 = time.perf_counter()
+                exp()
+                torch.cuda.synchronize()
+                epoch_s = time.perf_counter() - t0
+            finally:
+                torch.use_deterministic_algorithms(False)
+            counts = C.counts()
+            with open(os.path.join(exp.logdir, "steps_log.json")) as f:
+                losses = [json.loads(line)["loss"] for line in f]
+            params = {n: p.detach().clone() for n, p in exp.model.named_parameters()}
+            exp.train_step = step
+            seq_s, step_ms, peak = time_train_step(exp, host, steps=5)
+            runs[tag] = {"losses": losses, "params": params, "counts": counts, "launches": total,
+                         "epoch_s": epoch_s, "step_ms": step_ms, "sequences_per_s": seq_s, "peak_mem_gb": peak}
+            del exp
+            torch.cuda.empty_cache()
+    a, b = runs["no_mesh"], runs["mesh"]
+    check(len(a["losses"]) == MESH_STEPS and all(np.isfinite(a["losses"])), f"losses {a['losses']}")
+    check(a["losses"] == b["losses"], f"mesh losses {b['losses']} are not bitwise {a['losses']}")
+    check(a["params"].keys() == b["params"].keys(), "the two runs' parameter names differ")
+    differ = [n for n in a["params"] if not bitwise_equal(a["params"][n], b["params"][n])]
+    check(not differ, f"parameters not bitwise equal after {MESH_STEPS} steps under the mesh: {differ[:5]}")
+    layers = cfg.l_layers
+    want_counts = {"dp_grad_reduce": MESH_STEPS, "zero_gather": MESH_STEPS, "tp_reduce": 2 * layers * MESH_STEPS,
+                   "tp_copy": 4 * layers * MESH_STEPS, "vocab_reduce": MESH_STEPS,
+                   "clip_norm_reduce": MESH_STEPS, "dp_metric_reduce": MESH_STEPS}
+    got = {k: b["counts"][k] for k in want_counts}
+    check(got == want_counts, f"collective calls under the mesh {got}, want {want_counts}")
+    check(not any(a["counts"].values()), f"collectives without a mesh: {a['counts']}")
+    for k, v in b["launches"].items():
+        out["launches"][k] += v
+    for tag, r in runs.items():
+        print(f"parallel run A {tag}: OCRTokenExperiment LayoutLM-base bf16 seq 1024 B={TRAIN_BATCH}, "
+              f"{MESH_STEPS} steps in {r['epoch_s']:.2f} s; step {r['step_ms']:.3f} ms "
+              f"({r['sequences_per_s']:.2f} sequences/s over 5 steps) on {smi}; peak {r['peak_mem_gb']:.2f} GB; "
+              f"launches {r['launches']}; collectives {r['counts']}")
+    del a["params"], b["params"]
+
+    # run B: the sequence-parallel forwards against the dense route
+    base = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=SP_SEQ, attention_impl="xla",
+                          hidden_dropout=0.0, attention_dropout=0.0)
+    model = init_weights(LayoutLM(base), seed=0).to(dev).eval()
+    rng = np.random.default_rng(3)
+    ids = torch.from_numpy(rng.integers(0, base.vocab_size, (1, SP_SEQ))).to(dev)
+    xy0 = rng.integers(0, 900, (1, SP_SEQ, 2))
+    boxes = torch.from_numpy(np.concatenate([xy0, xy0 + rng.integers(1, 100, (1, SP_SEQ, 2))], -1)).to(dev)
+    mask = torch.ones((1, SP_SEQ), device=dev)
+    mask[:, int(SP_SEQ * 0.9):] = 0.0
+    sp_mesh = make_mesh(MeshConfig(axes=(("data", 1), ("seq", 1), ("model", 1))), device=dev)
+    seq_runs = {}
+    with torch.no_grad():
+        dense = model(ids, boxes, mask)
+        for backend in ("ulysses", "ring"):
+            model.cfg = dataclasses.replace(base, activation_sharding=True, seq_attention_sharding=True,
+                                            seq_attention_backend=backend)
+            for w in wrappers.values():
+                w.launches = 0
+            C.reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with use_mesh(sp_mesh):
+                got = model(ids, boxes, mask)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = C.counts()
+            real = mask[0].bool()
+            diff = (got - dense)[:, real].float()
+            rel = float(diff.norm() / dense[:, real].float().norm())
+            seq_runs[backend] = {"rel_l2": rel, "max_abs_err": float(diff.abs().max()), "ms": ms,
+                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "collectives": counts,
+                                 "launches": {k: w.launches for k, w in wrappers.items()}}
+            check(bool(torch.isfinite(got).all()) and got.shape == dense.shape, f"{backend} forward {got.shape}")
+            kind = "ulysses_all_to_all" if backend == "ulysses" else "ring_rotate"
+            want_calls = 4 * base.l_layers if backend == "ulysses" else 3 * base.l_layers
+            check(counts[kind] == want_calls, f"{backend}: {kind} {counts[kind]} calls, want {want_calls}")
+            if backend == "ulysses":
+                check(bitwise_equal(got, dense), f"Ulysses at degree 1 not bitwise the dense route: rel {rel}")
+            else:
+                check(rel <= SP_RING_REL_L2, f"ring forward relative L2 {rel} > {SP_RING_REL_L2}")
+        model.cfg = base
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(ids, boxes, mask)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+    for backend, r in seq_runs.items():
+        print(f"parallel run B {backend}: LayoutLM-base bf16 B=1 seq {SP_SEQ} forward under (data 1, seq 1, "
+              f"model 1): {r['ms']:.2f} ms (dense route {dense_ms:.2f} ms) on {smi}; rel L2 {r['rel_l2']:.3e}, "
+              f"max |err| {r['max_abs_err']:.3e} at real positions; peak {r['peak_mem_gb']:.2f} GB; "
+              f"collectives {r['collectives']}")
+    del model, dense
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out.update({"runs": {k: {kk: vv for kk, vv in r.items() if kk != "params"} for k, r in runs.items()},
+                "seq": seq_runs, "dense_ms": dense_ms, "seconds": time.perf_counter() - t_phase,
+                "seq_launches": {k: sum(r["launches"].get(k, 0) for r in seq_runs.values()) for k in wrappers}})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5067,6 +5239,9 @@ def main() -> int:
     int8_fidelity = phase_int8_fidelity(dev, KERNEL_WRAPPERS, smi)
     print("int8_fidelity_run " + json.dumps(int8_fidelity))
     stamp("int8 fidelity (phase 38)")
+    parallel = phase_parallel(dev, KERNEL_WRAPPERS, smi)
+    print("parallel_run " + json.dumps(parallel))
+    stamp("data, tensor and sequence parallelism (phase 39)")
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
@@ -5125,6 +5300,11 @@ def main() -> int:
         e["bundle_launches"] = sum(run.get(key, 0) for run in bundles["launches"].values())
         e["trained_drift_launches"] = trained_drift["launches"].get(key, 0)
         e["int8_fidelity_launches"] = int8_fidelity["launches"].get(key, 0)
+        # phase 39: the 4 training steps under the one-rank mesh (K3, K5,
+        # K4 12 each a step) and the two sequence-parallel forwards (none:
+        # the flash route is off on a sequence-cut stream, as in JAX)
+        e["mesh_training_launches"] = parallel["launches"].get(key, 0)
+        e["seq_parallel_launches"] = parallel["seq_launches"].get(key, 0)
     # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
     k3 = next(e for e in entries if e["name"] == "flash_attention")
     for model, run in (("vit", vit), ("visualbert", visualbert)):

@@ -4,8 +4,9 @@ parsing, the config merge, the listings, the clean registry errors, the
 crash report, the ``data`` command end to end, the coercion of extra flags
 and the nested literals; the resolved ``Config.to_dict()`` equal to JAX's
 for the same flags and YAML (less the four fields the port leaves out);
-``simple`` with ``mesh.axes`` raising the ROADMAP A.14 error; ``predict``
-and ``serve`` from a bundle on the CPU."""
+``simple`` with an expert or pipeline ``mesh.axes`` raising the ROADMAP
+A.14b error and with a one-rank mesh handing the experiment its mesh and
+``LXMERT_RULES``; ``predict`` and ``serve`` from a bundle on the CPU."""
 
 import io
 import json
@@ -168,7 +169,7 @@ def test_nested_parse_rejects_trailing_input():
     assert _coerce("((a,1),(b,2))") == (("a", 1), ("b", 2))
 
 
-@pytest.mark.parametrize("axes", ["((data,4),(model,2))", "(data,8)"])
+@pytest.mark.parametrize("axes", ["((data,1),(expert,2))", "((pipe,2),)"])
 def test_simple_with_a_mesh_raises_the_a14_error(tmp_path, axes):
     from vltk_tpu_torch.experiments import Experiments
 
@@ -183,10 +184,45 @@ def test_simple_with_a_mesh_raises_the_a14_error(tmp_path, axes):
 
     Experiments.add(FakeExp)
     try:
-        with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A\.14\)"):
+        with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A\.14b\)"):
             main(["simple", "fake_mesh", f"--mesh.axes={axes}", f"--logdir={tmp_path}"])
     finally:
         Experiments._classes.pop("fake_mesh", None)
+
+
+def test_simple_with_a_one_rank_mesh_passes_it_and_the_rules(tmp_path):
+    """``--mesh.axes`` set: the experiment gets the mesh (a one-rank gloo
+    group on ``--device=cpu``) and the JAX CLI's ``LXMERT_RULES``; left at
+    its default, no mesh."""
+    import torch.distributed as dist
+
+    from vltk_tpu_torch.experiments import Experiments
+    from vltk_tpu_torch.parallel import LXMERT_RULES
+
+    seen = []
+
+    class FakeExp:
+        name = "fake_one_rank_mesh"
+
+        def __init__(self, cfg, **kwargs):
+            seen.append(kwargs)
+
+        def __call__(self):
+            return {}
+
+    Experiments.add(FakeExp)
+    try:
+        assert main(["simple", "fake_one_rank_mesh", "--device=cpu", f"--logdir={tmp_path}"]) == 0
+        assert seen[-1] == {"device": "cpu"}
+        assert main(["simple", "fake_one_rank_mesh", "--device=cpu", "--mesh.axes=((data,1),(model,1))",
+                     "--mesh.zero1_axis=data", f"--logdir={tmp_path}"]) == 0
+        mesh = seen[-1]["mesh"]
+        assert mesh.shape == {"data": 1, "model": 1} and mesh.device.type == "cpu"
+        assert seen[-1]["rules"] is LXMERT_RULES and dist.get_backend() == "gloo"
+    finally:
+        Experiments._classes.pop("fake_one_rank_mesh", None)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_unknown_registry_name_is_clean_error(capsys):

@@ -71,7 +71,13 @@ def test_drift_columns_match_the_jax_harness():
         for c in COLUMNS:
             np.testing.assert_allclose(g[c], w[c], rtol=0, atol=1e-4, err_msg=f"{g['preset']} {c}")
         assert g["production_gate"] == w["production_gate"]
-    assert got["production_pick"] == want["production_pick"] and got["gate"] == want["gate"]
+    # the pick is the fastest gate-passing preset by each harness's own CPU
+    # clock, so the two picks may differ; the presets they choose from may not
+    passing = {r["preset"] for r in got["rows"] if r["production_gate"]}
+    assert passing == {r["preset"] for r in want["rows"] if r["production_gate"]}
+    for pick in (got["production_pick"], want["production_pick"]):
+        assert pick in passing if passing else pick is None
+    assert got["gate"] == want["gate"]
     assert any(r["box_agreement@iou0.5"] < 1.0 for r in got["rows"])  # truncation moves something
 
 

@@ -736,17 +736,17 @@ class TestGuards:
         assert cfg.train.overwritten == {"epochs": 4, "learning_rate": 1e-4}
         with pytest.raises(KeyError):
             cfg.update({"train": {"no_such": 1}})
-        with pytest.raises(NotImplementedError, match="mesh"):
-            cfg.update({"mesh": {"zero1_axis": "data"}})
-        with pytest.raises(NotImplementedError):
-            PC.MeshConfig(axes=(("data", 2), ("model", 2)))
+        cfg.update({"mesh": {"zero1_axis": "data", "axes": "((data,2),(model,2))"}})  # ported (A.14a)
+        assert cfg.mesh.zero1_axis == "data" and cfg.mesh.axes == (("data", 2), ("model", 2))
+        with pytest.raises(NotImplementedError, match="A.14b"):
+            PC.MeshConfig(axes=(("data", 1), ("expert", 2))).build(device="cpu")
 
     def test_experiment_guards(self, jax_model, tmp_path):
         config = port_config(tmp_path)
         with pytest.raises(ValueError, match="train loader"):  # loaders=None builds from config.data: none named
             OCRTokenExperiment(config, loaders=None, device="cpu")
-        with pytest.raises(NotImplementedError, match="mesh"):
-            OCRTokenExperiment(config, loaders=([], None), mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="need a mesh"):
+            OCRTokenExperiment(config, loaders=([], None), rules=(), device="cpu")
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 OCRTokenExperiment(config, loaders=(batches(np.random.default_rng(0), 1), None))

@@ -244,9 +244,18 @@ class TestModules:
         np.testing.assert_allclose(got, want, rtol=1e-6)
 
     def test_unported_options_name_their_roadmap_item(self):
-        for flag, item in (("activation_sharding", "A.14"), ("seq_attention_sharding", "A.14")):
-            with pytest.raises(NotImplementedError, match=item):
-                PX.LxmertConfig(**{flag: True})
+        from vltk_tpu_torch.parallel.mesh import resolve_axes
+
+        # the mesh options are ported (A.14a); the ring backend needs a mesh,
+        # as JAX's does; expert and pipeline axes wait for A.14b
+        cfg = PX.LxmertConfig(vocab_size=20, hidden_size=8, num_heads=2, intermediate_size=16, l_layers=1,
+                              x_layers=1, r_layers=1, visual_feat_dim=4, activation_sharding=True,
+                              seq_attention_sharding=True, seq_attention_backend="ring")
+        with pytest.raises(ValueError, match="must run under a mesh"):
+            PX.Lxmert(cfg)(torch.zeros((1, 4), dtype=torch.long), torch.zeros((1, 2, 4)), torch.zeros((1, 2, 4)))
+        for axes in ((("data", 1), ("expert", 2)), (("pipe", -1),)):
+            with pytest.raises(NotImplementedError, match="A.14b"):
+                resolve_axes(axes, 2)
         assert PX.LxmertConfig(remat=True).remat  # A.13 is ported
         assert PX.LxmertConfig(moe_experts=4).moe_experts == 4  # A.11b is ported
         assert PX.LxmertConfig(int8=True).int8  # A.9 is ported

@@ -15,8 +15,13 @@ overrides it. ``predict`` takes ``--task=doc <doc.json>`` (per-word labels)
 and ``--task=span <doc.json> <question...>`` (a document answer span),
 ``--frcnn= --lxmert= --answers=`` (VQA checkpoints), ``--ckpt=`` (LayoutLM),
 ``--bundle=`` (serve an exported bundle) and ``--export-bundle=``.
-``predict``, ``serve`` and ``extract`` run on CUDA unless ``--device=cpu``
-is given.
+``predict``, ``serve``, ``extract`` and ``simple`` run on CUDA unless
+``--device=cpu`` is given. ``simple`` with ``--mesh.axes`` set runs under
+that mesh with ``parallel.LXMERT_RULES`` (``--mesh.zero1_axis=data`` adds
+ZeRO-1), in one process or one process a rank::
+
+  torchrun --nproc-per-node 4 -m vltk_tpu_torch.cli simple ocr_tokens \\
+      --mesh.axes='((data,2),(model,2))'
 """
 
 from __future__ import annotations
@@ -338,16 +343,30 @@ def cmd_serve(positional: List[str], flags: Dict[str, str], stdin=None, stdout=N
     return 0
 
 
-def cmd_simple(positional: List[str], cfg: Config) -> int:
-    """``simple <experiment>``: run a registered experiment. A device mesh
-    (``--mesh.*``) is not ported: ``Config`` raises on it (ROADMAP A.14)."""
+def cmd_simple(positional: List[str], cfg: Config, extra: Dict[str, str] = None) -> int:
+    """``simple <experiment>``: run a registered experiment. When the user
+    set ``mesh.axes`` (the JAX CLI's rule: the untouched default stays
+    mesh-less) the mesh is built over the process group (torchrun's, or a
+    one-rank group) with ``LXMERT_RULES``; an ``expert`` or ``pipe`` axis of
+    size > 1 raises (ROADMAP A.14b)."""
     if not positional:
         print("usage: vltk-torch simple <experiment> [--flags]", file=sys.stderr)
         return 2
     from vltk_tpu_torch.experiments import Experiments
 
-    exp = Experiments.get(positional[0])(cfg)
-    print(exp())
+    exp_cls = Experiments.get(positional[0])
+    device = (extra or {}).get("device")
+    kwargs = {} if device is None else {"device": device}
+    if "axes" in cfg.mesh.overwritten:
+        axes = tuple(cfg.mesh.axes)
+        if not all(isinstance(a, (tuple, list)) and len(a) == 2 for a in axes):
+            raise ValueError(
+                f"mesh.axes must be ((name, size), ...) pairs, got {axes!r} "
+                "- e.g. --mesh.axes='((data,4),(model,2))'")
+        from vltk_tpu_torch.parallel import LXMERT_RULES
+
+        kwargs.update(mesh=cfg.mesh.build(device=device), rules=LXMERT_RULES)
+    print(exp_cls(cfg, **kwargs)())
     return 0
 
 
@@ -398,7 +417,7 @@ def main(argv: List[str] = None) -> int:
         if command == "extract":
             return cmd_extract(positional, cfg, extra)
         if command == "simple":
-            return cmd_simple(positional, cfg)
+            return cmd_simple(positional, cfg, extra)
     except KeyError as exc:
         # a registry miss ("unknown adapter/experiment ...; available:
         # [...]") is a typo, not a crash: its message, no traceback

@@ -15,9 +15,9 @@ nothing reads them either), ``MeshConfig`` and ``Config`` (``logdir``,
 the JAX package's. The default tokenizer ``"BertWordPieceTokenizer"`` runs
 on the port's native WordPiece over the same vocabulary.
 
-Not honoured yet: a device mesh (data, tensor or sequence parallelism).
-Setting any ``MeshConfig`` field to a value other than its default raises
-``NotImplementedError``. ``accum_steps`` is honoured: it needs no mesh.
+``MeshConfig`` is honoured: ``build()`` makes the ``parallel.Mesh`` (data,
+tensor and sequence parallelism, ZeRO-1; an ``expert`` or ``pipe`` axis
+of size > 1 raises until ROADMAP A.14b). ``accum_steps`` is honoured too.
 Left out because no code reads them: ``LangConfig.pad_direction`` and
 ``add_special_tokens``, ``DataConfig.redownload``, and ``Config.email``
 (the JAX CLI mails its crash report; the port's writes it to disk only);
@@ -300,8 +300,13 @@ class EvalConfig(BaseConfig):
 
 @dataclass
 class MeshConfig(BaseConfig):
-    """The JAX package's device-mesh declaration. Not ported: any
-    non-default value raises."""
+    """The device-mesh declaration (the JAX package's fields). ``axes`` maps
+    axis name -> size, -1 = every rank left; ``zero1_axis`` shards the AdamW
+    moments over that axis (ZeRO-1). As in the JAX package, the models read
+    the standard axis names (``data``, ``model``, ``seq``) whatever
+    ``batch_axis`` / ``model_axis`` / ``seq_axis`` say, and
+    ``force_host_platform`` (JAX's virtual CPU devices) has no use here: a
+    CPU mesh is a gloo group of processes."""
 
     axes: Tuple[Tuple[str, int], ...] = (("data", -1),)
     batch_axis: str = "data"
@@ -310,12 +315,11 @@ class MeshConfig(BaseConfig):
     force_host_platform: bool = False
     zero1_axis: Optional[str] = None
 
-    def _check_ported(self) -> None:
-        changed = [f.name for f in fields(self) if getattr(self, f.name) != f.default]
-        if changed:
-            raise NotImplementedError(
-                f"a device mesh is not ported yet (ROADMAP A.14); non-default mesh fields: {changed}"
-            )
+    def build(self, device=None):
+        """``parallel.make_mesh(self, device=device)``."""
+        from vltk_tpu_torch.parallel import make_mesh
+
+        return make_mesh(self, device=device)
 
 
 @dataclass

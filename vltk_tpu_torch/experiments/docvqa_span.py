@@ -24,6 +24,7 @@ import torch
 from vltk_tpu_torch import vars as V
 from vltk_tpu_torch.experiments.layoutlm_base import LayoutLMExperimentBase
 from vltk_tpu_torch.models.layoutlm import LayoutLMConfig, LayoutLMForSpanQA, span_qa_loss
+from vltk_tpu_torch.models.lxmert import masked_denominator
 
 
 class DocVQASpanExperiment(LayoutLMExperimentBase):
@@ -72,7 +73,7 @@ class DocVQASpanExperiment(LayoutLMExperimentBase):
             & (end_logits.argmax(-1) == batch["span_end"])
             & valid
         )
-        return hit.sum() / valid.sum().clamp(min=1)
+        return hit.sum() / masked_denominator(valid.sum())
 
     def loss_fn(self, model, batch):
         start, end = self._logits(model, batch)

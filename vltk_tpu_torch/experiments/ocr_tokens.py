@@ -20,12 +20,15 @@ from vltk_tpu_torch.models.layoutlm import (
     LayoutLMForTokenClassification,
     token_classification_loss,
 )
+from vltk_tpu_torch.models.lxmert import masked_denominator
 
 
 def _token_accuracy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int) -> torch.Tensor:
+    """Correct over valid positions of the global batch (under a mesh the
+    valid count is the ``data`` axis', as the loss's)."""
     valid = labels != ignore_id
     correct = (logits.argmax(-1) == labels) & valid
-    return correct.sum() / valid.sum().clamp(min=1)
+    return correct.sum() / masked_denominator(valid.sum())
 
 
 class OCRTokenExperiment(LayoutLMExperimentBase):

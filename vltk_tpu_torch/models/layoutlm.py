@@ -12,7 +12,9 @@ loads as it is.
 ``LayoutLMConfig.attention_impl`` defaults to ``"auto"``: at padded length
 >= 1024 on the card every self-attention runs the flash kernel K3
 (``csrc/flash_attention.cu``); shorter streams and the CPU take the dense
-route.
+route. Under a mesh with ``activation_sharding`` the stream is cut over
+the ``seq`` axis between the embeddings and the heads, as LXMERT's
+language stream is (``models.lxmert.SeqShard``).
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ from torch import nn
 from vltk_tpu_torch.models.lxmert import (  # noqa: F401  (init_weights is re-exported)
     LxmertConfig,
     TransformerLayer,
+    embed_words,
     encoder_layer,
     init_weights,
     masked_cross_entropy,
+    seq_shard,
 )
 
 
@@ -75,7 +79,7 @@ class LayoutLMEmbeddings(nn.Module):
         w = (b[..., 2] - b[..., 0]).clamp(0, top)
         pos = torch.arange(s, device=input_ids.device)[None, :].expand(n, s)
         emb = (
-            self.word_embeddings(input_ids)
+            embed_words(self.word_embeddings, input_ids)
             + self.position_embeddings(pos)
             + self.token_type_embeddings(token_type_ids)
             + self.x_position_embeddings(b[..., 0])
@@ -111,9 +115,12 @@ class LayoutLM(nn.Module):
         if attention_mask is None:
             attention_mask = torch.ones(input_ids.shape, dtype=torch.float32, device=x.device)
         mask = attention_mask.float()
+        seq = seq_shard(self.cfg)  # under a mesh: the stream cut over ``seq``
+        if seq is not None:
+            x = seq.split(x)
         for layer in self.encoder.layer:
-            x = encoder_layer(self.cfg, layer, x, mask)
-        return x
+            x = encoder_layer(self.cfg, layer, x, mask, seq)
+        return x if seq is None else seq.gather(x)
 
 
 class LayoutLMForTokenClassification(nn.Module):

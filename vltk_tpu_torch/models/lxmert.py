@@ -37,6 +37,17 @@ queries differ between the routes and they agree at real positions only.
 In training the flash route is differentiable on the card as well: the
 dispatcher runs K3 with its row statistics and the backward kernels K4 and
 K5 behind a ``torch.autograd.Function``.
+
+Under a mesh (``parallel.use_mesh``): projections that ``parallel.shard_params``
+cut run Megatron's column-then-row split (``proj``; a row-parallel output
+is all-reduced over the ``model`` axis and its bias added once, after the
+reduce), attention runs on the local heads (K3-K5 too), the word table is
+looked up vocab-sharded (``embed_words``). ``activation_sharding`` cuts
+the language stream over the ``seq`` axis between the embeddings and the
+pooler (``SeqShard``): self-attention then all-gathers K/V, or with
+``seq_attention_sharding`` switches to head-sharded (Ulysses) or rotates
+K/V around a ring (``parallel.ring``); the flash route is off there, as in
+JAX. The masked losses take their valid count over the ``data`` axis.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from torch import nn
 from vltk_tpu_torch.models.layers import Int8Linear
 from vltk_tpu_torch.models.moe import MoEFeedForward
 from vltk_tpu_torch.ops.flash_attention_kernel import flash_attention_auto
+from vltk_tpu_torch.parallel import collectives as C
+from vltk_tpu_torch.parallel.mesh import current_mesh
 
 NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
 
@@ -59,8 +72,9 @@ NEG_INF = -10000.0  # additive mask value, the BERT/LXMERT convention
 @dataclasses.dataclass(frozen=True)
 class LxmertConfig:
     """Static hyper-parameters; the field set of the JAX package's
-    ``LxmertConfig``. The options that need a mesh raise
-    ``NotImplementedError`` in the port for now; ``moe_experts > 0`` puts
+    ``LxmertConfig``. ``activation_sharding`` / ``seq_attention_sharding``
+    / ``seq_attention_backend`` take effect under a mesh with a ``seq``
+    axis (``SeqShard``); ``moe_experts > 0`` puts
     ``models.moe.MoEFeedForward`` in every feed-forward's place; ``remat``
     checkpoints every encoder layer while grad is enabled
     (``encoder_layer``)."""
@@ -97,16 +111,6 @@ class LxmertConfig:
     # allows; "auto": flash at padded length >= 1024
     attention_impl: str = "xla"
     int8: bool = False
-
-    def __post_init__(self):
-        # each option, and the ROADMAP item that ports it
-        unported = {
-            "activation_sharding (ROADMAP A.14)": self.activation_sharding,
-            "seq_attention_sharding (ROADMAP A.14)": self.seq_attention_sharding,
-        }
-        on = [name for name, value in unported.items() if value]
-        if on:
-            raise NotImplementedError(f"not ported yet: {', '.join(on)}")
 
     @property
     def head_dim(self) -> int:
@@ -158,8 +162,90 @@ def _proj_layer(cfg: LxmertConfig, in_features: int, out_features: int) -> nn.Li
 
 def proj(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """A projection site's forward: the int8 route for an ``Int8Linear``,
-    else ``dense``."""
-    return layer(x, dt) if isinstance(layer, Int8Linear) else dense(layer, x, dt)
+    else ``dense``. A layer ``parallel.shard_params`` cut (``layer.tp``)
+    runs tensor-parallel: a column-parallel one behind ``copy_to_tp``, a
+    row-parallel one through ``reduce_from_tp`` with its bias added once,
+    after the reduce."""
+    tp = getattr(layer, "tp", None)
+    if tp is None:
+        return layer(x, dt) if isinstance(layer, Int8Linear) else dense(layer, x, dt)
+    if isinstance(layer, Int8Linear):
+        raise NotImplementedError("int8 projections run replicated only; drop the tensor-parallel rules")
+    role, mesh = tp
+    group = mesh.group("model")
+    if role == "column":
+        # one copy a projection, not one a block: the input's gradient is
+        # then summed in the plain layer's order (bitwise on a one-rank axis)
+        return dense(layer, C.copy_to_tp(x, group), dt)
+    if mesh.axis_size("model") == 1:
+        # the sum has one term: the bias inside the product, as the plain
+        # layer adds it, so a one-rank axis is bitwise the plain layer
+        return C.reduce_from_tp(dense(layer, x, dt), group)
+    y = C.reduce_from_tp(F.linear(x.to(dt), layer.weight.to(dt)), group)
+    return y if layer.bias is None else y + layer.bias.to(dt)
+
+
+def embed_words(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table(ids)``; for a vocab-sharded table (``table.tp``) the rows this
+    rank holds are looked up, the others give 0, and the model axis sums."""
+    tp = getattr(table, "tp", None)
+    if tp is None:
+        return table(ids)
+    mesh = tp[1]
+    rows = table.weight.shape[0]
+    local = ids - mesh.coord("model") * rows
+    inside = (local >= 0) & (local < rows)
+    out = F.embedding(torch.where(inside, local, torch.zeros_like(local)), table.weight)
+    out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    return C.reduce_from_tp(out, mesh.group("model"), "vocab_reduce")
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A stream cut over the mesh's ``seq`` axis, and how self-attention on
+    it runs: ``"gather"`` (all-gather K/V), ``"ulysses"`` (all-to-all to
+    head-sharded and back) or ``"ring"`` (K/V rotate around the axis)."""
+
+    mesh: object
+    mode: str
+
+    @property
+    def group(self):
+        return self.mesh.group("seq")
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        return C.split_seq(x, self.group, 1)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return C.gather_seq(x, self.group, 1)
+
+    def local(self, mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This rank's block of a full (n, s) mask."""
+        if mask is None:
+            return None
+        step = mask.shape[1] // self.mesh.shape["seq"]
+        return mask.narrow(1, self.mesh.coord("seq") * step, step)
+
+
+def seq_shard(cfg) -> Optional[SeqShard]:
+    """The ``SeqShard`` of a model's stream under the current mesh: with
+    ``activation_sharding`` and a mesh that has a ``seq`` axis; else None.
+    The ring backend needs a mesh, as in JAX."""
+    if not cfg.activation_sharding:
+        return None
+    mesh = current_mesh()
+    backend = getattr(cfg, "seq_attention_backend", "ulysses")
+    if mesh is None:
+        if cfg.seq_attention_sharding and backend == "ring":
+            raise ValueError("seq_attention_backend='ring' must run under a mesh (parallel.use_mesh)")
+        return None
+    if "seq" not in mesh.shape:
+        return None
+    if not cfg.seq_attention_sharding:
+        return SeqShard(mesh, "gather")
+    if backend not in ("ulysses", "ring"):
+        raise ValueError(f"seq_attention_backend must be 'ulysses' or 'ring', got {backend!r}")
+    return SeqShard(mesh, backend)
 
 
 class _QKV(nn.Module):
@@ -208,27 +294,53 @@ class MultiHeadAttention(nn.Module):
         self.att_drop = nn.Dropout(cfg.attention_dropout)
 
     def forward(self, x: torch.Tensor, ctx: torch.Tensor,
-                ctx_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                ctx_mask: Optional[torch.Tensor], seq: Optional[SeqShard] = None) -> torch.Tensor:
+        """``seq``: ``ctx`` (and ``x`` when ``ctx is x``) is this rank's block
+        of a stream cut over the ``seq`` axis; ``ctx_mask`` stays whole."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         n, s, h = x.shape
-        nh, dh = cfg.num_heads, cfg.head_dim
+        dh = cfg.head_dim
         qkv = getattr(self, self.qkv_name)
-        q = proj(qkv.query, x, dt).view(n, s, nh, dh)
-        k = proj(qkv.key, ctx, dt).view(n, ctx.shape[1], nh, dh)
-        v = proj(qkv.value, ctx, dt).view(n, ctx.shape[1], nh, dh)
-        if _impl_wants_flash(cfg, s) and _flash_eligible(x, ctx, s, not self.training, cfg):
+        q = proj(qkv.query, x, dt).view(n, s, -1, dh)  # the local heads under TP
+        k = proj(qkv.key, ctx, dt).view(n, ctx.shape[1], -1, dh)
+        v = proj(qkv.value, ctx, dt).view(n, ctx.shape[1], -1, dh)
+        if seq is None and _impl_wants_flash(cfg, s) and _flash_eligible(x, ctx, s, not self.training, cfg):
             out4 = flash_attention_auto(q, k, v, ctx_mask, dh)
-            return self.output(out4.reshape(n, s, h), x)
+            return self.output(out4.reshape(n, s, -1), x)
+        if seq is not None and ctx is x and seq.mode == "ring":
+            from vltk_tpu_torch.parallel.ring import ring_self_attention
+
+            rate = cfg.attention_dropout if self.training else 0.0
+            seed = int(torch.randint(0, 2 ** 62, (1,)).item()) if rate > 0.0 else None
+            out4 = ring_self_attention(q, k, v, seq.local(ctx_mask), mesh=seq.mesh, dropout_rate=rate,
+                                       dropout_seed=seed, compute_dtype=dt)
+            return self.output(out4.reshape(n, s, -1), x)
+        if seq is not None and ctx is x and seq.mode == "ulysses":
+            sp = seq.mesh.shape["seq"]
+            if q.shape[2] % sp:
+                raise ValueError(
+                    f"Ulysses needs num_heads {cfg.num_heads} divisible by model*seq "
+                    f"{cfg.num_heads // q.shape[2] * sp}")
+            # seq-sharded -> head-sharded: every rank gets the whole stream
+            # for nh_local / sp heads
+            q, k, v = (C.all_to_all(t, seq.group, 2, 1) for t in (q, k, v))
+            out4 = C.all_to_all(self._dense(q, k, v, ctx_mask, dt), seq.group, 1, 2)
+            return self.output(out4.reshape(n, s, -1), x)
+        if seq is not None:  # the keys' stream is cut: all-gather K/V
+            k, v = seq.gather(k), seq.gather(v)
+        return self.output(self._dense(q, k, v, ctx_mask, dt).reshape(n, s, -1), x)
+
+    def _dense(self, q, k, v, ctx_mask, dt):
+        """Softmax attention in the flax formulation: (n, s, nh, dh) each."""
         # sqrt(dh) rounded to the compute type, as jnp.sqrt(jnp.asarray(dh, dt))
-        root = float(torch.tensor(float(dh), dtype=dt).sqrt())
+        root = float(torch.tensor(float(self.cfg.head_dim), dtype=dt).sqrt())
         scores = torch.einsum("nqhd,nkhd->nhqk", q, k) / root
         if ctx_mask is not None:
             bias = (1.0 - ctx_mask[:, None, None, :].float()) * NEG_INF
             scores = scores + bias.to(scores.dtype)
         probs = self.att_drop(torch.softmax(scores.float(), dim=-1).to(dt))
-        out4 = torch.einsum("nhqk,nkhd->nqhd", probs, v)
-        return self.output(out4.reshape(n, s, h), x)
+        return torch.einsum("nhqk,nkhd->nqhd", probs, v)
 
 
 # a feed-forward's module names: HF's dense intermediate and output, and
@@ -283,8 +395,9 @@ class TransformerLayer(FeedForward):
         super().__init__(cfg)
         self.attention = MultiHeadAttention(cfg)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        return super().forward(self.attention(x, x, mask))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                seq: Optional[SeqShard] = None) -> torch.Tensor:
+        return super().forward(self.attention(x, x, mask, seq))
 
 
 class CrossModalityLayer(nn.Module):
@@ -303,10 +416,13 @@ class CrossModalityLayer(nn.Module):
         _add_ffn(self, cfg, _VISN_FFN)
 
     def forward(self, lang: torch.Tensor, lang_mask: Optional[torch.Tensor], visn: torch.Tensor,
-                visn_mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                visn_mask: Optional[torch.Tensor], seq: Optional[SeqShard] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        # under ``seq`` the language stream is cut and the visual one whole:
+        # language queries read the whole visual stream where they are, and
+        # the visual queries gather the language K/V
         lang2 = self.visual_attention(lang, visn, visn_mask)
-        visn2 = self.visual_attention(visn, lang, lang_mask)
-        lang2 = self.lang_self_att(lang2, lang2, lang_mask)
+        visn2 = self.visual_attention(visn, lang, lang_mask, None if seq is None else SeqShard(seq.mesh, "gather"))
+        lang2 = self.lang_self_att(lang2, lang2, lang_mask, seq)
         visn2 = self.visn_self_att(visn2, visn2, visn_mask)
         lang2 = _feed_forward(self, _LANG_FFN, lang2, self.dt)
         visn2 = _feed_forward(self, _VISN_FFN, visn2, self.dt)
@@ -347,7 +463,7 @@ class Embeddings(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         pos = torch.arange(s, device=input_ids.device)[None, :].expand(n, s)
-        x = self.word_embeddings(input_ids) + self.position_embeddings(pos) + self.token_type_embeddings(token_type_ids)
+        x = embed_words(self.word_embeddings, input_ids) + self.position_embeddings(pos) + self.token_type_embeddings(token_type_ids)
         return self.dropout(self.LayerNorm(x))
 
 
@@ -415,12 +531,17 @@ class Lxmert(nn.Module):
         lang = self.embeddings(input_ids, token_type_ids)
         visn = self.encoder.visn_fc(visual_feats.to(dt), visual_pos.to(dt))
         cfg = self.cfg
+        seq = seq_shard(cfg)
+        if seq is not None:
+            lang = seq.split(lang)
         for layer in self.encoder.layer:
-            lang = encoder_layer(cfg, layer, lang, attention_mask)
+            lang = encoder_layer(cfg, layer, lang, attention_mask, seq)
         for layer in self.encoder.r_layers:
             visn = encoder_layer(cfg, layer, visn, visual_mask)
         for layer in self.encoder.x_layers:
-            lang, visn = encoder_layer(cfg, layer, lang, attention_mask, visn, visual_mask)
+            lang, visn = encoder_layer(cfg, layer, lang, attention_mask, visn, visual_mask, seq)
+        if seq is not None:
+            lang = seq.gather(lang)
         lang = lang.float()
         return lang, visn.float(), self.pooler(lang)
 
@@ -541,6 +662,20 @@ class LxmertForPretraining(nn.Module):
         }
 
 
+def masked_denominator(count: torch.Tensor, minimum=1) -> torch.Tensor:
+    """The divisor of a mean over masked positions of the global batch:
+    ``max(count, minimum)``. Under a mesh with a ``data`` axis the count is
+    summed over the axis and divided by its size, so the mean of the ranks'
+    values (``parallel.collectives.reduce_gradients``, ``mean_over_data``)
+    is the global mean: a mean of per-rank means would weight the ranks
+    equally whatever their valid counts."""
+    mesh = current_mesh()
+    if mesh is None or "data" not in mesh.shape:
+        return count.clamp(min=minimum)
+    total = C.all_reduce_(count.detach().clone(), mesh.group("data"), "loss_count_reduce")
+    return total.clamp(min=minimum) / mesh.shape["data"]
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: int = -100) -> torch.Tensor:
     """Cross entropy averaged over the positions whose label is not
     ``ignore_id``, over the whole batch; 0 (not NaN) when none is. Float32
@@ -549,7 +684,7 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, ignore_id: 
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
-    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / valid.sum().clamp(min=1)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / masked_denominator(valid.sum())
 
 
 def vqa_soft_loss(logits: torch.Tensor, target_scores: torch.Tensor) -> torch.Tensor:
@@ -578,7 +713,7 @@ def visual_feat_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tenso
     feature and averaged over the masked regions (``mask`` (N, V), 1 = was
     masked; at least 1 in the denominator)."""
     err = ((pred.float() - target) ** 2).sum(-1)
-    return (err * mask).sum() / mask.sum().clamp(min=1.0)
+    return (err * mask).sum() / masked_denominator(mask.sum(), 1.0)
 
 
 def visual_label_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -586,7 +721,7 @@ def visual_label_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Te
     averaged over the masked regions."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels.long()[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return (nll * mask).sum() / masked_denominator(mask.sum(), 1.0)
 
 
 def resize_num_qa_labels(state_dict, num_answers: int, generator: torch.Generator):

@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vltk_tpu_torch.parallel.mesh import current_mesh
+
 # orders the blocks' forward calls, so ``moe_aux_losses`` returns the terms
 # in the order flax sows them
 _CALLS = itertools.count()
@@ -117,6 +119,11 @@ class MoEFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        mesh = current_mesh()
+        if mesh is not None and mesh.replica_size > 1:
+            # JAX routes the global batch's tokens at one capacity; a rank
+            # routing its own block would drop other tokens
+            raise NotImplementedError("an MoE block under a data or seq axis > 1 waits for ROADMAP A.14b")
         dt = cfg.compute_dtype
         n, s, h = x.shape
         e = cfg.moe_experts

@@ -12,7 +12,8 @@ Masks are concatenated ``[text mask | visual mask]``, so a padded question
 leaves a hole in mid-stream (real text, pad text, the visual tokens): on
 the card the flash route takes segment ids from that mask, as span QA
 does. ``visual_pos`` is accepted for the LXMERT family's call signature
-and unused: HF's VisualBERT has no box pathway.
+and unused: HF's VisualBERT has no box pathway. Under a mesh with ``activation_sharding`` the whole stream is
+cut over the ``seq`` axis (``models.lxmert.SeqShard``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from torch import nn
 
 from vltk_tpu_torch.models.layoutlm import _Encoder
-from vltk_tpu_torch.models.lxmert import LxmertConfig, Pooler, dense, encoder_layer
+from vltk_tpu_torch.models.lxmert import LxmertConfig, Pooler, dense, embed_words, encoder_layer, seq_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +71,7 @@ class VisualBertEmbeddings(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         dev = input_ids.device
         pos = torch.arange(s, device=dev)[None, :].expand(n, s)
-        text = self.word_embeddings(input_ids) + self.token_type_embeddings(token_type_ids) + self.position_embeddings(pos)
+        text = embed_words(self.word_embeddings, input_ids) + self.token_type_embeddings(token_type_ids) + self.position_embeddings(pos)
         vis = dense(self.visual_projection, visual_feats, cfg.compute_dtype).to(text.dtype)
         vis = vis + self.visual_token_type_embeddings(torch.ones((n, v), dtype=torch.long, device=dev))
         vis = vis + self.visual_position_embeddings(torch.zeros((n, v), dtype=torch.long, device=dev))
@@ -101,8 +102,13 @@ class VisualBert(nn.Module):
         if visual_mask is None:
             visual_mask = torch.ones((n, v), device=x.device)
         mask = torch.cat([attention_mask.float(), visual_mask.float()], dim=1)
+        seq = seq_shard(self.cfg)  # under a mesh: the (S + V) stream cut over ``seq``
+        if seq is not None:
+            x = seq.split(x)
         for layer in self.encoder.layer:
-            x = encoder_layer(self.cfg, layer, x, mask)
+            x = encoder_layer(self.cfg, layer, x, mask, seq)
+        if seq is not None:
+            x = seq.gather(x)
         x = x.float()
         return x, self.pooler(x)
 

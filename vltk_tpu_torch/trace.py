@@ -2,7 +2,7 @@
 
     python -m vltk_tpu_torch.trace [--batch 8] [--steps 3] [--repeats 3] [--preset parity_300|production|...]
     python -m vltk_tpu_torch.trace --model layoutlm [--attn auto|xla] [--batch 32] [--int8]
-    python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] [--batch 8]
+    python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] [--batch 8] [--mesh]
     python -m vltk_tpu_torch.trace --model layoutlm --train [--attn auto|xla] --lrs 1e-4 1e-5
     python -m vltk_tpu_torch.trace --model vqa [--batch 8] [--int8]
     python -m vltk_tpu_torch.trace --model vit [--attn flash|xla] [--batch 64] [--int8]
@@ -25,7 +25,10 @@ instead (``make_train_step``: forward, token cross entropy, backward,
 clipped AdamW, schedule) at the JAX bench.py ``--train layoutlm``
 geometry: seq 1024, batch 8, a 20% pad tail with -100 labels on it,
 attention dropout 0 (hidden dropout 0.1); on ``--attn auto`` K3 runs with
-its statistics in the forward and K4 and K5 in the backward. ``--model
+its statistics in the forward and K4 and K5 in the backward; ``--mesh``
+runs it under a one-rank ``(data 1, model 1)`` NCCL mesh with
+``LXMERT_RULES`` and ZeRO-1 (a ``reduce`` stage between the backward and
+the optimizer, and the host ms of the collective calls). ``--model
 vqa`` builds the composed VQA step (``predict.VQAPredictor.step``: the
 ``parity_300`` FRCNN, tamed, then LXMERT-base in bf16 with seeded random
 weights, 3129 answers) on the extraction canvas, with 8 questions of 20
@@ -284,10 +287,11 @@ def layoutlm_train_config(attn: str, hidden_dropout: float = 0.1):
                           attention_dropout=0.0, hidden_dropout=hidden_dropout)
 
 
-def train_experiment(cfg, logdir: str, loader, lr: float = 1e-4):
+def train_experiment(cfg, logdir: str, loader, lr: float = 1e-4, mesh=None):
     """An ``OCRTokenExperiment`` for one epoch over ``loader`` at the model
     config ``cfg``, seeded random weights, on CUDA; AdamW at ``lr`` with
-    weight decay 0.01, warmup 0.1 and clip 1.0."""
+    weight decay 0.01, warmup 0.1 and clip 1.0. Under ``mesh`` (a
+    ``parallel.Mesh``): ``LXMERT_RULES`` and ZeRO-1 on its ``data`` axis."""
     from vltk_tpu_torch.config import Config
     from vltk_tpu_torch.experiments import OCRTokenExperiment
 
@@ -299,16 +303,21 @@ def train_experiment(cfg, logdir: str, loader, lr: float = 1e-4):
     config.data.lang.update({"max_visual_seq_length": cfg.max_position_embeddings})
     config.train.update({"epochs": 1, "learning_rate": lr, "weight_decay": 0.01,
                          "warmup_ratio": 0.1, "clip_grad_norm": 1.0})
-    return Experiment(config, loaders=(loader, None), device="cuda")
+    if mesh is None:
+        return Experiment(config, loaders=(loader, None), device="cuda")
+    from vltk_tpu_torch.parallel import LXMERT_RULES
+
+    config.mesh.update({"axes": tuple(mesh.shape.items()), "zero1_axis": "data"})
+    return Experiment(config, loaders=(loader, None), mesh=mesh, rules=LXMERT_RULES)
 
 
-def build_layoutlm_train(batch: int, attn: str, logdir: str):
+def build_layoutlm_train(batch: int, attn: str, logdir: str, mesh=None):
     """The experiment over bench.py's training batch, and that batch on the
-    device as its train step takes it."""
+    device as its train step takes it (its ``data`` block under a mesh)."""
     cfg = layoutlm_train_config(attn)
     data = train_documents(batch, cfg.vocab_size, cfg.num_labels, "cuda")
-    exp = train_experiment(cfg, logdir, [data])
-    return exp, exp.prepare_batch(data)
+    exp = train_experiment(cfg, logdir, [data], mesh=mesh)
+    return exp, next(iter(exp._device_batches([data])))
 
 
 def epoch_losses(batch: int, steps: int, lr: float, logdir: str, attn: str = "auto"):
@@ -341,24 +350,34 @@ def timed_stages(names, run, steps: int):
     return {k: v / steps for k, v in totals.items()}
 
 
-def stage_times_train(model, opt, loss_fn, data, steps: int, scheduler=None):
+def stage_times_train(model, opt, loss_fn, data, steps: int, scheduler=None, mesh=None):
     """Mean device ms of forward (with the loss), backward and optimizer
     (the optimizer's step and the schedule's) over ``steps`` training
-    steps."""
+    steps; under ``mesh`` also the data-parallel reduce, between the
+    backward and the optimizer."""
+    import contextlib
+
+    from vltk_tpu_torch.parallel import collectives, use_mesh
+
     model.train()
 
     def run(mark):
-        model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(model, data)
-        mark()
-        loss.backward()
-        mark()
-        opt.step()
-        if scheduler is not None:
-            scheduler.step()
-        mark()
+        with use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+            model.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, data)
+            mark()
+            loss.backward()
+            mark()
+            if mesh is not None:
+                collectives.reduce_gradients(model.parameters(), mesh)
+                mark()
+            opt.step()
+            if scheduler is not None:
+                scheduler.step()
+            mark()
 
-    return timed_stages(("forward", "backward", "optimizer"), run, steps)
+    names = ("forward", "backward") + (("reduce",) if mesh is not None else ()) + ("optimizer",)
+    return timed_stages(names, run, steps)
 
 
 DET_CONTENT = (800, 1067)  # a 480 x 640 image resized to short side 800
@@ -570,6 +589,9 @@ def main() -> None:
                          "2 (frcnn --train), 64 (vit)")
     ap.add_argument("--preset", default="parity_300", help="frcnn: the extraction preset (production = int8_300)")
     ap.add_argument("--int8", action="store_true", help="vqa, layoutlm, vit: the int8 serving presets")
+    ap.add_argument("--mesh", action="store_true",
+                    help="layoutlm --train: under a one-rank (data 1, model 1) NCCL mesh with LXMERT_RULES and "
+                         "ZeRO-1; also prints the host ms of the collective calls")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
@@ -582,6 +604,8 @@ def main() -> None:
         ap.error("the int8 presets are for serving (round has a zero gradient)")
     if args.train and args.model not in ("layoutlm", "frcnn") or args.remat and not (args.train and args.model == "frcnn"):
         ap.error("--train is a mode of --model layoutlm and frcnn, --remat of --model frcnn --train")
+    if args.mesh and not (args.train and args.model == "layoutlm"):
+        ap.error("--mesh is a mode of --model layoutlm --train")
     if not torch.cuda.is_available():
         raise SystemExit("trace: needs a CUDA device")
     smi = subprocess.run(
@@ -641,10 +665,16 @@ def main() -> None:
 
         batch = args.batch or 8
         tmp = tempfile.TemporaryDirectory(prefix="vltk_trace_")
-        exp, data = build_layoutlm_train(batch, args.attn, tmp.name)
+        mesh = None
+        if args.mesh:
+            from vltk_tpu_torch.config import MeshConfig
+            from vltk_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(MeshConfig(axes=(("data", 1), ("model", 1))), device="cuda")
+        exp, data = build_layoutlm_train(batch, args.attn, tmp.name, mesh)
         step = lambda: exp.train_step(data)  # noqa: E731
         stages_fn = lambda: stage_times_train(exp.model, exp.optimizer, exp.loss_fn, data, args.steps,  # noqa: E731
-                                              exp.scheduler)
+                                              exp.scheduler, mesh)
         unit = "sequences_per_s"
     else:
         batch = args.batch or 32
@@ -706,6 +736,11 @@ def main() -> None:
     print(f"profiler: {len(kernels)} kernels, {kernel_ms:.3f} device ms/step, busy share {share}")
     for part, us in int8_split.items():
         print(f"int8 {part:10s} {us / 1e3 / args.steps:9.3f} device ms/step")
+    # the host side of the collective calls (each c10d op's whole span)
+    comms = [e for e in prof.events() if e.device_type == DeviceType.CPU and e.name.startswith("c10d::")]
+    comm_host_ms = sum(e.cpu_time_total for e in comms) / 1e3 / args.steps
+    if comms:
+        print(f"collectives: {len(comms) / args.steps:.0f} calls/step, {comm_host_ms:.3f} host ms/step")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"class {cls:22s} {us / 1e3 / args.steps:9.3f} ms/step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
@@ -730,6 +765,9 @@ def main() -> None:
         "kernels_per_step": len(kernels) / args.steps,
         "kernel_class_ms_per_step": {k: v / 1e3 / args.steps for k, v in by_class.items()},
         "busy_share": share,
+        "mesh": bool(args.mesh),
+        "collective_calls_per_step": len(comms) / args.steps,
+        "collective_host_ms_per_step": comm_host_ms,
         "traced_span_ms_per_step": span / 1e3 / args.steps,
         "top_kernels": [[name, us / 1e3 / args.steps, n // args.steps] for name, (us, n) in top],
     }))

@@ -8,8 +8,15 @@ completed epoch, ``info.json`` (epoch, name, step, RNG state, ...) and
 ``config.json`` beside them; one ``{name}_epoch_{n}_mid.pt`` file for a
 mid-epoch (periodic or preemption) save that holds all three, so it is
 consistent at any kill instant. Every file is written to a temporary name,
-fsynced and renamed (atomic), and the directory is fsynced after. The
-sharded save waits for parallelism (ROADMAP A.14).
+fsynced and renamed (atomic), and the directory is fsynced after.
+
+Under a mesh every rank holds its own blocks, so the save is sharded
+(JAX's orbax ``save_checkpoint_sharded``): ``{name}_epoch_{n}[_mid]_sharded/``
+holds one ``rank{r}.pt`` a rank, each written by its rank alone (atomic,
+as above), and ``layout.json`` (world size, mesh axes), which rank 0
+writes after every rank's file is durable: the directory counts only
+once it is there. A restore needs the same mesh, and gives every rank its
+own blocks back bitwise.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def _host_snapshot(obj):
@@ -226,3 +234,102 @@ def prune_checkpoints(ckpt_dir: str, name: str, keep: int) -> None:
                 os.remove(path)
             except FileNotFoundError:
                 pass
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints: one file a rank
+# ---------------------------------------------------------------------------
+
+
+def _sharded_dir(ckpt_dir: str, name: str, epoch: int, mid: bool) -> str:
+    return os.path.join(ckpt_dir, f"{name}_epoch_{epoch}{'_mid' if mid else ''}_sharded")
+
+
+def _rank_world() -> Tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier(mesh) -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier(group=None if mesh is None else mesh.world_group)
+
+
+def _layout(mesh) -> Dict[str, Any]:
+    world = _rank_world()[1] if mesh is None else mesh.size
+    return {"world": world, "axes": [] if mesh is None else [[k, v] for k, v in mesh.shape.items()]}
+
+
+def save_checkpoint_sharded(ckpt_dir: str, name: str, epoch: int, state_tree, mesh=None, mid: bool = False,
+                            collective: bool = True) -> str:
+    """Every rank writes its (nested) state of local tensors as
+    ``rank{r}.pt``; then rank 0 writes ``layout.json``. Collective over
+    the mesh's ranks; ``collective=False`` (a crash save, whose peers may
+    be stuck) waits for no other rank. Returns the directory."""
+    rank, _ = _rank_world()
+    path = _sharded_dir(ckpt_dir, name, epoch, mid)
+    os.makedirs(path, exist_ok=True)
+    _atomic_write_bytes(os.path.join(path, f"rank{rank}.pt"), _to_bytes(_host_snapshot(state_tree)))
+    if collective:
+        _barrier(mesh)
+    if rank == 0:
+        layout = {"epoch": epoch, "name": name, **_layout(mesh)}
+        _atomic_write_bytes(os.path.join(path, "layout.json"), json.dumps(layout).encode())
+    if collective:
+        _barrier(mesh)
+    return path
+
+
+def sharded_epochs(ckpt_dir: str, name: str, mid: bool = False) -> List[int]:
+    """Epochs with a complete sharded save (``layout.json`` present)."""
+    suffix = "_mid_sharded" if mid else "_sharded"
+    return [e for e in _epochs(ckpt_dir, re.escape(name) + r"_epoch_(\d+)" + suffix + "$")
+            if os.path.exists(os.path.join(_sharded_dir(ckpt_dir, name, e, mid), "layout.json"))]
+
+
+def _same_structure(got, want, where: str = "state") -> None:
+    """``got`` has ``want``'s keys and tensor shapes; an empty dict in
+    ``want`` (a fresh optimizer's state) takes anything."""
+    if isinstance(want, dict) and want:
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"{where}: keys {sorted(map(str, got)) if isinstance(got, dict) else got!r} "
+                             f"differ from the template's")
+        for k in want:
+            _same_structure(got[k], want[k], f"{where}.{k}")
+    elif torch.is_tensor(want) and (not torch.is_tensor(got) or got.shape != want.shape):
+        raise ValueError(f"{where}: shape {getattr(got, 'shape', None)} differs from the template's {tuple(want.shape)}")
+
+
+def load_checkpoint_sharded(ckpt_dir: str, name: str, template_tree=None, epoch: Optional[int] = None,
+                            mesh=None, mid: bool = False):
+    """This rank's state of a sharded save (default: the latest complete
+    one), on the CPU. The save's layout must be this mesh's; with a
+    ``template_tree`` (the live state) the names and block shapes must be
+    its, so a restore never changes a layout."""
+    if epoch is None:
+        epochs = sharded_epochs(ckpt_dir, name, mid)
+        if not epochs:
+            raise FileNotFoundError(f"no sharded checkpoint for {name!r} in {ckpt_dir}")
+        epoch = epochs[-1]
+    path = _sharded_dir(ckpt_dir, name, epoch, mid)
+    with open(os.path.join(path, "layout.json")) as f:
+        saved = json.load(f)
+    here = _layout(mesh)
+    if (saved["world"], saved["axes"]) != (here["world"], here["axes"]):
+        raise ValueError(f"checkpoint {path} was saved on mesh {saved['axes']} of {saved['world']} ranks, "
+                         f"not on this one ({here['axes']}, {here['world']} ranks)")
+    state = _load(os.path.join(path, f"rank{_rank_world()[0]}.pt"))
+    if template_tree is not None:
+        _same_structure(state, template_tree)
+    return state
+
+
+def remove_sharded(ckpt_dir: str, name: str, epochs, mid: bool = False) -> None:
+    """Delete the sharded saves of ``epochs`` (rank 0 only)."""
+    import shutil
+
+    if _rank_world()[0] != 0:
+        return
+    for epoch in epochs:
+        shutil.rmtree(_sharded_dir(ckpt_dir, name, epoch, mid), ignore_errors=True)

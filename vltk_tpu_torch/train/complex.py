@@ -79,9 +79,11 @@ class ComplexExperiment(SimpleExperiment):
             if loop.train:
                 self._steps[loop.name] = make_train_step(
                     self.model, loop.loss_fn or self.loss_fn, self.optimizer, self.scheduler, accum_steps=accum,
+                    mesh=self.mesh,
                 )
             else:
-                self._steps[loop.name] = make_eval_step(self.model, loop.metric_fn or self._eval_metric_fn)
+                self._steps[loop.name] = make_eval_step(self.model, loop.metric_fn or self._eval_metric_fn,
+                                                        mesh=self.mesh)
 
     def _rebuild_optimizer(self, total_steps: int) -> None:
         """The optimizer and schedule over ``total_steps``, as JAX swaps the
@@ -91,7 +93,8 @@ class ComplexExperiment(SimpleExperiment):
         count = self.scheduler.last_epoch
         state = self.optimizer.state_dict()
         self.total_steps = total_steps
-        self.optimizer, self.scheduler = make_optimizer(self.model, self.config.train, total_steps)
+        self.optimizer, self.scheduler = make_optimizer(self.model, self.config.train, total_steps, mesh=self.mesh,
+                                                        zero1_axis=self._zero1_axis())
         self.optimizer.load_state_dict(state)
         factor = self.scheduler.lr_lambdas[0]
         self.scheduler.last_epoch = count

@@ -11,6 +11,17 @@ optimizer is ``torch.optim.AdamW`` with a ``LambdaLR`` schedule, and the
 RNG is torch's, seeded from ``config.train.seed`` and saved (CPU and CUDA
 state) in every checkpoint's info.
 
+Under a mesh (``mesh=parallel.make_mesh(...)``, ``rules`` such as
+``parallel.LXMERT_RULES``): the model is built whole on every rank and
+cut by the rules (``parallel.shard_params``), every rank loads the global
+batch and keeps its ``data`` block (``parallel.shard_batch``, JAX's
+``shard_batch`` placement; the loader's host shards would split the
+global order differently and are refused), the step reduces the
+gradients over data x seq, ``config.mesh.zero1_axis`` turns on ZeRO-1,
+the RNG is seeded per replica (seed + its data x seq index, the same on
+every rank of the ``model`` axis) and checkpoints are sharded, one file
+a rank (``checkpoint.save_checkpoint_sharded``).
+
 User surface:
 
   * ``build_model()`` -> ``nn.Module``  [required]
@@ -43,10 +54,14 @@ from vltk_tpu_torch.train.checkpoint import (
     latest_epoch,
     latest_mid_epoch,
     load_checkpoint,
+    load_checkpoint_sharded,
     load_mid_checkpoint,
     prune_checkpoints,
+    remove_sharded,
     save_checkpoint,
+    save_checkpoint_sharded,
     save_mid_checkpoint,
+    sharded_epochs,
 )
 from vltk_tpu_torch.train.optim import make_optimizer
 from vltk_tpu_torch.train.steps import make_eval_step, make_train_step
@@ -64,9 +79,20 @@ class SimpleExperiment(abc.ABC):
     name: str = "experiment"
 
     def __init__(self, config, loaders=None, mesh=None, rules=None, device: DeviceLike = None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("a device mesh is not ported yet (ROADMAP A.14)")
+        if rules is not None and mesh is None:
+            raise ValueError("sharding rules need a mesh")
+        if mesh is not None:
+            if not mesh.is_member:
+                raise ValueError(f"this rank is outside the mesh {mesh.shape}")
+            if device is not None and resolve_device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's ({mesh.device})")
+            if int(getattr(config.data, "shard_count", None) or 1) > 1:
+                raise ValueError(
+                    "under a mesh every rank loads the global batch and keeps its data block; "
+                    "leave data.shard_count unset")
+            device = mesh.device
         self.config = config
+        self.mesh, self.rules = mesh, rules
         self.device = resolve_device(device)
         self._init_dirs()
         self._init_seed()
@@ -82,11 +108,17 @@ class SimpleExperiment(abc.ABC):
         os.makedirs(self.logdir, exist_ok=True)
         self.ckpt_dir = self.config.checkpoint_dir or os.path.join(self.logdir, "checkpoints")
         os.makedirs(self.ckpt_dir, exist_ok=True)
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            # one step log a rank; the checkpoints stay shared
+            self.logdir = os.path.join(self.logdir, f"rank{torch.distributed.get_rank()}")
+            os.makedirs(self.logdir, exist_ok=True)
         # one writer for every checkpoint, so renames stay strictly ordered
         self._ckpt_writer = AsyncCheckpointWriter()
 
     def _init_seed(self) -> None:
-        torch.manual_seed(self.config.train.seed)  # the CPU and every CUDA device
+        # the CPU and every CUDA device; one stream a replica under a mesh
+        offset = self.mesh.replica_index if self.mesh is not None else 0
+        torch.manual_seed(self.config.train.seed + offset)
 
     def _init_loaders(self, loaders) -> None:
         if loaders is None:
@@ -99,33 +131,49 @@ class SimpleExperiment(abc.ABC):
 
     def _init_models(self) -> None:
         self.model: nn.Module = self.build_model().to(self.device)
+        if self.rules is not None:
+            from vltk_tpu_torch.parallel import shard_params
+
+            shard_params(self.model, self.rules, self.mesh)
 
     def _init_optim(self) -> None:
         steps_per_epoch = max(len(self.train_loader), 1)
         self.total_steps = steps_per_epoch * self.config.train.epochs
-        self.optimizer, self.scheduler = make_optimizer(self.model, self.config.train, self.total_steps)
+        self.optimizer, self.scheduler = make_optimizer(
+            self.model, self.config.train, self.total_steps, mesh=self.mesh, zero1_axis=self._zero1_axis())
         self.train_step = make_train_step(
             self.model, self.loss_fn, self.optimizer, self.scheduler,
-            accum_steps=int(getattr(self.config.train, "accum_steps", 1)),
+            accum_steps=int(getattr(self.config.train, "accum_steps", 1)), mesh=self.mesh,
         )
-        self.eval_step = make_eval_step(self.model, self._eval_metric_fn)
+        self.eval_step = make_eval_step(self.model, self._eval_metric_fn, mesh=self.mesh)
         self.start_epoch = 0
         self.global_step = 0
         self._skip_steps = 0  # batches to replay-skip on a mid-epoch resume
         self._preempted = False
 
+    def _zero1_axis(self):
+        """``config.mesh.zero1_axis`` under a mesh, else None."""
+        return getattr(self.config.mesh, "zero1_axis", None) if self.mesh is not None else None
+
     def _init_checkpoint(self) -> None:
         """Resume from the newest checkpoint: the highest completed epoch,
         unless a later epoch has a mid-epoch save, which re-enters that
         epoch step by step."""
-        full = latest_epoch(self.ckpt_dir, self.name)
-        mid = latest_mid_epoch(self.ckpt_dir, self.name)
+        if self.mesh is not None:
+            full = (sharded_epochs(self.ckpt_dir, self.name) or [None])[-1]
+            mid = (sharded_epochs(self.ckpt_dir, self.name, mid=True) or [None])[-1]
+        else:
+            full = latest_epoch(self.ckpt_dir, self.name)
+            mid = latest_mid_epoch(self.ckpt_dir, self.name)
         # a mid file of an epoch <= full is a leftover the epoch's save supersedes
         use_mid = mid is not None and (full is None or mid > full)
         epoch = mid if use_mid else full
         if epoch is None:
             return
-        if use_mid:
+        if self.mesh is not None:
+            state = load_checkpoint_sharded(self.ckpt_dir, self.name, epoch=epoch, mesh=self.mesh, mid=use_mid)
+            model_state, optim_state, info = state["model"], state["optim"], json.loads(state["info_json"])
+        elif use_mid:
             model_state, optim_state, info = load_mid_checkpoint(self.ckpt_dir, self.name, epoch)
         else:
             model_state, optim_state, info = load_checkpoint(self.ckpt_dir, self.name, epoch)
@@ -310,6 +358,10 @@ class SimpleExperiment(abc.ABC):
         else:
             it = loader
         prepared = (self.prepare_batch(batch) for i, batch in enumerate(it) if i >= skip)
+        if self.mesh is not None:
+            from vltk_tpu_torch.parallel import shard_batch
+
+            prepared = (shard_batch(b, self.mesh) for b in prepared)
         return device_put_iter(prepared, device=self.device)
 
     # -- persistence and logging --------------------------------------------
@@ -327,6 +379,9 @@ class SimpleExperiment(abc.ABC):
         # the in-flight periodic save first: clear_mid_checkpoints must
         # order after it, and its failure must surface here
         self._ckpt_writer.wait()
+        if self.mesh is not None:
+            self._save_sharded(epoch, crash)
+            return
         # a crash save gets its own names, so it never pairs pre-crash
         # weights with the crash step in the main files
         save_checkpoint(
@@ -341,7 +396,12 @@ class SimpleExperiment(abc.ABC):
     def save_mid(self, epoch: int, step_in_epoch: int, wait: bool = False) -> None:
         """Periodic or preemption save: one atomic file. Periodic saves
         write on the background writer (``train.async_save``); ``wait=True``
-        (the preemption save) blocks until the file is durable."""
+        (the preemption save) blocks until the file is durable. Under a
+        mesh the save is sharded and synchronous."""
+        if self.mesh is not None:
+            info = {"epoch": epoch, "name": self.name, **self._resume_info(), "step_in_epoch": int(step_in_epoch)}
+            save_checkpoint_sharded(self.ckpt_dir, self.name, epoch, self._sharded_state(info), self.mesh, mid=True)
+            return
         save_mid_checkpoint(
             self.ckpt_dir, self.name, epoch, self.model.state_dict(), self._optim_state(),
             info={**self._resume_info(), "step_in_epoch": int(step_in_epoch)},
@@ -349,6 +409,22 @@ class SimpleExperiment(abc.ABC):
         )
         if wait or not bool(getattr(self.config.train, "async_save", True)):
             self._ckpt_writer.wait()
+
+    def _sharded_state(self, info: Dict[str, Any]) -> Dict[str, Any]:
+        return {"model": self.model.state_dict(), "optim": self._optim_state(),
+                "info_json": json.dumps(info, default=str)}
+
+    def _save_sharded(self, epoch: int, crash: bool) -> None:
+        name = self.name if not crash else f"{self.name}_crash"
+        info = {"epoch": epoch, "name": name, **self._resume_info()}
+        save_checkpoint_sharded(self.ckpt_dir, name, epoch, self._sharded_state(info), self.mesh, collective=not crash)
+        if crash:
+            return
+        remove_sharded(self.ckpt_dir, self.name, [e for e in sharded_epochs(self.ckpt_dir, self.name, mid=True)
+                                                   if e <= epoch], mid=True)
+        keep = int(getattr(self.config.train, "keep_checkpoints", 0))
+        if keep > 0:
+            remove_sharded(self.ckpt_dir, self.name, sharded_epochs(self.ckpt_dir, self.name)[:-keep])
 
     def write_epoch(self, line: str) -> None:
         with open(os.path.join(self.logdir, "epoch_log.txt"), "a") as f:
