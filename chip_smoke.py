@@ -309,13 +309,28 @@ package):
    4096 under ``(data 1, seq 1, model 1)`` on each sequence backend
    (Ulysses bitwise the dense route; the ring's online softmax within a
    relative L2 of 2^-6); step ms with and without the mesh, peak memory;
-40. prints the ``kernels`` JSON line (each kernel also with its launches on
+40. GPipe, expert parallelism and the sharded bundle on one-rank NCCL
+   groups (multi-rank against JAX: ``tests/test_torch_pipeline_moe.py``):
+   run A trains LayoutLM-base (bf16, seq 1024, the flash route, dropout
+   off) with its 12 encoder layers stacked and run by ``gpipe_spmd`` over
+   ``(pipe 1)``, B=8 as 4 microbatches of 2, on the deterministic kernels:
+   the encoder output, loss and every gradient equal the same layers
+   applied in turn to the microbatches, within 2^-6 relative L2 of the
+   whole batch; K3, K4, K5 48 each; run B runs the MoE LXMERT of phase 28
+   under ``(data 1, expert 1)`` with ``LXMERT_MOE_RULES``: logits, aux
+   terms and two AdamW steps bitwise the mesh-less ones, the routing
+   collectives called; run C exports the parity_300 extraction step (B=8)
+   under ``(data 1)``, loads and runs it: features and boxes bitwise the
+   eager step's, K1 once and K2 twice inside the program; step ms, peak
+   memory, export and load seconds;
+41. prints the ``kernels`` JSON line (each kernel also with its launches on
    the two span paths, the four int8 paths, ViT, VisualBERT, MoE LXMERT,
    the server, the data plane's extraction and training, the raw FUNSD and
    DocVQA trainers, GQA's extraction and training, detection training, the
    detection experiment, the CLI's extraction, the loaded bundles, the
-   trained-drift training, the int8 probe and phase 39's mesh training and
-   sequence-parallel forwards; K3 also with its times and
+   trained-drift training, the int8 probe, phase 39's mesh training and
+   sequence-parallel forwards, and phase 40's pipelined step, EP steps and
+   loaded sharded bundle; K3 also with its times and
    bounds at ViT's and VisualBERT's shapes), then the device line last.
 
 Any failed check raises: the script exits non-zero and prints no result.
@@ -5071,6 +5086,280 @@ def phase_parallel(dev, wrappers, smi: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 40
+
+PIPE_MICRO = 4  # run A: B=8 as 4 microbatches of 2
+# run A against the whole batch through the layers at once: bf16 GEMMs of
+# B=2 and of B=8 round differently, over 12 layers (the bound of the ring's
+# forward in phase 39)
+PIPE_REL_L2 = 2.0 ** -6
+EP_STEPS = 2
+
+
+def pipeline_run(model, stacked, batch, mesh):
+    """LayoutLM-base's token loss with the 12 encoder layers from
+    ``stacked`` (leaves that require grad): through ``gpipe_spmd`` on
+    ``mesh``, or (``mesh`` None) the same layers applied in turn to the
+    same microbatches. -> (encoder output, loss); the gradients land in
+    ``stacked`` and the model's other parameters."""
+    from vltk_tpu_torch.models.layoutlm import token_classification_loss
+    from vltk_tpu_torch.parallel import gpipe_spmd
+
+    template = model.layoutlm.encoder.layer[0]
+
+    def layer_fn(p, xm):
+        return torch.func.functional_call(template, p, (xm[0], xm[1])), xm[1]
+
+    x = model.layoutlm.embeddings(batch["ids"], batch["boxes"])
+    n, s, h = x.shape
+    xm = (x.view(PIPE_MICRO, n // PIPE_MICRO, s, h), batch["mask"].float().view(PIPE_MICRO, n // PIPE_MICRO, s))
+    if mesh is not None:
+        out = gpipe_spmd(layer_fn, stacked, xm, mesh=mesh)[0]
+    else:
+        layers = [dict(zip(stacked, v)) for v in zip(*(t.unbind(0) for t in stacked.values()))]
+        outs = []
+        for m in range(PIPE_MICRO):
+            hm = (xm[0][m], xm[1][m])
+            for p in layers:
+                hm = layer_fn(p, hm)
+            outs.append(hm[0])
+        out = torch.stack(outs)
+    out = out.reshape(n, s, h)
+    loss = token_classification_loss(model.classifier(model.dropout(out)), batch["labels"])
+    loss.backward()
+    return out.detach(), loss.detach()
+
+
+def phase_pipeline_experts_bundle(dev, wrappers, smi: str) -> dict:
+    """Phase 40: the rest of the parallel layer on a one-rank NCCL group.
+    Run A: LayoutLM-base training (12 x 768, seq 1024, bf16, the flash
+    route, dropout off) with its 12 encoder layers stacked and run by
+    ``gpipe_spmd`` over ``(("pipe", 1),)``, B=8 as 4 microbatches of 2, on
+    PyTorch's deterministic kernels: the encoder output, the loss and every
+    gradient equal the same layers applied in turn to the same microbatches
+    (values equal; a signed zero may differ), within 2^-6 relative L2 of the
+    whole batch through the model's own forward; K3, K4, K5 48 times each
+    in the step; the shifts and the replicating reduce ran. Run B: the MoE
+    LXMERT of phase 28 (LXMERT-base widths, 8 experts, top 2, factor 1.25,
+    B=32) under ``(("data", 1), ("expert", 1))`` with ``LXMERT_MOE_RULES``:
+    logits and aux terms bitwise the mesh-less forward's, two AdamW steps
+    of the VQA loss plus the aux terms bitwise the mesh-less steps'. Run C:
+    the extraction step (``FRCNNConfig.vg_extraction``'s geometry, the
+    parity_300 preset, B=8, bf16) exported under ``(("data", 1),)``,
+    saved, loaded on the mesh and run: features and boxes bitwise the eager
+    step's, the manifest 1 device, K1 once and K2 twice inside the loaded
+    program."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vltk_tpu_torch.adapters.frcnn import setup, tame_random_weights
+    from vltk_tpu_torch.aot import bundle_manifest, export_step, load_bundle, save_bundle
+    from vltk_tpu_torch.config import MeshConfig
+    from vltk_tpu_torch.experiments import LxmertVQAExperiment
+    from vltk_tpu_torch.models.frcnn import FRCNNConfig
+    from vltk_tpu_torch.models.layoutlm import LayoutLMConfig, LayoutLMForTokenClassification, init_weights
+    from vltk_tpu_torch.models.lxmert import LxmertConfig
+    from vltk_tpu_torch.models.moe import MoEFeedForward, moe_aux_losses
+    from vltk_tpu_torch.parallel import LXMERT_MOE_RULES, make_mesh, shard_params, stack_layer_params, use_mesh
+    from vltk_tpu_torch.parallel import collectives as C
+    from vltk_tpu_torch.trace import train_documents
+    from vltk_tpu_torch.train.optim import make_optimizer
+    from vltk_tpu_torch.train.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+    # run A: GPipe over LayoutLM-base's encoder
+    pipe_mesh = make_mesh(MeshConfig(axes=(("pipe", 1),)), device=dev)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, f"group {dist.get_backend()}")
+    cfg = LayoutLMConfig(dtype="bfloat16", max_position_embeddings=1024, attention_impl="flash",
+                         attention_dropout=0.0, hidden_dropout=0.0)
+    model = init_weights(LayoutLMForTokenClassification(cfg), seed=0).to(dev).train()
+    docs = train_documents(TRAIN_BATCH, cfg.vocab_size, cfg.num_labels, dev)
+    batch = {"ids": docs["vtext"], "boxes": docs["tokenbox"], "mask": docs["visual_attention_mask"],
+             "labels": docs["tokenlabels"].long()}
+    layer_params = {k: v.detach() for k, v in model.named_parameters() if k.startswith("layoutlm.encoder.layer.")}
+    base = stack_layer_params(layer_params, "layoutlm.encoder.layer.", cfg.l_layers)
+    others = [p for n, p in model.named_parameters() if not n.startswith("layoutlm.encoder.layer.")]
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for tag, m in (("sequential", None), ("pipeline", pipe_mesh)):
+            stacked = {k: v.clone().requires_grad_() for k, v in base.items()}
+            for p in others:
+                p.grad = None
+            for w in wrappers.values():
+                w.launches = 0
+            C.reset_counts()
+            hidden, loss = pipeline_run(model, stacked, batch, m)
+            torch.cuda.synchronize()
+            launches = {k: w.launches for k, w in wrappers.items()}
+            runs[tag] = {"hidden": hidden, "loss": loss, "launches": launches, "counts": C.counts(),
+                         "grads": {**{k: v.grad for k, v in stacked.items()},
+                                   **{n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}}}
+        with torch.no_grad():
+            whole = model.layoutlm(batch["ids"], batch["boxes"], batch["mask"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    seq_run, pipe_run = runs["sequential"], runs["pipeline"]
+    want_k = {"flash_attention": cfg.l_layers * PIPE_MICRO, "flash_attention_dq": cfg.l_layers * PIPE_MICRO,
+              "flash_attention_dkv": cfg.l_layers * PIPE_MICRO}
+    for tag, r in runs.items():
+        got = {k: r["launches"][k] for k in want_k}
+        check(got == want_k, f"run A {tag}: launches {r['launches']}, want {want_k}")
+        check(bool(torch.isfinite(r["hidden"]).all()) and bool(torch.isfinite(r["loss"])), f"run A {tag} not finite")
+    check(torch.equal(pipe_run["hidden"], seq_run["hidden"]), "run A: the pipeline's hidden states differ")
+    check(torch.equal(pipe_run["loss"], seq_run["loss"]), f"run A: loss {pipe_run['loss']} != {seq_run['loss']}")
+    differ = [k for k, g in seq_run["grads"].items() if not torch.equal(pipe_run["grads"][k], g)]
+    check(not differ, f"run A: gradients differ from the sequential microbatches': {differ[:5]}")
+    check(pipe_run["counts"]["pipe_shift"] == 2 * PIPE_MICRO and pipe_run["counts"]["pipe_replicate"] == 1,
+          f"run A collectives {pipe_run['counts']}")
+    check(not any(seq_run["counts"].values()), f"run A: collectives without a mesh {seq_run['counts']}")
+    whole_rel = float((pipe_run["hidden"] - whole).norm() / whole.norm())
+    check(whole_rel <= PIPE_REL_L2, f"run A: relative L2 {whole_rel} to the whole batch > {PIPE_REL_L2}")
+    step_ms, peak = {}, {}
+    for tag, m in (("sequential", None), ("pipeline", pipe_mesh)):
+        stacked = {k: v.clone().requires_grad_() for k, v in base.items()}
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[tag] = time_step(lambda: pipeline_run(model, stacked, batch, m), steps=3)
+        peak[tag] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"parallel run A: LayoutLM-base bf16 seq 1024 B={TRAIN_BATCH} as {PIPE_MICRO} microbatches, 12 layers "
+          f"through gpipe_spmd on (pipe 1): step {step_ms['pipeline']:.3f} ms (the layers in turn "
+          f"{step_ms['sequential']:.3f} ms) on {smi}; peak {peak['pipeline']:.2f} GB ({peak['sequential']:.2f}); "
+          f"equal to the microbatches in turn (hidden, loss, {len(seq_run['grads'])} gradients); rel L2 "
+          f"{whole_rel:.3e} to the whole batch; launches {pipe_run['launches']}; collectives "
+          f"{ {k: v for k, v in pipe_run['counts'].items() if v} }")
+    out["pipeline"] = {"step_ms": step_ms, "peak_mem_gb": peak, "rel_l2_whole": whole_rel,
+                       "launches": pipe_run["launches"], "collectives": pipe_run["counts"],
+                       "seconds": time.perf_counter() - t_phase}
+    del model, runs, seq_run, pipe_run, base, stacked, whole, layer_params, others
+    torch.cuda.empty_cache()
+
+    # run B: expert parallelism with global routing
+    t_run = time.perf_counter()
+    ep_mesh = make_mesh(MeshConfig(axes=(("data", 1), ("expert", 1))), device=dev)
+    mcfg = LxmertConfig(dtype="bfloat16", moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                        moe_capacity_factor=MOE_CAPACITY, **MOE_LAYERS)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_ep_") as logdir:
+        host = [lxmert_train_batch(LXMERT_TRAIN_BATCH, mcfg, seed=i) for i in range(EP_STEPS)]
+        exp = lxmert_experiment(LxmertVQAExperiment, mcfg, logdir, host, 1e-5, device=dev)
+        data = list(exp._device_batches(host))
+        models = {"plain": exp.model, "ep": shard_params(copy.deepcopy(exp.model), LXMERT_MOE_RULES, ep_mesh)}
+        blocks = [m for m in models["ep"].modules() if isinstance(m, MoEFeedForward)]
+        check(len(blocks) == 9 and all(m.ep.expert_cut for m in blocks), "run B: the rules did not cut the stacks")
+        ep_runs = {}
+        for tag, m in (("plain", None), ("ep", ep_mesh)):
+            model = models[tag].eval()
+            for w in wrappers.values():
+                w.launches = 0
+            C.reset_counts()
+            with torch.no_grad(), (use_mesh(m) if m is not None else contextlib.nullcontext()):
+                logits = exp._logits(model, data[0])
+                aux = {k: v.clone() for k, v in moe_aux_losses(model).items()}
+            forward_counts = C.counts()
+
+            def loss_fn(model, b):
+                return exp.loss_fn(model, b)[0] + sum(moe_aux_losses(model).values()), {}
+
+            opt, sched = make_optimizer(model, exp.config.train, EP_STEPS, mesh=m)
+            step = make_train_step(model, loss_fn, opt, sched, mesh=m)
+            torch.manual_seed(0)  # the same dropout masks in both runs
+            torch.use_deterministic_algorithms(True)
+            try:
+                t0 = time.perf_counter()
+                losses = [step(b)["loss"].clone() for b in data]
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            finally:
+                torch.use_deterministic_algorithms(False)
+            ep_runs[tag] = {"logits": logits, "aux": aux, "losses": losses, "forward_counts": forward_counts,
+                            "counts": C.counts(), "train_s": train_s,
+                            "launches": {k: w.launches for k, w in wrappers.items()},
+                            "params": {n: p.detach() for n, p in model.named_parameters()}}
+        del exp
+    a, b = ep_runs["plain"], ep_runs["ep"]
+    check(bool(torch.isfinite(a["logits"]).all()) and len(a["aux"]) == 9, "run B: plain forward")
+    check(bitwise_equal(a["logits"], b["logits"]), f"run B: logits differ, max {float((a['logits'] - b['logits']).abs().max())}")
+    check(a["aux"].keys() == b["aux"].keys() and all(bitwise_equal(a["aux"][k], b["aux"][k]) for k in a["aux"]),
+          "run B: aux terms differ")
+    check(all(bitwise_equal(x, y) for x, y in zip(a["losses"], b["losses"])), "run B: step losses differ")
+    differ = [n for n in a["params"] if not bitwise_equal(a["params"][n], b["params"][n])]
+    check(not differ, f"run B: parameters differ after {EP_STEPS} steps: {differ[:5]}")
+    for kind in ("moe_route_gather", "moe_dispatch_reduce", "moe_combine_reduce"):
+        check(b["forward_counts"][kind] > 0, f"run B: no {kind} in the forward ({b['forward_counts']})")
+    check(b["counts"]["moe_route_reduce_scatter"] > 0 and b["counts"]["ep_copy"] > 0, f"run B: {b['counts']}")
+    check(not any(a["counts"].values()), f"run B: collectives without a mesh {a['counts']}")
+    print(f"parallel run B: MoE LXMERT-base widths {MOE_LAYERS} ({MOE_EXPERTS} experts, top {MOE_TOP_K}, capacity "
+          f"factor {MOE_CAPACITY}) B={LXMERT_TRAIN_BATCH} bf16 under (data 1, expert 1): logits and "
+          f"{len(a['aux'])} aux terms bitwise, {EP_STEPS} steps bitwise (losses "
+          f"{[float(x) for x in b['losses']]}); {EP_STEPS} steps {b['train_s']:.2f} s under the mesh "
+          f"({a['train_s']:.2f} s without it, the first steps of the phase) on {smi}; forward collectives "
+          f"{ {k: v for k, v in b['forward_counts'].items() if v} }")
+    out["experts"] = {"train_s": {k: r["train_s"] for k, r in ep_runs.items()}, "collectives": b["counts"],
+                      "forward_collectives": b["forward_counts"], "launches": b["launches"],
+                      "seconds": time.perf_counter() - t_run}
+    del ep_runs, a, b, models
+    torch.cuda.empty_cache()
+
+    # run C: the sharded extraction bundle
+    t_run = time.perf_counter()
+    data_mesh = make_mesh(MeshConfig(axes=(("data", 1),)), device=dev)
+    geometry = FRCNNConfig.vg_extraction()
+    bundle, _ = setup(preset="parity_300", batch_size=8, device=dev, resized_canvas=CANVAS, short=800.0,
+                      maximum=1333.0)
+    fcfg = bundle["cfg"]
+    check((fcfg.pre_nms_topk, fcfg.post_nms_topk, fcfg.dtype) ==
+          (geometry.pre_nms_topk, geometry.post_nms_topk, geometry.dtype), f"run C: config {fcfg}")
+    frcnn = tame_random_weights(bundle["model"])
+
+    def extract(raw, sizes):
+        pre = bundle["pre_fn"](raw, sizes)
+        o = frcnn(pre["img"], pre["sizes"], scales_yx=pre["scales_yx"])
+        return o["roi_features"], o["boxes"]
+
+    raw, sizes = step_images(dev, 8)
+    with torch.no_grad():
+        eager = extract(raw, sizes)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_dp_") as tmp:
+        path = os.path.join(tmp, "extract_dp.zip")
+        t0 = time.perf_counter()
+        save_bundle(path, {"extract": export_step(extract, (raw, sizes), modules={"model": frcnn}, mesh=data_mesh)})
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_bundle(path, device=dev, mesh=data_mesh)["extract"]
+        load_s = time.perf_counter() - t0
+        manifest = bundle_manifest(path)["sharding"]["extract"]
+        mb = os.path.getsize(path) / 1e6
+    for w in wrappers.values():
+        w.launches = 0
+    (feats, boxes), sharding = loaded(raw, sizes)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(manifest["nr_devices"] == 1 and tuple(sharding.spec) == ("data",), f"run C: manifest {manifest}")
+    check(bitwise_equal(feats, eager[0]) and bitwise_equal(boxes, eager[1]),
+          "run C: the loaded program's features or boxes differ from the eager step's")
+    check(launches["roi_pool"] == 1 and launches["nms"] == 2 and
+          sum(launches.values()) == 3, f"run C: launches inside the loaded program {launches}")
+    loaded_ms = time_step(lambda: loaded(raw, sizes), steps=3)
+    with torch.no_grad():
+        eager_ms = time_step(lambda: extract(raw, sizes), steps=3)
+    print(f"parallel run C: the sharded extraction bundle (parity_300, B=8 bf16, data 1): export {export_s:.1f} s, "
+          f"load {load_s:.1f} s, {mb:.0f} MB; features and boxes bitwise the eager step's; step {loaded_ms:.2f} ms "
+          f"loaded, {eager_ms:.2f} ms eager on {smi}; launches {launches}; manifest {manifest}")
+    out["bundle"] = {"export_s": export_s, "load_s": load_s, "mb": mb, "loaded_ms": loaded_ms, "eager_ms": eager_ms,
+                     "launches": launches, "manifest": manifest, "seconds": time.perf_counter() - t_run}
+    del bundle, frcnn, loaded, eager, feats, boxes
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 40 took {out['seconds']:.1f} s (run A {out['pipeline']['seconds']:.1f} s, run B "
+          f"{out['experts']['seconds']:.1f} s, run C {out['bundle']['seconds']:.1f} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5242,6 +5531,9 @@ def main() -> int:
     parallel = phase_parallel(dev, KERNEL_WRAPPERS, smi)
     print("parallel_run " + json.dumps(parallel))
     stamp("data, tensor and sequence parallelism (phase 39)")
+    rest = phase_pipeline_experts_bundle(dev, KERNEL_WRAPPERS, smi)
+    print("pipeline_experts_bundle_run " + json.dumps(rest))
+    stamp("GPipe, expert parallelism and the sharded bundle (phase 40)")
     print("int8_products " + json.dumps(phase_int8_products(dev, int8_shapes)))
 
     # launches as counted on each kernel's main path: the B=8 extraction
@@ -5305,6 +5597,13 @@ def main() -> int:
         # the flash route is off on a sequence-cut stream, as in JAX)
         e["mesh_training_launches"] = parallel["launches"].get(key, 0)
         e["seq_parallel_launches"] = parallel["seq_launches"].get(key, 0)
+        # phase 40: one training step through gpipe_spmd (K3, K5, K4 48 each:
+        # 12 layers x 4 microbatches), the MoE LXMERT's two steps under the
+        # expert mesh (none: the streams are below the flash gate) and one
+        # call of the loaded sharded extraction bundle (K1 1, K2 2)
+        e["pipeline_launches"] = rest["pipeline"]["launches"].get(key, 0)
+        e["moe_ep_launches"] = rest["experts"]["launches"].get(key, 0)
+        e["sharded_bundle_launches"] = rest["bundle"]["launches"].get(key, 0)
     # K3 at the attention shapes of ViT-B/16 (no mask) and VisualBERT
     k3 = next(e for e in entries if e["name"] == "flash_attention")
     for model, run in (("vit", vit), ("visualbert", visualbert)):

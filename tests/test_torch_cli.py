@@ -171,6 +171,9 @@ def test_nested_parse_rejects_trailing_input():
 
 @pytest.mark.parametrize("axes", ["((data,1),(expert,2))", "((pipe,2),)"])
 def test_simple_with_a_mesh_raises_the_a14_error(tmp_path, axes):
+    """``expert`` and ``pipe`` axes are ported (A.14b): what is left to
+    refuse is what JAX refuses, a mesh larger than the group (one rank
+    here), with JAX's text, before the experiment is built."""
     from vltk_tpu_torch.experiments import Experiments
 
     class FakeExp:
@@ -184,7 +187,7 @@ def test_simple_with_a_mesh_raises_the_a14_error(tmp_path, axes):
 
     Experiments.add(FakeExp)
     try:
-        with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A\.14b\)"):
+        with pytest.raises(ValueError, match=r"needs 2 devices, have 1"):
             main(["simple", "fake_mesh", f"--mesh.axes={axes}", f"--logdir={tmp_path}"])
     finally:
         Experiments._classes.pop("fake_mesh", None)

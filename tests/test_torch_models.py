@@ -309,7 +309,8 @@ class TestGuards:
             "mods = [m.name for m in pkgutil.walk_packages(vltk_tpu_torch.__path__, 'vltk_tpu_torch.')]\n"
             "assert len(mods) >= 49, mods\n"
             "assert {'vltk_tpu_torch.parallel', 'vltk_tpu_torch.parallel.mesh', 'vltk_tpu_torch.parallel.sharding',"
-            " 'vltk_tpu_torch.parallel.collectives', 'vltk_tpu_torch.parallel.ring'} <= set(mods), mods\n"
+            " 'vltk_tpu_torch.parallel.collectives', 'vltk_tpu_torch.parallel.ring',"
+            " 'vltk_tpu_torch.parallel.pipeline'} <= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax') or m.startswith(('jax.', 'flax.'))"
             " or m == 'vltk_tpu' or m.startswith('vltk_tpu.')]\n"

@@ -526,30 +526,36 @@ def test_make_mesh_free_axis(ranks):
 
 
 def test_make_mesh_errors(ranks):
-    """The sizing errors carry JAX's texts; a fixed mesh smaller than the
-    group takes the first ranks, as JAX takes the first devices; expert and
-    pipe axes of size > 1 raise naming A.14b; a cuda mesh over a gloo group
+    """The sizing errors carry JAX's texts, for ``pipe`` and ``expert``
+    axes too; a fixed mesh smaller than the group takes the first ranks, as
+    JAX takes the first devices; ``expert`` and ``pipe`` axes of any size
+    the group allows build with JAX's grid; a cuda mesh over a gloo group
     raises and does not switch backend."""
     import jax
 
     from vltk_tpu.config import MeshConfig as JMesh
     from vltk_tpu.parallel import make_mesh as jax_make_mesh
 
-    for axes, total in (((("data", -1), ("model", -1)), 4), ((("data", 3),), 2), ((("data", -1), ("model", 3)), 4)):
+    for axes, total in (((("data", -1), ("model", -1)), 4), ((("data", 3),), 2), ((("data", -1), ("model", 3)), 4),
+                        ((("pipe", 3), ("expert", -1)), 4), ((("data", 1), ("expert", 8)), 4)):
         with pytest.raises(ValueError) as want:
             jax_make_mesh(JMesh(axes=axes), devices=jax.devices()[:total])
         with pytest.raises(ValueError) as got:
             PM.resolve_axes(axes, total)
         assert str(got.value) == str(want.value)
-    for axes in ((("data", 1), ("expert", 2)), (("pipe", 2),)):
-        with pytest.raises(NotImplementedError, match="A.14b"):
-            PM.resolve_axes(axes, 4)
-    assert PM.resolve_axes((("data", 1), ("expert", 1)), 4)[1] == [1, 1]
-    results = ranks.run(job_mesh, [(("data", 2),)])
+    assert PM.resolve_axes((("data", 1), ("expert", 2)), 4)[1] == [1, 2]
+    assert PM.resolve_axes((("pipe", -1),), 4)[1] == [4]
+    cases = [(("data", 2),), (("pipe", 2), ("expert", -1))]
+    results = ranks.run(job_mesh, cases)
     want = jax_make_mesh(JMesh(axes=(("data", 2),)), devices=jax.devices()[:WORLD])
     members = [int(d.id) for d in want.devices.flat]
     assert [r[0][1] is not None for r in results] == [jax.devices()[i].id in members for i in range(WORLD)]
     assert [r[0][1] for r in results] == [(0,), (1,), None, None]
+    want = jax_make_mesh(JMesh(axes=cases[1]), devices=jax.devices()[:WORLD])
+    ids = np.vectorize(lambda d: d.id)(want.devices)
+    for rank, r in enumerate(results):
+        assert r[1][0] == dict(want.shape) == {"pipe": 2, "expert": 2}
+        assert tuple(int(c) for c in np.argwhere(ids == jax.devices()[rank].id)[0]) == r[1][1]
     for msg in ranks.run(job_backend_is_not_switched):
         assert msg is not None and "nccl" in msg.lower()
 
@@ -1057,15 +1063,19 @@ def job_check_tool(rank, ckpt_dir):
 
     dev = torch.device("cpu")
     return {"gradients": T.case_gradients(dev), "zero1_steps": T.case_zero1_steps(dev, ckpt_dir),
-            "ring_gradients": T.case_ring_gradients(dev)}
+            "ring_gradients": T.case_ring_gradients(dev), "gpipe_pipe4": T.case_gpipe(dev, (("pipe", 4),), None),
+            "gpipe_pipe2_data2": T.case_gpipe(dev, (("pipe", 2), ("data", 2)), "data"),
+            "moe_ep": T.case_moe_ep(dev)}
 
 
 def test_check_parallel_tool_passes_on_the_gloo_group(ranks, tmp_path):
     """``tools.check_parallel`` (the multi-rank check run under torchrun on
     four cards) holds the sharded gradients, ZeRO-1 steps, the sharded
-    checkpoint and the ring's gradients against the mesh-less port; its
-    cases pass on this group too (its Ulysses and ring forwards are this
-    file's LXMERT cases against JAX)."""
+    checkpoint, the ring's gradients, GPipe on pipe 4 and on pipe 2 x data
+    2, and the expert-parallel MoE against the mesh-less port; its cases
+    pass on this group too (its Ulysses and ring forwards are this file's
+    LXMERT cases against JAX; GPipe and the MoE are held against JAX in
+    ``tests/test_torch_pipeline_moe.py``)."""
     for r in ranks.run(job_check_tool, str(tmp_path)):
         assert all(case["ok"] for case in r.values()), r
 

@@ -738,8 +738,18 @@ class TestGuards:
             cfg.update({"train": {"no_such": 1}})
         cfg.update({"mesh": {"zero1_axis": "data", "axes": "((data,2),(model,2))"}})  # ported (A.14a)
         assert cfg.mesh.zero1_axis == "data" and cfg.mesh.axes == (("data", 2), ("model", 2))
-        with pytest.raises(NotImplementedError, match="A.14b"):
-            PC.MeshConfig(axes=(("data", 1), ("expert", 2))).build(device="cpu")
+        # expert and pipe axes are ported (A.14b); what JAX rejects, the port
+        # rejects with JAX's text, before any process group starts
+        import jax
+
+        from vltk_tpu.parallel import make_mesh as jax_make_mesh
+
+        for axes in ((("data", 1), ("expert", 2)), (("pipe", 2), ("expert", -1))):
+            with pytest.raises(ValueError) as want:
+                jax_make_mesh(JC.MeshConfig(axes=axes), devices=jax.devices()[:1])
+            with pytest.raises(ValueError) as got:
+                PC.MeshConfig(axes=axes).build(device="cpu")
+            assert str(got.value) == str(want.value)
 
     def test_experiment_guards(self, jax_model, tmp_path):
         config = port_config(tmp_path)

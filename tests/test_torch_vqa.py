@@ -246,16 +246,18 @@ class TestModules:
     def test_unported_options_name_their_roadmap_item(self):
         from vltk_tpu_torch.parallel.mesh import resolve_axes
 
-        # the mesh options are ported (A.14a); the ring backend needs a mesh,
-        # as JAX's does; expert and pipeline axes wait for A.14b
+        # the mesh options are ported (A.14a, A.14b); the ring backend needs a
+        # mesh, as JAX's does; expert and pipeline axes build, and what JAX
+        # rejects (a fixed product the world does not hold) raises
         cfg = PX.LxmertConfig(vocab_size=20, hidden_size=8, num_heads=2, intermediate_size=16, l_layers=1,
                               x_layers=1, r_layers=1, visual_feat_dim=4, activation_sharding=True,
                               seq_attention_sharding=True, seq_attention_backend="ring")
         with pytest.raises(ValueError, match="must run under a mesh"):
             PX.Lxmert(cfg)(torch.zeros((1, 4), dtype=torch.long), torch.zeros((1, 2, 4)), torch.zeros((1, 2, 4)))
-        for axes in ((("data", 1), ("expert", 2)), (("pipe", -1),)):
-            with pytest.raises(NotImplementedError, match="A.14b"):
-                resolve_axes(axes, 2)
+        assert resolve_axes((("data", 1), ("expert", 2)), 2)[1] == [1, 2]
+        assert resolve_axes((("pipe", -1),), 2)[1] == [2]
+        with pytest.raises(ValueError, match="needs 4 devices, have 2"):
+            resolve_axes((("pipe", 2), ("expert", 2)), 2)
         assert PX.LxmertConfig(remat=True).remat  # A.13 is ported
         assert PX.LxmertConfig(moe_experts=4).moe_experts == 4  # A.11b is ported
         assert PX.LxmertConfig(int8=True).int8  # A.9 is ported

@@ -25,6 +25,16 @@ A program runs on the device it was exported on. JAX's ``platforms=``
 takes ``platforms`` only as the one device type of its example inputs and
 raises on anything else, and ``load_bundle(path, device=...)`` raises when
 the device asked for is not the program's.
+
+Sharded serving (JAX's data-parallel export: the batch cut over a
+``data`` mesh, the parameters replicated, the output data-sharded; the
+program holds no collective): ``export_step(..., mesh=)`` traces the
+per-rank program on the rank's B/dp block of the example batch and
+returns a ``ShardedProgram``; the manifest records its ``nr_devices`` and
+partition specs. ``load_bundle(path, mesh=)`` refuses a mesh of another
+size (serving needs a same-size mesh, as in JAX), and the loaded step
+takes the global inputs, runs the rank's block and returns ``(the rank's
+output block, its NamedSharding)``.
 """
 
 from __future__ import annotations
@@ -61,13 +71,33 @@ def _device_type(example_args: Sequence[Any]) -> str:
     return types.pop()
 
 
+#: the partition spec of every input and output of a sharded program: the
+#: batch dim over ``data``
+_DATA_SPEC = ("data",)
+
+
+@dataclasses.dataclass
+class ShardedProgram:
+    """A per-rank program of a data-parallel step: it runs on one rank's
+    block of a batch cut over a mesh of ``nr_devices`` ranks."""
+
+    program: torch.export.ExportedProgram
+    nr_devices: int
+    in_specs: Tuple[Tuple[str, ...], ...]
+
+    def manifest(self) -> Dict[str, Any]:
+        return {"nr_devices": self.nr_devices, "in_specs": [list(s) for s in self.in_specs],
+                "out_spec": list(_DATA_SPEC)}
+
+
 def export_step(
     fn: Callable,
     example_args: Sequence[torch.Tensor],
     *,
     modules: Optional[Dict[str, torch.nn.Module]] = None,
     platforms: Optional[Sequence[str]] = None,
-) -> torch.export.ExportedProgram:
+    mesh=None,
+):
     """Trace ``fn`` (a module or a function of tensors) at the example
     shapes, without autograd, and return the ``ExportedProgram``. The
     example values are ignored: the program pins their shapes, dtypes and
@@ -77,7 +107,20 @@ def export_step(
     ``platforms``: the JAX package lowers for several backends at once; a
     torch program runs on the device it was traced on, so the only value
     taken is that device type alone (``("cuda",)`` or ``("cpu",)``).
+
+    ``mesh`` (a ``parallel.Mesh`` with a ``data`` axis): the example
+    inputs are the global batch's tensors; the program is traced on this
+    rank's block of every input's leading dim and returned as a
+    ``ShardedProgram``.
     """
+    if mesh is not None:
+        from vltk_tpu_torch.parallel.mesh import NamedSharding, P
+
+        if "data" not in mesh.shape:
+            raise ValueError(f"export_step: a sharded program cuts its batch over 'data'; the mesh is {mesh.shape}")
+        block = NamedSharding(mesh, P(*_DATA_SPEC))
+        program = export_step(fn, [block.local(a) for a in example_args], modules=modules, platforms=platforms)
+        return ShardedProgram(program, mesh.size, (_DATA_SPEC,) * len(example_args))
     device = _device_type(example_args)
     if platforms is not None:
         want = tuple(str(p) for p in platforms)
@@ -102,9 +145,13 @@ def save_bundle(
     meta = dict(meta or {})
     files = dict(files or {})
     manifest = {"format": _FORMAT, "meta": meta, "artifacts": sorted(exported), "files": sorted(files)}
+    sharded = {name: p.manifest() for name, p in exported.items() if isinstance(p, ShardedProgram)}
+    if sharded:
+        manifest["sharding"] = sharded
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("manifest.json", json.dumps(manifest, indent=1))
         for name, program in exported.items():
+            program = program.program if isinstance(program, ShardedProgram) else program
             if isinstance(program, (bytes, bytearray)):
                 data = bytes(program)
             else:
@@ -169,10 +216,28 @@ def _runner(program: torch.export.ExportedProgram) -> Callable:
     return run
 
 
-def load_bundle(path: str, device: Optional[str] = None) -> AotBundle:
+def _sharded_runner(run: Callable, sharding: Dict[str, Any], mesh) -> Callable:
+    """The global inputs -> (this rank's output block, its NamedSharding)."""
+    from vltk_tpu_torch.parallel.mesh import NamedSharding, P
+
+    blocks = [NamedSharding(mesh, P(*spec)) for spec in sharding["in_specs"]]
+    out = NamedSharding(mesh, P(*sharding["out_spec"]))
+
+    def sharded(*args):
+        if len(args) != len(blocks):
+            raise ValueError(f"the program takes {len(blocks)} inputs, got {len(args)}")
+        return run(*(b.local(a) for b, a in zip(blocks, args))), out
+
+    return sharded
+
+
+def load_bundle(path: str, device: Optional[str] = None, mesh=None) -> AotBundle:
     """Read a bundle. ``device`` (a device type or a device): the device it
     must run on; raises ``ValueError`` when a program was traced on
-    another (None takes the programs as they are)."""
+    another (None takes the programs as they are). A sharded program needs
+    ``mesh``, a ``parallel.Mesh`` of its ``nr_devices`` ranks (else
+    ``ValueError``); its step takes the global inputs and returns this
+    rank's output block with its sharding."""
     import vltk_tpu_torch.ops  # noqa: F401 - registers the kernels' ops before the load
 
     with zipfile.ZipFile(path) as zf:
@@ -182,6 +247,11 @@ def load_bundle(path: str, device: Optional[str] = None) -> AotBundle:
         fns: Dict[str, Callable] = {}
         platforms: Dict[str, Tuple[str, ...]] = {}
         for name in manifest["artifacts"]:
+            sharding = manifest.get("sharding", {}).get(name)
+            if sharding is not None and getattr(mesh, "size", None) != sharding["nr_devices"]:
+                raise ValueError(
+                    f"{path}: program {name!r} serves on a mesh of {sharding['nr_devices']} ranks; "
+                    f"got {'no mesh' if mesh is None else f'a mesh of {mesh.size}'}")
             program = torch.export.load(io.BytesIO(zf.read(f"{name}{_SUFFIX}")))
             kind = program_device(program)
             if device is not None and torch.device(device).type != kind:
@@ -189,7 +259,7 @@ def load_bundle(path: str, device: Optional[str] = None) -> AotBundle:
                     f"{path}: program {name!r} was exported on {kind!r} and cannot run on device={device!r}; "
                     f"export it again on that device"
                 )
-            fns[name] = _runner(program)
+            fns[name] = _runner(program) if sharding is None else _sharded_runner(_runner(program), sharding, mesh)
             platforms[name] = (kind,)
         files = {name: zf.read(f"files/{name}") for name in manifest["files"]}
     return AotBundle(fns=fns, meta=manifest["meta"], files=files, platforms=platforms)

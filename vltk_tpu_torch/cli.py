@@ -347,8 +347,9 @@ def cmd_simple(positional: List[str], cfg: Config, extra: Dict[str, str] = None)
     """``simple <experiment>``: run a registered experiment. When the user
     set ``mesh.axes`` (the JAX CLI's rule: the untouched default stays
     mesh-less) the mesh is built over the process group (torchrun's, or a
-    one-rank group) with ``LXMERT_RULES``; an ``expert`` or ``pipe`` axis of
-    size > 1 raises (ROADMAP A.14b)."""
+    one-rank group) with ``LXMERT_RULES``, as the JAX CLI does; ``pipe``
+    and ``expert`` ranks are then replicas (no rule cuts an expert stack
+    and no experiment runs a pipeline, as in JAX)."""
     if not positional:
         print("usage: vltk-torch simple <experiment> [--flags]", file=sys.stderr)
         return 2

@@ -16,8 +16,8 @@ the JAX package's. The default tokenizer ``"BertWordPieceTokenizer"`` runs
 on the port's native WordPiece over the same vocabulary.
 
 ``MeshConfig`` is honoured: ``build()`` makes the ``parallel.Mesh`` (data,
-tensor and sequence parallelism, ZeRO-1; an ``expert`` or ``pipe`` axis
-of size > 1 raises until ROADMAP A.14b). ``accum_steps`` is honoured too.
+tensor, sequence and expert parallelism, ZeRO-1; ``pipe`` ranks are
+replicas outside ``parallel.gpipe_spmd``). ``accum_steps`` is honoured too.
 Left out because no code reads them: ``LangConfig.pad_direction`` and
 ``add_special_tokens``, ``DataConfig.redownload``, and ``Config.email``
 (the JAX CLI mails its crash report; the port's writes it to disk only);

@@ -52,7 +52,9 @@ JAX. The masked losses take their valid count over the ``data`` axis.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -339,8 +341,23 @@ class MultiHeadAttention(nn.Module):
         if ctx_mask is not None:
             bias = (1.0 - ctx_mask[:, None, None, :].float()) * NEG_INF
             scores = scores + bias.to(scores.dtype)
-        probs = self.att_drop(torch.softmax(scores.float(), dim=-1).to(dt))
+        probs = self._attention_dropout(torch.softmax(scores.float(), dim=-1).to(dt))
         return torch.einsum("nhqk,nkhd->nqhd", probs, v)
+
+    def _attention_dropout(self, probs: torch.Tensor) -> torch.Tensor:
+        """Dropout on the probabilities of this rank's heads. Where the
+        heads are cut over a ``model`` axis of size > 1 the mask comes from
+        the mesh's model-parallel generator, so the ranks' heads draw
+        independent masks (JAX draws one mask over the global heads); on a
+        whole set of heads (no mesh, or a ``model`` axis of 1) it comes
+        from the default generator, the mesh-less draw."""
+        tp = getattr(getattr(self, self.qkv_name).query, "tp", None)
+        rate = self.att_drop.p
+        if tp is None or tp[1].axis_size("model") == 1 or not self.training or rate == 0.0:
+            return self.att_drop(probs)
+        keep = torch.empty(probs.shape, dtype=torch.float32, device=probs.device)
+        keep.bernoulli_(1.0 - rate, generator=tp[1].model_generator)
+        return probs * (keep / (1.0 - rate)).to(probs.dtype)
 
 
 # a feed-forward's module names: HF's dense intermediate and output, and
@@ -363,12 +380,13 @@ def _add_ffn(module: nn.Module, cfg: LxmertConfig, names: Tuple[str, str, str]) 
 
 
 def _feed_forward(module: nn.Module, names: Tuple[str, str, str], x: torch.Tensor,
-                  dt: torch.dtype) -> torch.Tensor:
-    """The feed-forward ``_add_ffn`` built: the MoE block, or the exact-erf
-    GELU MLP with post-LN residual."""
+                  dt: torch.dtype, seq: Optional[SeqShard] = None) -> torch.Tensor:
+    """The feed-forward ``_add_ffn`` built: the MoE block (told whether
+    ``x`` is a block of a stream cut over ``seq``), or the exact-erf GELU
+    MLP with post-LN residual."""
     inter, out, moe = names
     if moe in module._modules:
-        return module._modules[moe](x)
+        return module._modules[moe](x, seq_cut=seq is not None)
     y = F.gelu(proj(getattr(module, inter).dense, x, dt), approximate="none")
     return getattr(module, out)(y, x)
 
@@ -382,8 +400,8 @@ class FeedForward(nn.Module):
         _add_ffn(self, cfg, _FFN)
         self.dt = cfg.compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _feed_forward(self, _FFN, x, self.dt)
+    def forward(self, x: torch.Tensor, seq: Optional[SeqShard] = None) -> torch.Tensor:
+        return _feed_forward(self, _FFN, x, self.dt, seq)
 
 
 class TransformerLayer(FeedForward):
@@ -397,7 +415,7 @@ class TransformerLayer(FeedForward):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 seq: Optional[SeqShard] = None) -> torch.Tensor:
-        return super().forward(self.attention(x, x, mask, seq))
+        return super().forward(self.attention(x, x, mask, seq), seq)
 
 
 class CrossModalityLayer(nn.Module):
@@ -424,7 +442,7 @@ class CrossModalityLayer(nn.Module):
         visn2 = self.visual_attention(visn, lang, lang_mask, None if seq is None else SeqShard(seq.mesh, "gather"))
         lang2 = self.lang_self_att(lang2, lang2, lang_mask, seq)
         visn2 = self.visn_self_att(visn2, visn2, visn_mask)
-        lang2 = _feed_forward(self, _LANG_FFN, lang2, self.dt)
+        lang2 = _feed_forward(self, _LANG_FFN, lang2, self.dt, seq)
         visn2 = _feed_forward(self, _VISN_FFN, visn2, self.dt)
         return lang2, visn2
 
@@ -434,10 +452,35 @@ def encoder_layer(cfg, layer: nn.Module, *args):
     (JAX's ``_encoder_layers``: ``nn.remat`` on every encoder layer): the
     backward recomputes the layer from its inputs, replaying dropout with
     the saved RNG state, instead of keeping its activations. A layer on
-    the flash route launches K3 again in that recompute."""
+    the flash route launches K3 again in that recompute. Under a mesh with
+    a ``model`` axis of size > 1 the recompute also replays the
+    model-parallel generator's draws."""
     if getattr(cfg, "remat", False) and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=True)
+        mesh = current_mesh()
+        extra = {}
+        if mesh is not None and mesh.axis_size("model") > 1:
+            extra["context_fn"] = functools.partial(_replay_generator, mesh.model_generator)
+        return torch.utils.checkpoint.checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=True,
+                                                 **extra)
     return layer(*args)
+
+
+def _replay_generator(gen: torch.Generator):
+    """``checkpoint``'s ``context_fn``: nothing around the forward; the
+    recompute runs from the generator's state at the forward and leaves it
+    where it was."""
+    state = gen.get_state()
+
+    @contextlib.contextmanager
+    def replay():
+        after = gen.get_state()
+        gen.set_state(state)
+        try:
+            yield
+        finally:
+            gen.set_state(after)
+
+    return contextlib.nullcontext(), replay()
 
 
 class Embeddings(nn.Module):

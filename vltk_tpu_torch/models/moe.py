@@ -22,18 +22,37 @@ sum(fraction * mean(probs))`` (flax sows it into ``"losses"``) is kept on
 the block after each forward as ``aux_loss``, a tensor in the autograd
 graph; ``moe_aux_losses(model)`` reads every block's in the order of the
 forward's calls.
+
+Under a mesh the block routes as JAX routes the global batch: the
+router's (T, E) float32 probabilities are gathered over the ``data`` ranks
+(and the ``seq`` ranks of a cut stream) in the global (batch, seq) order,
+placed by each rank's coordinates, and every rank computes the same plan
+at ``moe_capacity`` of the global token count and keeps its tokens' rows.
+The gather's backward is a reduce-scatter, so the router's gradient after
+the data-parallel reduce is JAX's. Each rank fills its partial (E, C, h)
+slots from its tokens and the token ranks sum them (all-reduce; a slot
+holds one token, so the sum is exact). With ``LXMERT_MOE_RULES`` the
+stacks are cut over ``expert`` (and each expert's hidden dim over
+``model``): a rank runs its E/ep experts, combines over them in float32,
+and the expert ranks sum the mixture (all-reduce, then the cast to the
+compute type). All-reduces rather than all-to-alls: every rank holds the
+whole plan, and the slots of a rank's experts are one all-reduce away.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from vltk_tpu_torch.parallel import collectives as C
 from vltk_tpu_torch.parallel.mesh import current_mesh
 
 # orders the blocks' forward calls, so ``moe_aux_losses`` returns the terms
@@ -117,32 +136,115 @@ class MoEFeedForward(nn.Module):
         self.aux_loss = None
         self._call = -1
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_cut: bool = False) -> torch.Tensor:
+        """``x``: (n, s, h), under a mesh this rank's block of the global
+        batch (rows over ``data``; columns over ``seq`` where ``seq_cut``).
+        The tokens are routed as the global batch's, at one capacity."""
         cfg = self.cfg
-        mesh = current_mesh()
-        if mesh is not None and mesh.replica_size > 1:
-            # JAX routes the global batch's tokens at one capacity; a rank
-            # routing its own block would drop other tokens
-            raise NotImplementedError("an MoE block under a data or seq axis > 1 waits for ROADMAP A.14b")
         dt = cfg.compute_dtype
         n, s, h = x.shape
         e = cfg.moe_experts
-        tokens = n * s
-        cap = moe_capacity(tokens, e, cfg.moe_top_k, cfg.moe_capacity_factor)
-        xt = x.reshape(tokens, h)
+        route = _TokenRoute.of(current_mesh(), n, s, seq_cut)
+        xt = x.reshape(n * s, h)
         logits = F.linear(xt.float(), self.router.weight, self.router.bias)
         probs = torch.softmax(logits, dim=-1)
+        if route is not None:
+            probs = route.gather(probs.view(n, s, e)).reshape(-1, e)
+        cap = moe_capacity(probs.shape[0], e, cfg.moe_top_k, cfg.moe_capacity_factor)
         dispatch, combine, fraction = top_k_routing(probs, cfg.moe_top_k, cap)
         self.aux_loss = cfg.moe_aux_loss_weight * (e * (fraction * _mean0(probs)).sum())
         self._call = next(_CALLS)
+        if route is not None:  # this rank's tokens' rows of the plan
+            dispatch, combine = route.local(dispatch), route.local(combine)
 
+        layout = getattr(self, "ep", None)  # set by parallel.shard_params
+        if layout is not None and layout.expert_cut:
+            # this rank's experts; the other expert ranks hold the same tokens
+            # and the rest. The tokens and the plan enter whole, so the
+            # backward's sum over the expert ranks puts their shares together
+            group, e0 = layout.mesh.group("expert"), layout.mesh.coord("expert") * self.wi.shape[0]
+            xt, combine = C.copy_to_tp(xt, group, "ep_copy"), C.copy_to_tp(combine, group, "ep_copy")
+            dispatch, combine = (t.narrow(1, e0, self.wi.shape[0]) for t in (dispatch, combine))
         xe = torch.einsum("tec,th->ech", dispatch.to(dt), xt.to(dt))
+        if route is not None:
+            # every (expert, slot) holds at most one token: the ranks' partial
+            # slots sum exactly
+            xe = C.sum_partials(xe, route.group)
+        y = self._experts(xe, layout, dt)
+        yt = torch.einsum("tec,ech->th", combine, y.float())
+        if layout is not None and layout.expert_cut:
+            yt = C.reduce_from_tp(yt, layout.mesh.group("expert"), "moe_combine_reduce")
+        y = self.dropout(yt.to(dt).view(n, s, h))
+        return self.LayerNorm(x + y)
+
+    def _experts(self, xe: torch.Tensor, layout, dt: torch.dtype) -> torch.Tensor:
+        """The experts' GELU MLPs on their slots (E, C, h); each column- then
+        row-cut over ``model`` where the layout says, ``bo`` added once after
+        the model axis' sum."""
+        model_cut = layout is not None and layout.model_cut
+        if model_cut:
+            xe = C.copy_to_tp(xe, layout.mesh.group("model"))
         y = torch.bmm(xe, self.wi.to(dt)) + self.bi[:, None, :].to(dt)
         y = F.gelu(y, approximate="none")
-        y = torch.bmm(y, self.wo.to(dt)) + self.bo[:, None, :].to(dt)
-        yt = torch.einsum("tec,ech->th", combine, y.float()).to(dt)
-        y = self.dropout(yt.view(n, s, h))
-        return self.LayerNorm(x + y)
+        y = torch.bmm(y, self.wo.to(dt))
+        if model_cut:
+            y = C.reduce_from_tp(y, layout.mesh.group("model"))
+        return y + self.bo[:, None, :].to(dt)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertLayout:
+    """How ``parallel.shard_params`` cut a block's expert stacks: their
+    leading expert dim over ``expert`` and/or each expert's hidden dim
+    over ``model``."""
+
+    mesh: object
+    expert_cut: bool
+    model_cut: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class _TokenRoute:
+    """Where this rank's tokens sit in the global batch: the group of ranks
+    that hold the other tokens of the replica (``data``, and ``seq`` where
+    the stream is cut), each rank's block at its (data, seq) coordinates,
+    and this rank's rows of the global row-major (batch, seq) order."""
+
+    group: object
+    places: Tuple[Tuple[int, int], ...]
+    rows: torch.Tensor
+
+    @staticmethod
+    def of(mesh, n: int, s: int, seq_cut: bool) -> Optional["_TokenRoute"]:
+        axes = [a for a in ("data", "seq") if a in getattr(mesh, "shape", {}) and (a == "data" or seq_cut)]
+        if not axes:
+            return None
+        group = mesh.group(axes[0]) if len(axes) == 1 else mesh.replica_group
+        names = mesh.axis_names
+        grid = tuple(mesh.shape[a] for a in names)
+
+        def place(rank: int) -> Tuple[int, int]:
+            coord = dict(zip(names, np.unravel_index(rank, grid)))
+            return int(coord.get("data", 0)), int(coord["seq"]) if seq_cut else 0
+
+        places = tuple(place(r) for r in dist.get_process_group_ranks(group))
+        d, q = place(dist.get_rank())
+        cols = s * (1 + max(p[1] for p in places))
+        start = d * n * cols + q * s
+        rows = (start + torch.arange(n)[:, None] * cols + torch.arange(s)[None, :]).reshape(-1)
+        return _TokenRoute(group, places, rows)
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """(n, s, ...) of this rank -> (N, S, ...) of the global batch."""
+        return C.gather_tokens(local, self.group, self.places)
+
+    def local(self, plan: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a (N * S, ...) tensor: a view where they are
+        one run, else a gather."""
+        first, count = int(self.rows[0]), self.rows.numel()
+        if int(self.rows[-1]) == first + count - 1:
+            return plan.narrow(0, first, count)
+        return plan.index_select(0, self.rows.to(plan.device))
 
 
 def moe_aux_losses(model: nn.Module) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,6 @@
 """Parallelism of the port: a named mesh over ``torch.distributed``,
-tensor-parallel rules, ZeRO-1 layouts, Ulysses and ring attention.
+tensor-parallel rules, ZeRO-1 layouts, Ulysses and ring attention, GPipe
+and expert parallelism.
 
 Counterpart of ``vltk_tpu/parallel/``. JAX declares shardings and XLA
 inserts the collectives; here each rank is a process that holds its own
@@ -12,9 +13,13 @@ blocks and calls the collectives itself (``collectives.py``, counted in
     every attention and feed-forward, vocab-sharded word tables.
   * ``seq``: sequence parallel (SP) for long token streams: the stream is
     cut between the embeddings and the pooler; Ulysses or ring attention.
-
-GPipe (``gpipe_spmd``, ``stack_layer_params``) and expert parallelism
-wait for ROADMAP A.14b: an ``expert`` or ``pipe`` axis of size > 1 raises.
+  * ``expert``: expert parallel (EP): an MoE block's expert stacks cut
+    over the axis (``LXMERT_MOE_RULES``, ``models/moe.py``), the tokens
+    routed as the global batch's.
+  * ``pipe``: pipeline parallel (PP): ``gpipe_spmd`` over a stack of
+    layers (``stack_layer_params``), microbatches handed from stage to
+    stage. Outside ``gpipe_spmd`` the ``pipe`` ranks, like the ``expert``
+    ranks, hold the same tokens: replicas whose gradients are not summed.
 """
 
 from vltk_tpu_torch.parallel.mesh import (
@@ -29,6 +34,7 @@ from vltk_tpu_torch.parallel.mesh import (
     shard_batch,
     use_mesh,
 )
+from vltk_tpu_torch.parallel.pipeline import gpipe_spmd, stack_layer_params
 from vltk_tpu_torch.parallel.ring import ring_self_attention
 from vltk_tpu_torch.parallel.sharding import (
     LXMERT_MOE_RULES,
@@ -53,6 +59,8 @@ __all__ = [
     "infer_shardings",
     "shard_params",
     "zero1_state_shardings",
+    "gpipe_spmd",
+    "stack_layer_params",
     "LXMERT_RULES",
     "LXMERT_MOE_RULES",
 ]

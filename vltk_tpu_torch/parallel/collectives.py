@@ -19,6 +19,13 @@ in its docstring:
 * ``rotate``: the ring's neighbour send, to rank i + 1 forward and the
   cotangent to i - 1 backward (an ``all_to_all_single`` with one non-empty
   split, which also runs on a one-rank group).
+* ``pipe_shift``: GPipe's hand-off, rank i to i + 1 with no wrap-around
+  (the first rank receives zeros, the last sends nothing), its backward
+  the same exchange the other way; every rank joins it in tick order.
+* ``gather_tokens`` (forward all-gather of blocks placed by their mesh
+  coordinates, backward reduce-scatter) and ``sum_partials`` (forward and
+  backward all-reduce): the MoE block's global routing and its slot
+  partials.
 
 Each collective call adds one to its kind in ``COUNTS``, beside the
 kernels' launch counters; ``reset_counts()`` sets them to 0. No path
@@ -48,6 +55,14 @@ KINDS = (
     "seq_reduce_scatter", # its backward
     "ulysses_all_to_all",
     "ring_rotate",
+    "pipe_shift",            # GPipe: the hand-off between neighbouring stages, one a tick (and its backward)
+    "pipe_replicate",        # GPipe: the output all-reduce over the pipe axis
+    "moe_route_gather",      # MoE: the router probabilities of the global batch's tokens
+    "moe_route_reduce_scatter",  # its backward
+    "moe_dispatch_reduce",   # MoE: the expert slots' partials summed over data x seq (forward and backward)
+    "moe_combine_reduce",    # MoE: the mixture's partials summed over the expert axis
+    "ep_copy",               # MoE: backward all-reduce over the expert axis at the expert region's inputs
+    "preempt_agree",         # the SIGTERM flag's MAX over the mesh, one a step
 )
 
 _gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
@@ -62,10 +77,10 @@ def counts() -> Dict[str, int]:
     return {k: COUNTS[k] for k in KINDS}
 
 
-def all_reduce_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
-    """In-place sum over ``group``, counted as ``kind``."""
+def all_reduce_(t: torch.Tensor, group, kind: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place sum (or ``op``) over ``group``, counted as ``kind``."""
     COUNTS[kind] += 1
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -73,13 +88,13 @@ class _CopyToTP(torch.autograd.Function):
     """Forward identity; backward all-reduce over the model axis."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.clone(), ctx.group, "tp_copy"), None
+        return all_reduce_(g.clone(), ctx.group, ctx.kind), None, None
 
 
 class _ReduceFromTP(torch.autograd.Function):
@@ -94,8 +109,8 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None, None
 
 
-def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
-    return _CopyToTP.apply(x, group)
+def copy_to_tp(x: torch.Tensor, group, kind: str = "tp_copy") -> torch.Tensor:
+    return _CopyToTP.apply(x, group, kind)
 
 
 def reduce_from_tp(x: torch.Tensor, group, kind: str = "tp_reduce") -> torch.Tensor:
@@ -222,6 +237,154 @@ def rotate(x: torch.Tensor, group) -> torch.Tensor:
     return _Rotate.apply(x, group)
 
 
+def _pack(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes, one after another, in one uint8 buffer."""
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _unpack(flat: torch.Tensor, like: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Tensors shaped and typed as ``like`` from ``_pack``'s buffer."""
+    out, offset = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(flat[offset:offset + n].clone().view(t.dtype).view(t.shape))
+        offset += n
+    return out
+
+
+def _shift(tensors: List[torch.Tensor], group, direction: int) -> List[torch.Tensor]:
+    """Send ``tensors`` to group rank r + ``direction`` and receive the same
+    shapes from r - ``direction``, without wrapping around: the rank with no
+    sender gets zeros, the one with no receiver sends nothing. One
+    ``all_to_all_single`` of bytes, which every rank of the group joins."""
+    COUNTS["pipe_shift"] += 1
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    sends, recvs = [0] * n, [0] * n
+    if 0 <= r + direction < n:
+        sends[r + direction] = nbytes
+    if 0 <= r - direction < n:
+        recvs[r - direction] = nbytes
+    device = tensors[0].device
+    flat = _pack(tensors) if sum(sends) else torch.empty((0,), dtype=torch.uint8, device=device)
+    out = torch.empty((sum(recvs),), dtype=torch.uint8, device=device)
+    dist.all_to_all_single(out, flat, recvs, sends, group=group)
+    if not sum(recvs):
+        return [torch.zeros_like(t) for t in tensors]
+    return _unpack(out, tensors)
+
+
+class _PipeShift(torch.autograd.Function):
+    """Forward: the stream's leaves from stage i to i + 1; backward: their
+    cotangents from i + 1 to i. ``link`` (a scalar that requires grad)
+    comes out again as the next tick's, so every rank's shifts form one
+    chain in the autograd graph and run their backward exchanges in the
+    reverse tick order, also where a stage discards what it received."""
+
+    @staticmethod
+    def forward(ctx, group, link, *leaves):
+        ctx.group = group
+        ctx.floating = [t.is_floating_point() for t in leaves]
+        return (link.clone(), *_shift(list(leaves), group, 1))
+
+    @staticmethod
+    def backward(ctx, g_link, *grads):
+        floating = [g for g, f in zip(grads, ctx.floating) if f]
+        back = iter(_shift(floating, ctx.group, -1) if floating else [])
+        return (None, g_link, *(next(back) if f else None for f in ctx.floating))
+
+
+def pipe_shift(leaves: List[torch.Tensor], link: torch.Tensor, group):
+    """-> (next link, the leaves stage i - 1 sent)."""
+    out = _PipeShift.apply(group, link, *leaves)
+    return out[0], list(out[1:])
+
+
+class _PipeReplicate(torch.autograd.Function):
+    """Forward: the leaves summed over the pipe group (only the last stage
+    holds outputs, the others zeros), one all-reduce a dtype; backward:
+    identity, since every pipe rank computes the same loss from the
+    replicated output (an all-reduce here would make the last stage's
+    gradient P times too large). ``link`` ends the shifts' chain."""
+
+    @staticmethod
+    def forward(ctx, group, link, *leaves):
+        out = [t.clone() for t in leaves]
+        by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+        for t in out:
+            by_dtype.setdefault(t.dtype, []).append(t)
+        for same in by_dtype.values():
+            flat = torch.cat([t.reshape(-1) for t in same])
+            all_reduce_(flat, group, "pipe_replicate")
+            torch._foreach_copy_(same, [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in same]), same)])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *grads)
+
+
+def pipe_replicate(leaves: List[torch.Tensor], link: torch.Tensor, group) -> List[torch.Tensor]:
+    return list(_PipeReplicate.apply(group, link, *leaves))
+
+
+class _GatherTokens(torch.autograd.Function):
+    """Forward: every rank's (n, s, ...) block of tokens, all-gathered and
+    laid out at its place in a grid of blocks, ``places[g]`` = (block row,
+    block column) of group rank g; backward: the gradient's blocks summed
+    over the ranks, each rank keeping its own (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, places):
+        COUNTS["moe_route_gather"] += 1
+        g = dist.get_world_size(group)
+        rows, cols = 1 + max(p[0] for p in places), 1 + max(p[1] for p in places)
+        x = x.contiguous()
+        full = torch.empty((g * x.numel(),), dtype=x.dtype, device=x.device)
+        _gather(full, x.reshape(-1), group=group)
+        order = sorted(range(g), key=lambda k: places[k])  # grid order -> group rank
+        blocks = full.view((g,) + tuple(x.shape))[order]
+        ctx.group, ctx.order, ctx.shape, ctx.grid = group, order, tuple(x.shape), (rows, cols)
+        out = blocks.view((rows, cols) + tuple(x.shape)).transpose(1, 2)
+        return out.reshape((rows * x.shape[0], cols * x.shape[1]) + tuple(x.shape[2:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        COUNTS["moe_route_reduce_scatter"] += 1
+        (rows, cols), shape = ctx.grid, ctx.shape
+        blocks = grad.reshape((rows, shape[0], cols, shape[1]) + shape[2:]).transpose(1, 2)
+        blocks = blocks.reshape((rows * cols,) + shape)
+        by_rank = torch.empty_like(blocks)
+        by_rank[ctx.order] = blocks
+        out = torch.empty((blocks[0].numel(),), dtype=grad.dtype, device=grad.device)
+        _reduce_scatter(out, by_rank.reshape(-1), group=ctx.group)
+        return out.view(shape), None, None
+
+
+def gather_tokens(x: torch.Tensor, group, places) -> torch.Tensor:
+    return _GatherTokens.apply(x, group, tuple(tuple(p) for p in places))
+
+
+class _SumPartials(torch.autograd.Function):
+    """Forward and backward: all-reduce over ``group``. For a sum whose
+    result every rank uses for a loss of its own (the MoE slots that the
+    data x seq ranks fill from their tokens), the cotangent of a partial
+    is the sum of the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return all_reduce_(x.clone(), group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(), ctx.group, ctx.kind), None, None
+
+
+def sum_partials(x: torch.Tensor, group, kind: str = "moe_dispatch_reduce") -> torch.Tensor:
+    return _SumPartials.apply(x, group, kind)
+
+
 def _flat_all_reduce(tensors: List[torch.Tensor], group, kind: str, divisor: int) -> None:
     """Sum ``tensors`` over ``group`` through one flat buffer a dtype and
     divide them by ``divisor``, in place."""
@@ -264,9 +427,11 @@ def all_gather_flat(tensors: List[torch.Tensor], group, kind: str) -> List[torch
 def reduce_gradients(parameters: Iterable[torch.Tensor], mesh) -> None:
     """The data-parallel reduce: every gradient summed over the mesh's
     replica axes (data x seq) and divided by their size, so a step's
-    update is that of the mean loss over the replicas."""
+    update is that of the mean loss over the replicas. A mesh with neither
+    axis (``model``, ``pipe`` or ``expert`` alone) has nothing to reduce:
+    its ranks hold the same tokens."""
     grads = [p.grad for p in parameters if p.grad is not None]
-    if grads:
+    if grads and mesh.replica_axes:
         _flat_all_reduce(grads, mesh.replica_group, "dp_grad_reduce", mesh.replica_size)
 
 

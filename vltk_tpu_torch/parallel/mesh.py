@@ -29,11 +29,14 @@ import torch.distributed as dist
 
 from vltk_tpu_torch import DeviceLike, resolve_device
 
-#: the axes whose size > 1 the port refuses until ROADMAP A.14b
-_UNPORTED_AXES = ("expert", "pipe")
 #: the axes whose ranks hold different tokens of one model replica; their
-#: gradients are summed (``Mesh.replica_group``)
+#: gradients are summed (``Mesh.replica_group``). The ``model``, ``expert``
+#: and ``pipe`` ranks of a replica hold the same tokens, as in JAX, where
+#: the batch is sharded over ``data`` alone
 REPLICA_AXES = ("data", "seq")
+#: offset of the model-parallel generator's seed from the run's seed
+#: (Megatron's tracker uses the same constant)
+_MODEL_SEED_OFFSET = 2718
 
 
 class PartitionSpec(tuple):
@@ -58,6 +61,8 @@ class Mesh:
     from the first ranks of a larger group); ``group(axis)`` is the
     process group along one axis, ``replica_group`` the one along every
     axis of ``REPLICA_AXES`` the mesh has, ``world_group`` all its ranks.
+    ``model_generator`` is the generator of dropout on tensors cut over
+    ``model`` (``seed_model_parallel``).
     """
 
     def __init__(self, names: Sequence[str], sizes: Sequence[int], device: torch.device):
@@ -74,6 +79,7 @@ class Mesh:
                             else dist.new_group(list(range(self.size))))
         self.replica_axes = tuple(a for a in self.axis_names if a in REPLICA_AXES)
         self.replica_group = _axes_group(grid, self.axis_names, self.replica_axes, self.device_mesh)
+        self._model_generator: Optional[torch.Generator] = None
 
     @property
     def is_member(self) -> bool:
@@ -106,6 +112,26 @@ class Mesh:
         for axis in self.replica_axes:
             index = index * self.shape[axis] + self.coord(axis)
         return index
+
+    def seed_model_parallel(self, seed: int) -> torch.Generator:
+        """(Re)seed the model-parallel generator from the run's seed, this
+        rank's replica index and its ``model`` coordinate (Megatron's
+        tracker): the ranks that hold other heads of one replica draw other
+        masks. Returns it."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((seed + _MODEL_SEED_OFFSET + self.replica_index * self.axis_size("model")
+                         + self.coord("model")) % 2 ** 63)
+        self._model_generator = gen
+        return gen
+
+    @property
+    def model_generator(self) -> torch.Generator:
+        """The generator of dropout inside a tensor-parallel region; seeded
+        from the default generator's initial seed on first use unless
+        ``seed_model_parallel`` ran."""
+        if self._model_generator is None:
+            self.seed_model_parallel(torch.initial_seed())
+        return self._model_generator
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, device={self.device})"
@@ -185,7 +211,6 @@ def resolve_axes(axes: Sequence[Tuple[str, int]], total: int) -> Tuple[list, lis
     taken. -> (names, sizes, devices used)."""
     names = [a[0] for a in axes]
     sizes = [int(a[1]) for a in axes]
-    _refuse_unported(names, sizes)
     n_free = sizes.count(-1)
     if n_free > 1:
         raise ValueError(f"at most one mesh axis may be -1, got {tuple(axes)}")
@@ -199,15 +224,7 @@ def resolve_axes(axes: Sequence[Tuple[str, int]], total: int) -> Tuple[list, lis
         used = int(np.prod(sizes))
         if used > total:
             raise ValueError(f"mesh {dict(axes)} needs {used} devices, have {total}")
-    _refuse_unported(names, sizes)
     return names, sizes, used
-
-
-def _refuse_unported(names, sizes) -> None:
-    for name, size in zip(names, sizes):
-        if name in _UNPORTED_AXES and size > 1:
-            raise NotImplementedError(
-                f"a {name!r} mesh axis of size {size} is not ported yet (ROADMAP A.14b)")
 
 
 def make_mesh(mesh_config=None, *, device: DeviceLike = None) -> Mesh:

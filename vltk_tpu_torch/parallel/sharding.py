@@ -10,8 +10,9 @@ row-parallel one dim 1: ``LXMERT_RULES`` is the JAX table transposed.
 
 ``shard_params`` cuts every parameter to this rank's block in place and
 tells the layers the port runs tensor-parallel (the encoders' projections
-and the word embeddings of LXMERT, LayoutLM and VisualBERT) how they are
-cut; a rule that reaches any other layer raises.
+and the word embeddings of LXMERT, LayoutLM and VisualBERT) and the MoE
+blocks whose expert stacks it cuts how they are cut; a rule that reaches
+any other layer raises.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ LXMERT_RULES: Rules = (
 )
 
 # the JAX package's expert-parallel table on the port's MoE names (the
-# stacks keep flax's (E, h, f) / (E, f, h) layout); a mesh with an
-# ``expert`` axis of size > 1 raises until ROADMAP A.14b
+# stacks keep flax's (E, h, f) / (E, f, h) layout): each rank holds E/ep
+# experts, each column/row-cut over ``model``; the router replicates
 LXMERT_MOE_RULES: Rules = (
     (r".*moe\.wi$", P("expert", None, "model")),
     (r".*moe\.bi$", P("expert", "model")),
@@ -185,6 +186,36 @@ def _tp_groups(model: nn.Module):
     return groups
 
 
+#: an MoE block's expert stacks -> the spec each dim may take (or None)
+_EXPERT_SPECS = {"wi": P("expert", None, "model"), "bi": P("expert", "model"),
+                 "wo": P("expert", "model", None), "bo": P("expert", None)}
+
+
+def _expert_layouts(model: nn.Module, shardings, mesh: Mesh):
+    """-> ({stack name: its allowed spec}, [(MoE block, ExpertLayout)]) for
+    every MoE block whose stacks the rules cut. The four stacks of a block
+    must agree: all or none cut over ``expert``, and ``wi``, ``bi`` and
+    ``wo`` all or none over ``model``."""
+    from vltk_tpu_torch.models.moe import ExpertLayout, MoEFeedForward
+
+    allowed, layouts = {}, []
+    for mname, mod in model.named_modules():
+        if not isinstance(mod, MoEFeedForward):
+            continue
+        pre = f"{mname}." if mname else ""
+        specs = {}
+        for stack, spec in _EXPERT_SPECS.items():
+            allowed[f"{pre}{stack}"] = spec
+            specs[stack] = _padded(shardings[f"{pre}{stack}"].spec, len(spec))
+        expert = {specs[k][0] == "expert" for k in _EXPERT_SPECS}
+        model_dims = {specs["wi"][2] == "model", specs["bi"][1] == "model", specs["wo"][1] == "model"}
+        if len(expert) > 1 or len(model_dims) > 1:
+            raise NotImplementedError(f"the rules cut the expert stacks of {mname} unevenly: {specs}")
+        if expert.pop() or model_dims.pop():
+            layouts.append((mod, ExpertLayout(mesh, specs["wi"][0] == "expert", specs["wi"][2] == "model")))
+    return allowed, layouts
+
+
 _ROLE_SPECS = {  # role -> (weight spec, bias spec)
     "column": (P("model", None), P("model")),
     "row": (P(None, "model"), P()),
@@ -204,10 +235,11 @@ def shard_params(model: nn.Module, rules: Rules, mesh: Mesh) -> nn.Module:
     """Cut every parameter of ``model`` (global values, the same on every
     rank) to this rank's block under ``rules`` in place, and mark the
     tensor-parallel layers (``module.tp = (role, mesh)``, role "column",
-    "row" or "vocab") for their forwards. Raises ``NotImplementedError``
-    where a rule cuts a parameter the port runs only replicated (expert
-    and pipeline layouts: ROADMAP A.14b), cuts part of an attention or
-    feed-forward group, or splits an attention head."""
+    "row" or "vocab") and the MoE blocks whose expert stacks are cut
+    (``module.ep``, a ``models.moe.ExpertLayout``) for their forwards.
+    Raises ``NotImplementedError`` where a rule cuts a parameter the port
+    runs only replicated, cuts part of an attention or feed-forward group
+    or of a block's expert stacks, or splits an attention head."""
     shardings = infer_shardings(model, rules, mesh)
     shapes = _global_shapes(model)
     groups = _tp_groups(model)
@@ -215,12 +247,17 @@ def shard_params(model: nn.Module, rules: Rules, mesh: Mesh) -> nn.Module:
     for _, members, _ in groups:
         for path, role, _ in members:
             expected[f"{path}.weight"], expected[f"{path}.bias"] = _ROLE_SPECS[role]
+    experts, layouts = _expert_layouts(model, shardings, mesh)
     for name, sharding in shardings.items():
         n = len(shapes[name])
-        if _cut(sharding.spec) and _padded(sharding.spec, n) != _padded(expected.get(name, P()), n):
+        got = _padded(sharding.spec, n)
+        if name in experts:  # each dim its axis or, where the fit dropped it, none
+            if any(g is not None and g != w for g, w in zip(got, _padded(experts[name], n))):
+                raise NotImplementedError(f"the rules cut {name} as {sharding.spec}; the port runs it "
+                                          f"only within {experts[name]}")
+        elif _cut(sharding.spec) and got != _padded(expected.get(name, P()), n):
             raise NotImplementedError(
-                f"the rules cut {name} as {sharding.spec}; the port runs it only so: "
-                f"{expected.get(name, P())} (other layouts: ROADMAP A.14b)")
+                f"the rules cut {name} as {sharding.spec}; the port runs it only so: {expected.get(name, P())}")
     tp = mesh.axis_size("model")
     marked = []
     for kind, members, head_dim in groups:
@@ -239,6 +276,8 @@ def shard_params(model: nn.Module, rules: Rules, mesh: Mesh) -> nn.Module:
             params[name].data = sharding.local(params[name].data).clone()
     for role, module in marked:
         module.tp = (role, mesh)
+    for module, layout in layouts:
+        module.ep = layout
     model._vltk_global_shapes = shapes
     model._vltk_shardings = shardings
     return model

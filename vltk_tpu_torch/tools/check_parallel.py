@@ -21,7 +21,15 @@ the command exits 1 past a tolerance. The cases (4 ranks):
 * ``ulysses``: LXMERT (4 heads) under ``model`` 2 x ``seq`` 2 at seq 2048;
 * ``ring``: LXMERT's ring backend under ``data`` 2 x ``seq`` 2 at seq 512,
   and ``ring_self_attention``'s gradients under ``seq`` 4 with a ragged
-  mask (forwards 2e-5, gradients 1e-5).
+  mask (forwards 2e-5, gradients 1e-5);
+* ``gpipe_pipe4``, ``gpipe_pipe2_data2``: ``gpipe_spmd`` over a toy stack
+  of 8 layers (6 microbatches of 4) under ``pipe`` 4, and under ``pipe`` 2
+  x ``data`` 2 with ``data_axis``: the output (1e-6) and the stack's
+  gradients of sum(out^2), the stages' blocks summed over ``pipe`` (1e-5);
+* ``moe_ep``: the MoE LXMERT (4 experts, top 2, capacity factor 0.5) under
+  ``data`` 2 x ``expert`` 2 with ``LXMERT_MOE_RULES``: lang, visn, pooled
+  (1e-5) and every local gradient block of a loss with the aux terms
+  (1e-5 + 1e-4 relative).
 
 The JAX package is the reference of the same cases on a CPU gloo group in
 ``tests/test_torch_parallel.py``; this tool shows the collectives behave
@@ -44,8 +52,11 @@ import torch.distributed as dist
 from vltk_tpu_torch.config import Config, MeshConfig
 from vltk_tpu_torch.models.layoutlm import LayoutLMConfig, LayoutLMForTokenClassification, token_classification_loss
 from vltk_tpu_torch.models.lxmert import Lxmert, LxmertConfig, init_weights
+from vltk_tpu_torch.models.moe import moe_aux_losses
 from vltk_tpu_torch.parallel import (
+    LXMERT_MOE_RULES,
     LXMERT_RULES,
+    gpipe_spmd,
     infer_shardings,
     make_mesh,
     ring_self_attention,
@@ -102,10 +113,10 @@ def _rel_ok(got, want, atol: float, rtol: float) -> bool:
     return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
 
 
-def _blocks(model, reference: dict, mesh) -> dict:
+def _blocks(model, reference: dict, mesh, rules=LXMERT_RULES) -> dict:
     """This rank's block of each global tensor of ``reference``, by the
     rules' shardings of the model's parameters."""
-    specs = infer_shardings(model, LXMERT_RULES, mesh)
+    specs = infer_shardings(model, rules, mesh)
     return {n: specs[n].local(t) for n, t in reference.items()}
 
 
@@ -222,6 +233,63 @@ def case_ring_gradients(dev) -> dict:
     return {"out_err": out_err, "grad_err": grad_err, "ok": out_err <= 1e-5 and grad_err <= 1e-5}
 
 
+def case_gpipe(dev, axes, data_axis) -> dict:
+    mesh = make_mesh(MeshConfig(axes=axes), device=dev)
+    gen = torch.Generator().manual_seed(5)
+    layers, width, m, mb = 8, 8, 6, 4
+    stack = {"w": (torch.randn((layers, width, width), generator=gen) * 0.3).to(dev),
+             "b": (torch.randn((layers, width), generator=gen) * 0.1).to(dev)}
+    x = torch.randn((m, mb, width), generator=gen).to(dev)
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    ref = {k: v.clone().requires_grad_() for k, v in stack.items()}
+    want = x
+    for i in range(layers):
+        want = layer({k: v[i] for k, v in ref.items()}, want)
+    (want ** 2).sum().backward()
+    got = {k: v.clone().requires_grad_() for k, v in stack.items()}
+    out = gpipe_spmd(layer, got, x, mesh=mesh, data_axis=data_axis)
+    dp = mesh.axis_size(data_axis) if data_axis else 1
+    ((out ** 2).sum() * dp).backward()
+    C.reduce_gradients(got.values(), mesh)
+    for v in got.values():  # each stage holds its layers' block: summed over pipe, the whole stack
+        dist.all_reduce(v.grad, group=mesh.group("pipe"))
+    rows = slice(None) if not data_axis else slice(mesh.coord(data_axis) * mb // dp, (mesh.coord(data_axis) + 1) * mb // dp)
+    out_err = _err(out, want[:, rows])
+    grad_err = max(_err(got[k].grad, ref[k].grad) for k in stack)
+    return {"out_err": out_err, "grad_err": grad_err, "ok": out_err <= 1e-6 and grad_err <= 1e-5}
+
+
+def _moe_loss(model, inputs):
+    lang, visn, pooled = model(inputs["ids"], inputs["feats"], inputs["pos"], inputs["mask"])
+    return (lang ** 2).mean() + (visn ** 2).mean() + (pooled ** 2).mean() + sum(moe_aux_losses(model).values())
+
+
+def case_moe_ep(dev) -> dict:
+    mesh = make_mesh(MeshConfig(axes=(("data", 2), ("expert", 2))), device=dev)
+    cfg = LxmertConfig(**LX, moe_experts=4, moe_top_k=2, moe_capacity_factor=0.5)
+    inputs = _lxmert_inputs(dev, 4, 8, 9)
+    ref = _lively(Lxmert(cfg), 6).to(dev)
+    model = _lively(Lxmert(cfg), 6).to(dev)
+    want = ref(inputs["ids"], inputs["feats"], inputs["pos"], inputs["mask"])
+    _moe_loss(ref, inputs).backward()
+    shard_params(model, LXMERT_MOE_RULES, mesh)
+    with use_mesh(mesh):
+        local = shard_batch(inputs, mesh)
+        got = model(local["ids"], local["feats"], local["pos"], local["mask"])
+        _moe_loss(model, local).backward()
+        C.reduce_gradients(model.parameters(), mesh)
+    rows = shard_batch({str(i): t for i, t in enumerate(want)}, mesh)
+    out_err = max(_err(g, rows[str(i)]) for i, g in enumerate(got))
+    grads = _blocks(model, {n: p.grad for n, p in ref.named_parameters()}, mesh, LXMERT_MOE_RULES)
+    mine = {n: p.grad for n, p in model.named_parameters()}
+    grad_err = max(_err(mine[n], grads[n]) for n in grads)
+    ok = out_err <= 1e-5 and all(_rel_ok(mine[n], grads[n], 1e-5, 1e-4) for n in grads)
+    return {"out_err": out_err, "grad_err": grad_err, "ok": ok}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -243,6 +311,9 @@ def main(argv=None) -> int:
     results["ulysses"] = _seq_case(dev, (("data", 1), ("seq", 2), ("model", 2)), 2048, "ulysses")
     results["ring"] = _seq_case(dev, (("data", 2), ("seq", 2)), 512, "ring")
     results["ring_gradients"] = case_ring_gradients(dev)
+    results["gpipe_pipe4"] = case_gpipe(dev, (("pipe", 4),), None)
+    results["gpipe_pipe2_data2"] = case_gpipe(dev, (("pipe", 2), ("data", 2)), "data")
+    results["moe_ep"] = case_moe_ep(dev)
     gathered = [None] * world
     dist.all_gather_object(gathered, results)
     ok = all(r[case]["ok"] for r in gathered for case in r)

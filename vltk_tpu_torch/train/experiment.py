@@ -19,8 +19,14 @@ batch and keeps its ``data`` block (``parallel.shard_batch``, JAX's
 global order differently and are refused), the step reduces the
 gradients over data x seq, ``config.mesh.zero1_axis`` turns on ZeRO-1,
 the RNG is seeded per replica (seed + its data x seq index, the same on
-every rank of the ``model`` axis) and checkpoints are sharded, one file
-a rank (``checkpoint.save_checkpoint_sharded``).
+every rank of the ``model``, ``expert`` and ``pipe`` axes, whose ranks are
+replicas of one another's tokens), dropout on heads cut over ``model``
+draws from the mesh's model-parallel generator (seeded from the seed, the
+replica and the model coordinate, and saved with the RNG state),
+checkpoints are sharded, one file a rank
+(``checkpoint.save_checkpoint_sharded``), and the SIGTERM flag is agreed
+over the mesh (a MAX all-reduce before every step's stop decision), so
+every rank stops and saves after the same step.
 
 User surface:
 
@@ -119,6 +125,8 @@ class SimpleExperiment(abc.ABC):
         # the CPU and every CUDA device; one stream a replica under a mesh
         offset = self.mesh.replica_index if self.mesh is not None else 0
         torch.manual_seed(self.config.train.seed + offset)
+        if self.mesh is not None:
+            self.mesh.seed_model_parallel(self.config.train.seed)
 
     def _init_loaders(self, loaders) -> None:
         if loaders is None:
@@ -149,7 +157,8 @@ class SimpleExperiment(abc.ABC):
         self.start_epoch = 0
         self.global_step = 0
         self._skip_steps = 0  # batches to replay-skip on a mid-epoch resume
-        self._preempted = False
+        self._preempted = False  # this rank saw SIGTERM
+        self._stopping = False  # the ranks agreed to stop after this step
 
     def _zero1_axis(self):
         """``config.mesh.zero1_axis`` under a mesh, else None."""
@@ -195,6 +204,8 @@ class SimpleExperiment(abc.ABC):
             torch.set_rng_state(_unb64(rng["cpu"]))
             if rng.get("cuda") and torch.cuda.is_available():
                 torch.cuda.set_rng_state_all([_unb64(s) for s in rng["cuda"]])
+            if rng.get("model_parallel") and self.mesh is not None:
+                self.mesh.model_generator.set_state(_unb64(rng["model_parallel"]))
 
     # -- user surface --------------------------------------------------------
 
@@ -267,7 +278,9 @@ class SimpleExperiment(abc.ABC):
                 self.train_loader.set_epoch(epoch)
             self._steps_done_in_epoch = 0
             train_m = self.inner_loop(epoch)
-            if self._preempted:
+            # under a mesh only the agreed flag: a rank's own may have been
+            # set after the last agreement
+            if self._stopping if self.mesh is not None else self._preempted:
                 # the authoritative preemption save, then stop
                 self.save_mid(epoch, step_in_epoch=self._steps_done_in_epoch, wait=True)
                 return {"epoch": epoch, "train": train_m, "preempted": True}
@@ -314,11 +327,24 @@ class SimpleExperiment(abc.ABC):
                 self._steps_done_in_epoch = skip + count
                 if save_every and count % save_every == 0:
                     self.save_mid(epoch, step_in_epoch=skip + count)
-                if self._preempted or self.config.test_run:
+                self._stopping = self._agree_preempted()
+                if self._stopping or self.config.test_run:
                     break
             if pending is not None:
                 drain(pending)
         return {k: v / max(count, 1) for k, v in totals.items()}
+
+    def _agree_preempted(self) -> bool:
+        """The stop decision after a step: this rank's SIGTERM flag, under a
+        mesh the MAX of every rank's (one all-reduce), so a signal that
+        reached one rank first stops them all after the same step."""
+        if self.mesh is None:
+            return self._preempted
+        from vltk_tpu_torch.parallel import collectives as C
+
+        flag = torch.tensor([int(self._preempted)], dtype=torch.int32, device=self.mesh.device)
+        C.all_reduce_(flag, self.mesh.world_group, "preempt_agree", op=torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
 
     def eval_loop(self) -> Dict[str, float]:
         if self.eval_loader is None:
@@ -370,6 +396,8 @@ class SimpleExperiment(abc.ABC):
         rng = {"cpu": _b64(torch.get_rng_state())}
         if self.device.type == "cuda":
             rng["cuda"] = [_b64(s) for s in torch.cuda.get_rng_state_all()]
+        if self.mesh is not None:
+            rng["model_parallel"] = _b64(self.mesh.model_generator.get_state())
         return {"step": self.global_step, "rng": rng}
 
     def _optim_state(self) -> Dict[str, Any]:
